@@ -1,0 +1,136 @@
+"""The ACE2-ERA5 flagship configuration on random inputs.
+
+The same dicts as the JAX package's headline benchmark (bench.py:30-91,
+:544-551): NoiseConditionedSFNO with a dhconv filter, 32 isotropic noise
+channels, affine norms, a normalized big skip and bf16 compute, inside the
+single-module step with normalization, prescribed SST and the dry-air
+corrector; 38 inputs and 44 outputs at ``nz=8``. The grid, depth and
+width are arguments so that a smaller copy can be built for checks. The
+weights are drawn from a seed: no trained checkpoint ships with the repo.
+"""
+
+from datetime import timedelta
+
+import numpy as np
+import torch
+
+from ace_tpu_torch.core.coordinates import (
+    HybridSigmaPressureCoordinate,
+    LatLonCoordinates,
+    gaussian_latitudes,
+)
+from ace_tpu_torch.core.dataset_info import DatasetInfo
+from ace_tpu_torch.core.step import StepSelector
+from ace_tpu_torch.stepper.stepper import PrognosticState, Stepper, StepperConfig
+
+NLAT, NLON, NZ, EMBED, LAYERS = 180, 360, 8, 512, 8
+# limit of ``anomaly_error`` between the card and the CPU under
+# ``draw_check_weights``: bf16 rounds at other points on the two (~1%); a
+# filter that writes zeros is off by ~7%
+CHECK_TOL = 3e-2
+
+
+def names(nz: int = NZ) -> tuple[list[str], list[str], list[str]]:
+    """(prognostic, diagnostic, forcing) variable names."""
+    prognostic = (
+        [f"air_temperature_{k}" for k in range(nz)]
+        + [f"specific_total_water_{k}" for k in range(nz)]
+        + [f"eastward_wind_{k}" for k in range(nz)]
+        + [f"northward_wind_{k}" for k in range(nz)]
+        + ["PRESsfc", "surface_temperature", "h500"]
+    )
+    diagnostics = ["LHTFLsfc", "SHTFLsfc", "PRATEsfc", "ULWRFsfc",
+                   "ULWRFtoa", "DLWRFsfc", "DSWRFsfc", "USWRFsfc",
+                   "USWRFtoa"]
+    forcings = ["DSWRFtoa", "HGTsfc", "ocean_fraction"]
+    return prognostic, diagnostics, forcings
+
+
+def build_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED, layers=LAYERS,
+                  device=None) -> Stepper:
+    """The flagship stepper (weights not drawn yet) on ``device``."""
+    prognostic, diagnostics, forcings = names(nz)
+    in_names = prognostic + forcings
+    out_names = prognostic + diagnostics
+    all_names = sorted(set(in_names) | set(out_names))
+    builder = {"type": "NoiseConditionedSFNO", "config": {
+        "embed_dim": embed, "noise_embed_dim": 32,
+        "noise_type": "isotropic", "filter_type": "linear",
+        "use_mlp": True, "num_layers": layers, "operator_type": "dhconv",
+        "separable": False, "spectral_layers": 3,
+        "spectral_transform": "sht", "affine_norms": True,
+        "normalize_big_skip": True, "compute_dtype": "bfloat16",
+    }}
+    step = dict(
+        builder=builder, in_names=in_names, out_names=out_names,
+        normalization={"network": {
+            "means": {n: 0.0 for n in all_names},
+            "stds": {n: 1.0 for n in all_names},
+        }},
+        ocean={"surface_temperature_name": "surface_temperature",
+               "ocean_fraction_name": "ocean_fraction"},
+        corrector={"conserve_dry_air": True},
+    )
+    info = DatasetInfo(
+        horizontal_coordinates=LatLonCoordinates(
+            lat=gaussian_latitudes(nlat),
+            lon=np.linspace(0, 360, nlon, endpoint=False),
+        ),
+        vertical_coordinate=HybridSigmaPressureCoordinate(
+            ak=np.concatenate([np.linspace(100.0, 5000.0, nz // 2),
+                               np.linspace(5000.0, 0.0, nz // 2 + 1)]),
+            bk=np.linspace(0.0, 1.0, nz + 1),
+        ),
+        timestep=timedelta(hours=6),
+    )
+    config = StepperConfig(step=StepSelector(type="single_module", config=step))
+    return config.get_stepper(info, device=device)
+
+
+def draw_check_weights(stepper: Stepper, generator: torch.Generator):
+    """Draw the weights for a comparison of two runs of one model (card
+    against CPU): the default draw, then the parts that start at or near
+    zero made large enough that a wrong filter or conditioning shows in
+    the outputs. The noise conditioning (zero-initialized) gets std 0.1;
+    the spectral filters (std 1/(in*out)) get std 1/sqrt(in)."""
+    stepper.init_params(generator)
+    with torch.no_grad():
+        for name, p in stepper.module.named_parameters():
+            if "w_scale_2d" in name or "w_bias_2d" in name:
+                p.normal_(std=0.1, generator=generator)
+            elif name.endswith("filter.weight"):
+                p.normal_(std=p.shape[0] ** -0.5, generator=generator)
+
+
+def anomaly_error(out: torch.Tensor, ref: torch.Tensor, dim) -> float:
+    """Largest error of ``out`` against ``ref`` over the scale of ``ref``'s
+    spatial anomaly (its largest distance from its mean over the
+    horizontal ``dim``), taken per variable or channel: dimensions outside
+    ``dim`` that hold one field each are compared on their own scales."""
+    ref = ref.float()
+    scale = (ref - ref.mean(dim=dim, keepdim=True)).abs().amax(dim=dim)
+    err = (out.float() - ref).abs().amax(dim=dim)
+    return float((err / scale).max())
+
+
+def synthetic_inputs(stepper: Stepper, n_steps: int, batch: int = 1,
+                     generator: torch.Generator | None = None,
+                     ) -> tuple[PrognosticState, dict[str, torch.Tensor]]:
+    """A random initial condition and ``n_steps + 1`` forcing times on
+    the stepper's device, shaped like the benchmark's synthetic data."""
+    nlat, nlon = stepper.dataset_info.img_shape
+    kw = dict(generator=generator, device=stepper.device)
+    ic = {
+        k: torch.randn(batch, 1, nlat, nlon, **kw)
+        for k in stepper.prognostic_names
+    }
+    ic["PRESsfc"] = ic["PRESsfc"] * 100 + 1.0e5
+    for k in ic:
+        if k.startswith("specific_total_water"):
+            ic[k] = ic[k].abs() * 1e-3
+    forcing = {
+        k: torch.randn(batch, n_steps + 1, nlat, nlon, **kw)
+        for k in stepper.forcing_window_names
+    }
+    forcing["ocean_fraction"] = forcing["ocean_fraction"].abs().clamp(0, 1)
+    return PrognosticState(data=ic), forcing

@@ -1,0 +1,112 @@
+"""Where the time of a flagship rollout step goes on the GPU.
+
+    python -m ace_tpu_torch.profile_flagship [--steps N] [--out DIR]
+
+Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
+the CUDA device with weights from a seed, warms it up with one step, times
+an ``N``-step ``Stepper.predict`` (default 20) untraced, then traces a
+3-step one with ``torch.profiler``. Prints the card's name and power
+limit, the wall time per step, the device's busy and idle share of the
+traced window (the union of the trace's kernel, memcpy and memset
+intervals over the wall time), and the kernels that take the most device
+time. Writes the Chrome trace to ``DIR/flagship_trace.json`` (default
+``build/profiles``).
+"""
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ace_tpu_torch import flagship
+from ace_tpu_torch.device import get_device
+
+
+TRACED_STEPS = 3
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_events(trace_path: str) -> list[dict]:
+    """The device-side events (kernels, copies, sets) of a Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
+
+
+def busy_us(events: list[dict]) -> float:
+    """Length of the union of the events' [ts, ts + dur) intervals, in us."""
+    total, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e["ts"]):
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--out", default="build/profiles")
+    args = parser.parse_args(argv)
+
+    device = get_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip())
+
+    stepper = flagship.build_stepper(device=device)
+    stepper.init_params(torch.Generator(device).manual_seed(0))
+    ic, forcing = flagship.synthetic_inputs(
+        stepper, args.steps, generator=torch.Generator(device).manual_seed(1)
+    )
+    t0 = time.perf_counter()
+    stepper.predict(ic, {k: v[:, :2] for k, v in forcing.items()})
+    torch.cuda.synchronize()
+    print(f"first call (1 step): {time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    stepper.predict(ic, forcing)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    print(f"{args.steps} steps untraced: {wall_s:.4f} s = "
+          f"{wall_s / args.steps * 1e3:.2f} ms/step = "
+          f"{args.steps / wall_s:.3f} steps/s")
+
+    n = TRACED_STEPS
+    window = {k: v[:, : n + 1] for k, v in forcing.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stepper.predict(ic, window)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    os.makedirs(args.out, exist_ok=True)
+    trace_path = os.path.join(args.out, "flagship_trace.json")
+    prof.export_chrome_trace(trace_path)
+    events = device_events(trace_path)
+    busy_s = busy_us(events) / 1e6
+    print(f"{n} steps traced: wall {wall_s / n * 1e3:.2f} ms/step; device "
+          f"busy {busy_s / n * 1e3:.2f} ms/step ({100 * busy_s / wall_s:.1f}%), "
+          f"idle {100 * (1 - busy_s / wall_s):.1f}%")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        by_name[e["name"]][0] += e["dur"]
+        by_name[e["name"]][1] += 1
+    rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    print(f"{'device ms/step':>14} {'share':>6} {'calls/step':>10}  kernel")
+    for name, (us, count) in rows[:30]:
+        print(f"{us / 1e3 / n:14.3f} {100 * us / 1e6 / busy_s:5.1f}% "
+              f"{count / n:10.1f}  {name[:110]}")
+
+
+if __name__ == "__main__":
+    main()

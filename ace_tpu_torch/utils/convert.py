@@ -1,0 +1,37 @@
+"""Parameter conversion from the JAX package's flax trees."""
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, dict):
+            yield from _flatten(value, path)
+        else:
+            yield path, value
+
+
+def flax_params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """Turn a flax parameter tree (as ``ace_tpu`` stores it in a
+    checkpoint, with or without the top-level ``"params"`` collection)
+    into the port's ``state_dict``.
+
+    Tree paths become dotted keys. A 2-D ``kernel`` (flax ``Dense``,
+    ``[in, out]``) becomes ``weight`` transposed to ``nn.Linear``'s
+    ``[out, in]``; every other leaf keeps its name and layout (the
+    spectral weight stays ``[in, out, l, 2]``). Values keep their dtype.
+    """
+    if set(params) == {"params"}:
+        params = params["params"]
+    state = {}
+    for path, leaf in _flatten(params):
+        value = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
+            np.array(leaf, copy=True)
+        )
+        name = path[-1]
+        if name == "kernel" and value.dim() == 2:
+            name, value = "weight", value.t().contiguous()
+        state[".".join(path[:-1] + (name,))] = value
+    return state
