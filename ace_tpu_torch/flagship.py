@@ -47,8 +47,11 @@ def names(nz: int = NZ) -> tuple[list[str], list[str], list[str]]:
 
 
 def build_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED, layers=LAYERS,
-                  device=None) -> Stepper:
-    """The flagship stepper (weights not drawn yet) on ``device``."""
+                  device=None, fused_block_tail=False) -> Stepper:
+    """The flagship stepper (weights not drawn yet) on ``device``.
+    ``fused_block_tail`` sends every block's tail through the fused kernel
+    (``NoiseConditionedSFNO.use_fused_block_tail``); it is not part of the
+    model's config, as JAX checkpoints do not carry it."""
     prognostic, diagnostics, forcings = names(nz)
     in_names = prognostic + forcings
     out_names = prognostic + diagnostics
@@ -84,7 +87,9 @@ def build_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED, layers=LAYERS,
         timestep=timedelta(hours=6),
     )
     config = StepperConfig(step=StepSelector(type="single_module", config=step))
-    return config.get_stepper(info, device=device)
+    stepper = config.get_stepper(info, device=device)
+    stepper.module.use_fused_block_tail(fused_block_tail)
+    return stepper
 
 
 def draw_check_weights(stepper: Stepper, generator: torch.Generator):

@@ -7,9 +7,12 @@ both zero-initialized. Parameter names mirror the flax tree (``block_0``,
 ``norm0``, ``w_scale_2d``, ``mlp.fc1`` ...), so ``utils/convert.py`` maps a
 JAX parameter tree onto ``state_dict`` keys one to one.
 
-Not ported yet: the fused block-tail kernel (off by default in the JAX
-package), global layer norm, label conditioning, local (DISCO) blocks,
-LoRA and ``spectral_ratio``.
+The fused block tail (``ops/fused_block_tail.py``, kernel K2) is an
+explicit choice, ``NoiseConditionedSFNO.use_fused_block_tail(True)``, off
+by default as in the JAX package (where ``ACE_TPU_PALLAS_BLOCK=1`` turns
+it on). It reads the same parameters as the unfused tail, so the
+``state_dict`` is the same either way. Not ported yet: global layer norm,
+label conditioning, local (DISCO) blocks, LoRA and ``spectral_ratio``.
 """
 
 import math
@@ -20,6 +23,7 @@ from torch import nn
 
 from ace_tpu_torch.models.layers import MLP, Linear, trunc_normal_init
 from ace_tpu_torch.models.sfno import _ACTIVATIONS, SpectralConvS2
+from ace_tpu_torch.ops.fused_block_tail import fused_block_tail
 from ace_tpu_torch.ops.sht import build_isht, build_sht
 
 
@@ -93,15 +97,29 @@ class ConditionalLayerNorm(nn.Module):
 
 class ConditionalFNOBlock(nn.Module):
     """FNO block with noise-conditioned norms (port of
-    ace_tpu/models/conditional_sfno.py:224, the unfused tail), with the
-    linear inner skip and identity outer skip the SFNO builds it with."""
+    ace_tpu/models/conditional_sfno.py:224), with the linear inner skip and
+    identity outer skip the SFNO builds it with.
+
+    With ``fused_tail`` set, the tail after the filter (inner skip, GELU,
+    ``norm1``, MLP, outer skip) goes through ``fused_block_tail`` wherever
+    the block computes that function (the JAX package's gate,
+    conditional_sfno.py:301-315): bf16 activations, GELU, the MLP, and
+    noise conditioning with noise given. Otherwise the unfused tail runs.
+    The kernel's own width limits are the wrapper's to check: on the card
+    it launches or raises.
+    """
 
     def __init__(self, forward_transform, inverse_transform, embed_dim,
                  embed_dim_noise, mlp_ratio=2.0, activation="gelu",
                  use_mlp=True, affine_norms=False, dtype=torch.float32,
                  device=None):
         super().__init__()
+        self.activation = activation
         self.act = _ACTIVATIONS[activation]
+        self.embed_dim, self.embed_dim_noise = embed_dim, embed_dim_noise
+        self.hidden = int(embed_dim * mlp_ratio)
+        self.fused_tail = False
+        self._tail_weights = None
         self.norm0 = ConditionalLayerNorm(
             embed_dim, embed_dim_noise, elementwise_affine=affine_norms,
             device=device,
@@ -117,14 +135,63 @@ class ConditionalFNOBlock(nn.Module):
             device=device,
         )
         self.mlp = (
-            MLP(embed_dim, int(embed_dim * mlp_ratio), embed_dim,
+            MLP(embed_dim, self.hidden, embed_dim,
                 act=self.act, dtype=dtype, device=device)
             if use_mlp else None
         )
 
+    def _fuses(self, x_f, noise) -> bool:
+        return (
+            self.fused_tail
+            and x_f.dtype == torch.bfloat16
+            and self.mlp is not None
+            and self.activation == "gelu"
+            and self.embed_dim_noise > 0
+            and noise is not None
+        )
+
+    def tail_weights(self) -> tuple[torch.Tensor, ...]:
+        """The fused tail's weights in its layout (dense kernels ``[in,
+        out]``, all bf16): ``inner_skip``, ``norm1`` (ones and zeros
+        without affine norms) and ``mlp``, prepared once per weight
+        version (load, init or move)."""
+        norm = self.norm1.norm
+        params = [self.inner_skip.weight, self.inner_skip.bias,
+                  self.norm1.w_scale_2d.weight, self.norm1.w_bias_2d.weight,
+                  self.mlp.fc1.weight, self.mlp.fc1.bias,
+                  self.mlp.fc2.weight, self.mlp.fc2.bias]
+        if norm.weight is not None:
+            params += [norm.weight, norm.bias]
+        key = tuple((p.device, p.data_ptr(), p._version) for p in params)
+        if self._tail_weights is None or self._tail_weights[0] != key:
+            bf = torch.bfloat16
+            with torch.no_grad():
+                if norm.weight is not None:
+                    ln_w, ln_b = norm.weight, norm.bias
+                else:
+                    ln_w = torch.ones(self.embed_dim, device=params[0].device)
+                    ln_b = torch.zeros_like(ln_w)
+                weights = (
+                    self.inner_skip.weight.t(), self.inner_skip.bias,
+                    ln_w, ln_b,
+                    self.norm1.w_scale_2d.weight.t(),
+                    self.norm1.w_bias_2d.weight.t(),
+                    self.mlp.fc1.weight.t(), self.mlp.fc1.bias,
+                    self.mlp.fc2.weight.t(), self.mlp.fc2.bias,
+                )
+                self._tail_weights = (
+                    key, tuple(w.to(bf).contiguous() for w in weights)
+                )
+        return self._tail_weights[1]
+
     def forward(self, x, noise):
         x_norm = self.norm0(x, noise)
         x_f, residual = self.filter(x_norm)
+        if self._fuses(x_f, noise):
+            return fused_block_tail(
+                x_f.contiguous(), residual.contiguous(), noise.contiguous(),
+                self.tail_weights(),
+            )
         x_f = self.norm1(self.act(x_f + self.inner_skip(residual)), noise)
         if self.mlp is not None:
             x_f = self.mlp(x_f)
@@ -208,6 +275,17 @@ class NoiseConditionedSFNO(nn.Module):
         self.decoder_out = Linear(width, out_chans, bias=False, dtype=dtype,
                                   device=device)
 
+    def _blocks(self):
+        return [getattr(self, f"block_{i}") for i in range(self.num_layers)]
+
+    def use_fused_block_tail(self, enabled: bool = True):
+        """Send every block's tail through the fused kernel (where the
+        block's gate allows it) or through the unfused modules (the
+        default). The parameters are the same either way."""
+        for block in self._blocks():
+            block.fused_tail = bool(enabled)
+        return self
+
     def reset_parameters(self, generator=None):
         if self.pos_embed is not None:
             with torch.no_grad():
@@ -238,6 +316,10 @@ class NoiseConditionedSFNO(nn.Module):
     def forward(self, x, noise=None, generator=None):
         if noise is None:
             noise = self.make_noise(x.shape[0], generator)
+        if any(block.fused_tail for block in self._blocks()):
+            # the fused tail reads the noise rows in place: one copy for
+            # all blocks if the synthesized field is strided
+            noise = noise.contiguous()
         act = self.act
         if self.big_skip:
             residual = x
@@ -254,8 +336,8 @@ class NoiseConditionedSFNO(nn.Module):
         h = self.encoder_out(h)
         if self.pos_embed is not None:
             h = h + self.pos_embed.to(h.dtype)
-        for i in range(self.num_layers):
-            h = getattr(self, f"block_{i}")(h, noise)
+        for block in self._blocks():
+            h = block(h, noise)
         if self.big_skip:
             h = torch.cat([h, residual.to(h.dtype)], dim=-1)
         for i in range(self.encoder_layers):

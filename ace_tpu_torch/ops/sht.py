@@ -13,6 +13,10 @@ default, ``torch.backends.cuda.matmul.allow_tf32 = False``).
 Tables are numpy float64 precomputes cast to float32 and held as
 non-persistent buffers, so ``.to(device)`` moves them and checkpoints do
 not carry them.
+
+``RealSHT.forward_fused`` is the fused forward transform
+(``ops/fused_sht.py``, kernel K3); no model calls it, as in the JAX
+package.
 """
 
 import functools
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ace_tpu_torch.ops.fused_sht import fused_sht
 from ace_tpu_torch.ops.legendre import precompute_legpoly
 from ace_tpu_torch.ops.quadrature import (
     clenshaw_curtiss_weights,
@@ -107,6 +112,7 @@ class RealSHT(nn.Module):
                              persistent=False)
         self.register_buffer("fs", torch.as_tensor(fs, device=device),
                              persistent=False)
+        self._fused_table = None
 
     def forward_pair(self, x: torch.Tensor):
         x = x.float()
@@ -115,6 +121,27 @@ class RealSHT(nn.Module):
         cr = torch.einsum("...kmc,mlk->...lmc", xr, self.weights)
         ci = torch.einsum("...kmc,mlk->...lmc", xi, self.weights)
         return cr, ci
+
+    def fused_table(self) -> torch.Tensor:
+        """The Legendre table in the fused kernel's layout ``[k, l, m]``,
+        prepared once per device."""
+        w = self.weights
+        key = (w.device, w.data_ptr())
+        if self._fused_table is None or self._fused_table[0] != key:
+            self._fused_table = (key, w.permute(2, 1, 0).contiguous())
+        return self._fused_table[1]
+
+    def forward_fused(self, x: torch.Tensor):
+        """The forward transform in one pass (port of
+        ace_tpu/ops/sht.py:195): ``[B, K, J, C]`` only; returns (real,
+        imag) float32 ``[B, lmax, mmax, C]`` as ``forward_pair`` does.
+        The kernel (``ops/fused_sht.py``) runs for CUDA tensors; it keeps
+        the DFT intermediate on chip and masks ragged edges, so nothing is
+        padded."""
+        if x.dim() != 4:
+            raise ValueError("forward_fused needs [B, K, J, C] input")
+        return fused_sht(x.float().contiguous(), self.fc, self.fs,
+                         self.fused_table())
 
 
 class InverseRealSHT(nn.Module):

@@ -1,6 +1,7 @@
 """Where the time of a flagship rollout step goes on the GPU.
 
     python -m ace_tpu_torch.profile_flagship [--steps N] [--out DIR]
+                                             [--fused-block-tail]
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
 the CUDA device with weights from a seed, warms it up with one step, times
@@ -9,7 +10,8 @@ an ``N``-step ``Stepper.predict`` (default 20) untraced, then traces a
 limit, the wall time per step, the device's busy and idle share of the
 traced window (the union of the trace's kernel, memcpy and memset
 intervals over the wall time), and the kernels that take the most device
-time. Writes the Chrome trace to ``DIR/flagship_trace.json`` (default
+time. ``--fused-block-tail`` sends every block's tail through the fused
+kernel K2. Writes the Chrome trace to ``DIR/flagship_trace.json`` (default
 ``build/profiles``).
 """
 
@@ -54,6 +56,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--out", default="build/profiles")
+    parser.add_argument("--fused-block-tail", action="store_true",
+                        help="run each block's tail through the fused kernel")
     args = parser.parse_args(argv)
 
     device = get_device()
@@ -64,7 +68,9 @@ def main(argv=None):
         capture_output=True, text=True, check=True,
     ).stdout.strip())
 
-    stepper = flagship.build_stepper(device=device)
+    stepper = flagship.build_stepper(
+        device=device, fused_block_tail=args.fused_block_tail
+    )
     stepper.init_params(torch.Generator(device).manual_seed(0))
     ic, forcing = flagship.synthetic_inputs(
         stepper, args.steps, generator=torch.Generator(device).manual_seed(1)

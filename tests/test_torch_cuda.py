@@ -10,6 +10,12 @@ import pytest
 import torch
 
 from ace_tpu_torch.ops.dhconv_filter import dhconv_filter, dhconv_filter_plain
+from ace_tpu_torch.ops.fused_block_tail import (
+    fused_block_tail,
+    fused_block_tail_plain,
+)
+from ace_tpu_torch.ops.fused_sht import fused_sht
+from ace_tpu_torch.ops.sht import RealSHT
 
 pytestmark = pytest.mark.cuda
 
@@ -18,6 +24,8 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # the plain versions' f32 products in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -92,6 +100,125 @@ def test_small_flagship_rollout_on_card_matches_cpu(cuda, monkeypatch):
     assert dhconv_filter.launches == before + 2 * 2
     # bf16 rounds at other points on the two devices: each variable
     # within CHECK_TOL (3e-2) of its spatial anomaly
+    errs = {}
+    for k, ref in outputs["cpu"].items():
+        out = outputs["gpu"][k].cpu()
+        assert torch.isfinite(out).all(), k
+        errs[k] = flagship.anomaly_error(out, ref, (-2, -1))
+    print(f"largest error over the anomaly: {max(errs.values()):.4g}")
+    assert max(errs.values()) <= flagship.CHECK_TOL, errs
+
+
+def tail_inputs(n, c, hidden, nc, device, seed=0):
+    """Rows and weights for the fused tail, the weights drawn at std
+    1/sqrt(fan-in) so that every product shows in the output."""
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def r(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * std
+
+    bf = torch.bfloat16
+    xf, resid = r(n, c).to(bf), r(n, c).to(bf)
+    noise = r(n, nc)
+    weights = (
+        r(c, c, std=c ** -0.5), r(c, std=0.1), 1.0 + r(c, std=0.1),
+        r(c, std=0.1), r(nc, c, std=0.1), r(nc, c, std=0.1),
+        r(c, hidden, std=c ** -0.5), r(hidden, std=0.1),
+        r(hidden, c, std=hidden ** -0.5), r(c, std=0.1),
+    )
+    return xf, resid, noise, tuple(w.to(bf).contiguous() for w in weights)
+
+
+@pytest.mark.parametrize(
+    "shape", [(1000, 128, 256, 4), (64800, 512, 1024, 32)],
+    ids=["ragged", "flagship"],
+)
+def test_block_tail_kernel_matches_plain(cuda, shape):
+    """K2 against its plain version: the same bf16 products summed in
+    another order, with four bf16 rounding points between them, so 2e-2
+    of the largest output (the JAX package's fused-versus-module limit)."""
+    args = tail_inputs(*shape, cuda)
+    before = fused_block_tail.launches
+    out = fused_block_tail(*args)
+    torch.cuda.synchronize()
+    assert fused_block_tail.launches == before + 1
+    ref = fused_block_tail_plain(*args)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    scale = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.parametrize(
+    "shape", [(2, 37, 72, 96), (1, 180, 360, 512)], ids=["ragged", "flagship"]
+)
+def test_fused_sht_kernel_matches_forward_pair(cuda, shape):
+    """K3 against forward_pair (the einsum path): f32 sums of 360 and 180
+    terms in another order, so 1e-4 of the largest output."""
+    b, nlat, nlon, c = shape
+    sht = RealSHT(nlat, nlon, device=cuda)
+    x = torch.randn(*shape, generator=torch.Generator(cuda).manual_seed(0),
+                    device=cuda)
+    before = fused_sht.launches
+    out = sht.forward_fused(x)
+    torch.cuda.synchronize()
+    assert fused_sht.launches == before + 1
+    for a, ref in zip(out, sht.forward_pair(x)):
+        assert a.shape == ref.shape == (b, sht.lmax, sht.mmax, c)
+        scale = float(ref.abs().max())
+        assert float((a - ref).abs().max()) <= 1e-4 * scale
+
+
+def test_block_tail_and_sht_kernels_refuse_what_they_do_not_take(cuda):
+    xf, resid, noise, w = tail_inputs(70, 128, 256, 4, cuda)
+    with pytest.raises(ValueError, match="C % 64"):
+        fused_block_tail(xf[:, :96].contiguous(), resid[:, :96].contiguous(),
+                         noise, tail_inputs(70, 96, 256, 4, cuda)[3])
+    with pytest.raises(TypeError):
+        fused_block_tail(xf, resid, noise.double(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_block_tail(xf, resid, noise.t().contiguous().t(), w)
+    sht = RealSHT(16, 32, device=cuda)
+    x = torch.zeros(1, 16, 32, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_sht(x.transpose(1, 2).contiguous().transpose(1, 2), sht.fc,
+                  sht.fs, sht.fused_table())
+    # 1200 longitudes of staged x rows do not fit a block's shared memory
+    dft = torch.zeros(1200, 4, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_sht(torch.zeros(1, 2, 1200, 8, device=cuda), dft, dft,
+                  torch.zeros(2, 3, 4, device=cuda))
+
+
+def test_small_fused_rollout_on_card_matches_cpu(cuda, monkeypatch):
+    """The 2-step rollout check above with the fused tail on both
+    devices: K1 and K2 on the card, their plain versions on the CPU."""
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    kw = dict(nz=2, embed=128, layers=2, fused_block_tail=True)
+    cpu = flagship.build_stepper(16, 32, device="cpu", **kw)
+    gpu = flagship.build_stepper(16, 32, device=cuda, **kw)
+    flagship.draw_check_weights(cpu, torch.Generator().manual_seed(0))
+    gpu.load_state_dict(cpu.module.state_dict())
+    gpu_noise = torch.Generator().manual_seed(2)
+    monkeypatch.setattr(
+        gpu.module, "make_noise",
+        lambda batch, generator: cpu.module.make_noise(batch, gpu_noise).to(cuda),
+    )
+    ic, forcing = flagship.synthetic_inputs(
+        cpu, 2, generator=torch.Generator().manual_seed(1)
+    )
+    before = (dhconv_filter.launches, fused_block_tail.launches)
+    outputs = {}
+    for name, stepper in (("cpu", cpu), ("gpu", gpu)):
+        dev = stepper.device
+        outputs[name], _ = stepper.predict(
+            PrognosticState({k: v.to(dev) for k, v in ic.data.items()}),
+            {k: v.to(dev) for k, v in forcing.items()},
+            generator=torch.Generator().manual_seed(2) if name == "cpu" else None,
+        )
+    assert dhconv_filter.launches == before[0] + 2 * 2
+    assert fused_block_tail.launches == before[1] + 2 * 2
     errs = {}
     for k, ref in outputs["cpu"].items():
         out = outputs["gpu"][k].cpu()

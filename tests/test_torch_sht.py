@@ -83,3 +83,78 @@ def test_sht_computes_in_float32_for_bf16_input():
     ref, _ = fwd.forward_pair(x.to(torch.bfloat16).float())
     assert cr.dtype == torch.float32
     torch.testing.assert_close(cr, ref, rtol=0, atol=0)
+
+
+def test_forward_fused_matches_ace_tpu():
+    """The port's fused forward transform (its plain version on the CPU)
+    against JAX's fused Pallas transform in the interpreter, at JAX's own
+    test size and limit (tests/test_sht.py:189, atol 2e-3), and against
+    the port's forward_pair, which computes the same einsums (exact)."""
+    nlat, nlon, c = 36, 72, 64
+    x = np.random.RandomState(0).randn(1, nlat, nlon, c).astype(np.float32)
+    fwd_j = jax_sht.RealSHT(nlat, nlon, channels_last=True)
+    out_j = np.asarray(fwd_j.forward_fused(
+        jnp.asarray(x), l_tile=16, c_tile=32, k_tile=8, interpret=True
+    ))
+    fwd = sht.RealSHT(nlat, nlon, device="cpu")
+    cr, ci = fwd.forward_fused(torch.from_numpy(x))
+    assert cr.shape == (1, fwd.lmax, fwd.mmax, c) and cr.dtype == torch.float32
+    np.testing.assert_allclose(cr.numpy(), out_j.real, rtol=0, atol=2e-3)
+    np.testing.assert_allclose(ci.numpy(), out_j.imag, rtol=0, atol=2e-3)
+    ref_r, ref_i = fwd.forward_pair(torch.from_numpy(x))
+    torch.testing.assert_close(cr, ref_r, rtol=0, atol=0)
+    torch.testing.assert_close(ci, ref_i, rtol=0, atol=0)
+    # the kernel's table layout [k, l, m], prepared once
+    table = fwd.fused_table()
+    assert table.shape == (nlat, fwd.lmax, fwd.mmax)
+    assert fwd.fused_table() is table
+
+
+def test_forward_fused_refuses_what_the_kernel_does_not_take():
+    from ace_tpu_torch.ops.fused_sht import fused_sht
+
+    fwd = sht.RealSHT(NLAT, NLON, device="cpu")
+    with pytest.raises(ValueError, match="B, K, J, C"):
+        fwd.forward_fused(torch.zeros(NLAT, NLON, C))
+    x = torch.zeros(1, NLAT, NLON, C, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="requires grad"):
+        fwd.forward_fused(x)
+    meta = [t.to("meta") for t in (x.detach(), fwd.fc, fwd.fs,
+                                   fwd.fused_table())]
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        fused_sht(*meta)
+    with pytest.raises(ValueError, match="leg shape"):
+        fused_sht(x.detach(), fwd.fc, fwd.fs, fwd.weights)
+
+
+# ragged and truncated grids: odd latitude counts, lmax and mmax cut below
+# the grid's defaults, and the three quadratures
+FUSED_CASES = [
+    (16, 32, None, None, "legendre-gauss"),
+    (9, 18, None, None, "equiangular"),
+    (9, 18, None, None, "lobatto"),
+    (12, 24, 7, 9, "legendre-gauss"),
+    (13, 24, 11, 10, "equiangular"),
+]
+
+
+@pytest.mark.parametrize("nlat,nlon,lmax,mmax,grid", FUSED_CASES)
+def test_forward_fused_matches_forward_pair_on_every_grid(nlat, nlon, lmax,
+                                                          mmax, grid):
+    """forward_fused on the CPU against the port's forward_pair and JAX's
+    dense forward transform. The plain version runs forward_pair's einsums
+    on the re-laid table, which may change the CPU's summation order: 1e-6
+    of the largest output (f32 sums of at most 32 terms). Against JAX,
+    1e-5 relative, as test_sht_pair_matches_ace_tpu."""
+    x = np.random.RandomState(1).randn(2, nlat, nlon, 3).astype(np.float32)
+    kw = dict(lmax=lmax, mmax=mmax, grid=grid)
+    fwd = sht.RealSHT(nlat, nlon, device="cpu", **kw)
+    fwd_j = jax_sht.RealSHT(nlat, nlon, channels_last=True, **kw)
+    cr, ci = fwd.forward_fused(torch.from_numpy(x))
+    ref_r, ref_i = fwd.forward_pair(torch.from_numpy(x))
+    assert _rel_err(cr.numpy(), ref_r.numpy()) < 1e-6
+    assert _rel_err(ci.numpy(), ref_i.numpy()) < 1e-6
+    cr_j, ci_j = fwd_j.forward_pair(jnp.asarray(x))
+    assert cr.shape == (2, fwd.lmax, fwd.mmax, 3)
+    assert _rel_err(cr.numpy(), np.asarray(cr_j)) < 1e-5
+    assert _rel_err(ci.numpy(), np.asarray(ci_j)) < 1e-5
