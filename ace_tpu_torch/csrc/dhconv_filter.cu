@@ -7,227 +7,483 @@
 //   out_r = x_r w_r - x_i w_i        out_i = x_r w_i + x_i w_r
 //
 // x_r, x_i are f32 [B, L, M, I] (the forward SHT's output) and are rounded
-// to bf16 as they are loaded; w_r, w_i are bf16 [L, I, O]; products
-// accumulate in f32 and the outputs are bf16 [B, L, M, O] (the AMP
-// contract of ace_tpu/ops/pallas_filter.py:26-30).
+// to bf16 on chip; w_r, w_i are bf16 [L, I, O]; products accumulate in f32
+// and the outputs are bf16 [B, L, M, O] (the AMP contract of
+// ace_tpu/ops/pallas_filter.py:26-30).
 //
 // What bounds it: at the flagship shape (B=1, L=180, M=181, I=O=512) a
 // call moves ~389 MB (x f32 read once, w bf16 read once, out bf16 written
-// once) and does 68 GFLOP, so at 3.35 TB/s and 989 TFLOP/s it is bound by
-// memory (~0.116 ms against ~0.069 ms of tensor-core time).
+// once) and does 68 GFLOP, so on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16)
+// it is bound by memory: ~0.116 ms against ~0.069 ms of tensor-core time.
 //
-// What the design does about it: it keeps the TPU kernel's one idea, that
-// each staged weight tile feeds both outputs, and it reads x in f32 once
-// per output-column tile and rounds it on chip, so no bf16 copy of x is
-// ever written to device memory. Blocks are ordered with the output-column
-// tile fastest, so the blocks that share an x tile run together and find
-// it in L2. Each block computes a 64 x 64 tile of out_r and out_i: four
-// warps, each a 32 x 32 quarter, with nvcuda::wmma bf16 16x16x16 fragments
-// and f32 accumulators. The contraction over I walks in steps of 32
-// through shared memory; -x_i is staged beside x_i so that out_r is one
-// accumulator fed by two products. Ragged M and O edges are masked; I must
-// be a multiple of 32 and O a multiple of 8 (the wrapper checks). wgmma,
-// TMA and a pipelined persistent schedule are later work.
+// What the design does about it:
+// - Weight-stationary over M. A tile is one (b*l, 128-column O tile) with
+//   all M rows of that l, up to 192 (three 64-row wgmma slabs; rows past M
+//   are zero-filled by TMA and dropped by the TMA store; M > 192 takes more
+//   tiles). Each weight byte leaves device memory once per b, and x is read
+//   O/128 times (4x at O = 512), by neighbouring tiles that run together
+//   (the O tile is the fastest tile index), so mostly from L2.
+// - A persistent grid: one block per SM walks the tile list, and its
+//   producer runs ahead across tile boundaries, so one tile's epilogue
+//   overlaps the next tile's loads.
+// - A TMA + mbarrier ring of 2 stages, fed by one elected thread of a
+//   producer warpgroup. A stage is one 32-deep step of the contraction:
+//   x_r and x_i as f32 [192, 32] boxes (24 KB each) and w_r, w_i as two
+//   bf16 [32, 64] boxes each (8 KB each), all with the 128-byte swizzle:
+//   64 KB. (Three stages fit only without the output staging below, and
+//   the staging is worth more: see PERF.md.)
+// - wgmma m64n128k16, bf16 in, f32 accumulators in registers. B (the
+//   weights, O contiguous) is read from shared memory as an MN-major
+//   operand (the transpose bit). A is taken from registers: each consumer
+//   thread reads its x fragment in f32 from the swizzled stage, rounds it
+//   to bf16 in registers, and -x_i is the instruction's negate-A flag, so
+//   neither a bf16 copy of x nor a -x_i tile exists anywhere.
+// - The epilogue rounds the accumulators to bf16 in registers, writes them
+//   into a per-warpgroup swizzled staging tile and stores that by TMA
+//   (ragged M and O are clipped by the tensor map). The f32 tile never
+//   leaves registers; the store replaces 4-byte scattered stores, which
+//   had cost about half the kernel's time.
+//
+// Tiles, registers, shared memory: 512 threads, three consumer warpgroups
+// (one 64-row slab each) and one producer warpgroup, of which one thread
+// issues the copies. A consumer holds out_r and out_i for 64 x 128 as 128
+// f32 registers a thread, plus 8 for the A fragments of one 16-deep step;
+// setmaxnreg moves registers from the producer (down to 32) to the
+// consumers (up to 160), which fills the SM's 65,536 from the 128 a thread
+// the compiler gives a 512-thread block (the launcher refuses to run if it
+// gave fewer, since the consumers' request could then not be met).
+// Shared memory: 2 x 64 KB stages, 3 x 32 KB output staging, 1 KB
+// alignment and the barriers (230,432 bytes), one block per SM. The
+// wrapper checks I % 32 == 0 (whole steps) and O % 8 == 0 (16-byte TMA
+// strides).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 64;         // rows (m) of a block's output tile
-constexpr int BN = 64;         // columns (o) of a block's output tile
-constexpr int BK = 32;         // depth (i) staged per step
-constexpr int THREADS = 128;   // four warps, each a 32 x 32 quarter
-constexpr int A_LD = BK + 8;   // padded leading dims of the smem tiles
-constexpr int B_LD = BN + 8;
-constexpr int C_LD = BN + 4;
-
-constexpr int A_TILE = BM * A_LD;  // bf16 elements
-constexpr int B_TILE = BK * B_LD;
-constexpr int OPERAND_BYTES = (3 * A_TILE + 2 * B_TILE) * 2;
-constexpr int STAGE_BYTES = BM * C_LD * 4;
+constexpr int BN = 128;              // output columns (o) of a tile
+constexpr int BK = 32;               // contraction depth of a stage
+constexpr int SLABS = 3;             // 64-row wgmma slabs, one a warpgroup
+constexpr int ROWS = 64 * SLABS;     // rows (m) of a tile
+constexpr int STAGES = 2;
+constexpr int CONSUMERS = 128 * SLABS;
+constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+constexpr int X_BYTES = ROWS * BK * 4;   // one f32 x box
+constexpr int W_BOX = BK * 64 * 2;       // one bf16 [32, 64] weight box
+constexpr int W_BYTES = (BN / 64) * W_BOX;
+constexpr int STAGE_BYTES = 2 * X_BYTES + 2 * W_BYTES;
+// a consumer warpgroup's output staging: out_r and out_i for its 64 x 128
+// slab, each two [64, 64] bf16 blocks in the 128-byte swizzled layout
+constexpr int OUT_BLOCK = 64 * 128;
+constexpr int OUT_BYTES = 2 * (BN / 64) * OUT_BLOCK;
 constexpr int SMEM_BYTES =
-    OPERAND_BYTES > STAGE_BYTES ? OPERAND_BYTES : STAGE_BYTES;
+    STAGES * STAGE_BYTES + SLABS * OUT_BYTES + 1024 + 2 * STAGES * 8;
+constexpr int CONSUMER_REGS = 160;
+constexpr int PRODUCER_REGS = 32;
 
-__device__ __forceinline__ void store_bf16x4(bf16* dst, float4 v) {
-  reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(v.x, v.y);
-  reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(v.z, v.w);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Write one f32 accumulator tile, staged in smem, to a bf16 output.
-__device__ __forceinline__ void write_tile(const float* s_c, bf16* out,
-                                           int m0, int o0, int M, int O) {
-  for (int v = threadIdx.x; v < BM * (BN / 8); v += THREADS) {
-    const int row = v / (BN / 8);
-    const int col = (v % (BN / 8)) * 8;
-    if (m0 + row < M && o0 + col < O) {
-      const float4 a = *reinterpret_cast<const float4*>(s_c + row * C_LD + col);
-      const float4 b =
-          *reinterpret_cast<const float4*>(s_c + row * C_LD + col + 4);
-      uint4 packed;
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&packed);
-      p[0] = __floats2bfloat162_rn(a.x, a.y);
-      p[1] = __floats2bfloat162_rn(a.z, a.w);
-      p[2] = __floats2bfloat162_rn(b.x, b.y);
-      p[3] = __floats2bfloat162_rn(b.z, b.w);
-      *reinterpret_cast<uint4*>(out + (size_t)(m0 + row) * O + o0 + col) =
-          packed;
-    }
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS)
-dhconv_filter_kernel(const float* __restrict__ xr,
-                     const float* __restrict__ xi,
-                     const bf16* __restrict__ wr,
-                     const bf16* __restrict__ wi,
-                     bf16* __restrict__ outr, bf16* __restrict__ outi,
-                     int L, int M, int I, int O) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  bf16* s_xr = reinterpret_cast<bf16*>(smem);
-  bf16* s_xi = s_xr + A_TILE;
-  bf16* s_xn = s_xi + A_TILE;
-  bf16* s_wr = s_xn + A_TILE;
-  bf16* s_wi = s_wr + B_TILE;
-  float* s_c = reinterpret_cast<float*>(smem);
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
 
-  const int o0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const size_t bl = blockIdx.z;  // b * L + l
-  const size_t l = bl % L;
-  const float* xr_bl = xr + bl * M * I;
-  const float* xi_bl = xi + bl * M * I;
-  const bf16* wr_l = wr + l * I * O;
-  const bf16* wi_l = wi + l * I * O;
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
 
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32;
-  const int wn = (warp % 2) * 32;
+// Wait until the phase of `bar` with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_r[2][2];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_i[2][2];
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Store a box from shared memory by TMA (parts past the tensor are
+// dropped); wait until this thread's committed stores have read their
+// shared memory.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor for a tile written by TMA with the
+// 128-byte swizzle; lbo and sbo in bytes.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accumulator accesses across a fence.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc_r[i][j], 0.0f);
-      wmma::fill_fragment(acc_i[i][j], 0.0f);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 128, f32) += SCALE_A * A (64 x 16, bf16 registers) * B (16 x 128,
+// bf16 shared memory, MN-major); D is overwritten when scale_d == 0. The
+// operand lists name every accumulator register, as wgmma requires.
+template <int SCALE_A>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, %70, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(SCALE_A));
+}
+
+
+// Two consecutive f32 values of an x stage ([ROWS, 32] f32 rows of 128
+// bytes, 16-byte chunk c of row r stored at chunk c ^ (r % 8)), rounded to
+// a bf16 pair (the lower column in the low half).
+__device__ __forceinline__ uint32_t x_pair(const float* tile, int row,
+                                           int col) {
+  const int chunk = (col >> 2) ^ (row & 7);
+  const float2 v = *reinterpret_cast<const float2*>(tile + row * BK +
+                                                    chunk * 4 + (col & 3));
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// v, hidden from the compiler's loop-invariant code motion, so that
+// addresses derived from it are recomputed where they are used instead of
+// being kept in registers across the loops (the accumulators need them).
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+dhconv_filter_kernel(const __grid_constant__ CUtensorMap map_xr,
+                     const __grid_constant__ CUtensorMap map_xi,
+                     const __grid_constant__ CUtensorMap map_wr,
+                     const __grid_constant__ CUtensorMap map_wi,
+                     const __grid_constant__ CUtensorMap map_outr,
+                     const __grid_constant__ CUtensorMap map_outi, int L,
+                     int I, int n_mchunk, int n_otile, int n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* out_stage = smem + STAGES * STAGE_BYTES;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(out_stage + SLABS * OUT_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < I; k0 += BK) {
-    // x tiles: BM x BK f32 -> bf16 (and -x_i), zero rows past M
-    for (int v = threadIdx.x; v < BM * (BK / 4); v += THREADS) {
-      const int row = v / (BK / 4);
-      const int col = (v % (BK / 4)) * 4;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 b = a;
-      if (m0 + row < M) {
-        const size_t off = (size_t)(m0 + row) * I + k0 + col;
-        a = *reinterpret_cast<const float4*>(xr_bl + off);
-        b = *reinterpret_cast<const float4*>(xi_bl + off);
-      }
-      store_bf16x4(s_xr + row * A_LD + col, a);
-      store_bf16x4(s_xi + row * A_LD + col, b);
-      store_bf16x4(s_xn + row * A_LD + col,
-                   make_float4(-b.x, -b.y, -b.z, -b.w));
-    }
-    // w tiles: BK x BN bf16, zero columns past O (O % 8 == 0)
-    for (int v = threadIdx.x; v < BK * (BN / 8); v += THREADS) {
-      const int row = v / (BN / 8);
-      const int col = (v % (BN / 8)) * 8;
-      uint4 a = make_uint4(0u, 0u, 0u, 0u);
-      uint4 b = a;
-      if (o0 + col < O) {
-        const size_t off = (size_t)(k0 + row) * O + o0 + col;
-        a = *reinterpret_cast<const uint4*>(wr_l + off);
-        b = *reinterpret_cast<const uint4*>(wi_l + off);
-      }
-      *reinterpret_cast<uint4*>(s_wr + row * B_LD + col) = a;
-      *reinterpret_cast<uint4*>(s_wi + row * B_LD + col) = b;
-    }
-    __syncthreads();
-
+  const int nk = I / BK;
+  if (threadIdx.x >= CONSUMERS) {
+    // producer warpgroup: one thread issues every copy of every tile, in
+    // order; the others only hand their registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int ot = tile % n_otile;
+        const int rest = tile / n_otile;
+        const int mc = rest % n_mchunk;
+        const int bl = rest / n_mchunk;
+        const int l = bl % L;
+        for (int ks = 0; ks < nk; ++ks) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* s = smem + stage * STAGE_BYTES;
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          tma_load_3d(s, &map_xr, &full[stage], ks * BK, mc * ROWS, bl);
+          tma_load_3d(s + X_BYTES, &map_xi, &full[stage], ks * BK, mc * ROWS,
+                      bl);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          a_r[2], a_i[2], a_n[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          b_r[2], b_i[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = (wm + 16 * i) * A_LD + kk;
-        wmma::load_matrix_sync(a_r[i], s_xr + r, A_LD);
-        wmma::load_matrix_sync(a_i[i], s_xi + r, A_LD);
-        wmma::load_matrix_sync(a_n[i], s_xn + r, A_LD);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = kk * B_LD + wn + 16 * j;
-        wmma::load_matrix_sync(b_r[j], s_wr + c, B_LD);
-        wmma::load_matrix_sync(b_i[j], s_wi + c, B_LD);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::mma_sync(acc_r[i][j], a_r[i], b_r[j], acc_r[i][j]);
-          wmma::mma_sync(acc_r[i][j], a_n[i], b_i[j], acc_r[i][j]);
-          wmma::mma_sync(acc_i[i][j], a_r[i], b_i[j], acc_i[i][j]);
-          wmma::mma_sync(acc_i[i][j], a_i[i], b_r[j], acc_i[i][j]);
+          for (int b = 0; b < BN / 64; ++b) {
+            const int o = ot * BN + b * 64;
+            tma_load_3d(s + 2 * X_BYTES + b * W_BOX, &map_wr, &full[stage], o,
+                        ks * BK, l);
+            tma_load_3d(s + 2 * X_BYTES + W_BYTES + b * W_BOX, &map_wi,
+                        &full[stage], o, ks * BK, l);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
     }
-    __syncthreads();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int slab = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int r0 = slab * 64 + warp * 16 + g;  // this thread's rows r0, r0+8
+    float acc_r[64], acc_i[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc_r[i] = acc_i[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int ot = tile % n_otile;
+      const int rest = tile / n_otile;
+      const int mc = rest % n_mchunk;
+      const int bl = rest / n_mchunk;
+      for (int ks = 0; ks < nk; ++ks) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* s = smem + stage * STAGE_BYTES;
+        const float* sxr = reinterpret_cast<const float*>(s);
+        const float* sxi = reinterpret_cast<const float*>(s + X_BYTES);
+        const unsigned char* swr = s + 2 * X_BYTES;
+        const unsigned char* swi = swr + W_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          // one 16-deep step at a time, so that only its A fragments are
+          // live: 128 accumulators + 8 fragment registers
+          const int c0 = kk * 16 + 2 * t;
+          const int r = opaque(r0);
+          const uint32_t ar[4] = {
+              x_pair(sxr, r, c0), x_pair(sxr, r + 8, c0),
+              x_pair(sxr, r, c0 + 8), x_pair(sxr, r + 8, c0 + 8)};
+          const uint32_t ai[4] = {
+              x_pair(sxi, r, c0), x_pair(sxi, r + 8, c0),
+              x_pair(sxi, r, c0 + 8), x_pair(sxi, r + 8, c0 + 8)};
+          // 16 weight rows further down a [32, 64] box: 16 x 128 bytes;
+          // the two 64-column boxes of a stage are W_BOX apart (LBO), and
+          // 8-row groups 1024 bytes apart (SBO)
+          const uint64_t dwr = desc_sw128(swr + kk * 2048, W_BOX, 1024);
+          const uint64_t dwi = desc_sw128(swi + kk * 2048, W_BOX, 1024);
+          const int sd = (ks > 0 || kk > 0) ? 1 : 0;
+          wgmma_fence();
+          fence_regs(acc_r);
+          fence_regs(acc_i);
+          wgmma_rs<1>(acc_r, ar, dwr, sd);
+          wgmma_rs<-1>(acc_r, ai, dwi, 1);
+          wgmma_rs<1>(acc_i, ar, dwi, sd);
+          wgmma_rs<1>(acc_i, ai, dwr, 1);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(acc_r);
+          fence_regs(acc_i);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      // epilogue: round in registers, stage bf16 pairs (rows g and g + 8 of
+      // the warp's 16, columns 8j + 2t of the tile) in this warpgroup's
+      // swizzled staging tiles, and store them by TMA (rows past M and
+      // columns past O are dropped). The staging tiles are reused once the
+      // previous tile's store has read them.
+      unsigned char* so = out_stage + slab * OUT_BYTES;
+      if (threadIdx.x % 128 == 0) bulk_wait_read();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + slab) : "memory");
+      const int base = opaque((warp * 16 + g) * 128 + 4 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int off = base + (j / 8) * OUT_BLOCK + h * 1024 +
+                          (((j % 8) ^ g) << 4);
+          store_pair(reinterpret_cast<bf16*>(so + off), acc_r[4 * j + 2 * h],
+                     acc_r[4 * j + 2 * h + 1]);
+          store_pair(reinterpret_cast<bf16*>(so + OUT_BYTES / 2 + off),
+                     acc_i[4 * j + 2 * h], acc_i[4 * j + 2 * h + 1]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + slab) : "memory");
+      if (threadIdx.x % 128 == 0) {
+        const int m0 = mc * ROWS + slab * 64;
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b) {
+          tma_store_3d(&map_outr, so + b * OUT_BLOCK, ot * BN + b * 64, m0, bl);
+          tma_store_3d(&map_outi, so + OUT_BYTES / 2 + b * OUT_BLOCK,
+                       ot * BN + b * 64, m0, bl);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+    if (threadIdx.x % 128 == 0) {
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    }
   }
+}
 
-  // epilogue: stage each f32 tile in smem (reusing the operand space),
-  // then round to bf16 and write 16 bytes per thread
-  bf16* out_r = outr + bl * M * O;
-  bf16* out_i = outi + bl * M * O;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(s_c + (wm + 16 * i) * C_LD + wn + 16 * j,
-                              acc_r[i][j], C_LD, wmma::mem_row_major);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &status);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &status);
+#endif
+    if (status == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
     }
   }
-  __syncthreads();
-  write_tile(s_c, out_r, m0, o0, M, O);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(s_c + (wm + 16 * i) * C_LD + wn + 16 * j,
-                              acc_i[i][j], C_LD, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  write_tile(s_c, out_i, m0, o0, M, O);
+  return fn;
+}
+
+// A rank-3 tiled map over a row-major [d2, d1, d0] tensor, 128-byte swizzle.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+              const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
+              uint32_t box0, uint32_t box1) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * elem_bytes, d0 * d1 * elem_bytes};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode_tiled()(map, type, 3, const_cast<void*>(ptr), dims, strides,
+                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-// batch_l = B * L. Pointers must be 16-byte aligned and contiguous.
+// Launch on `stream`; returns a CUDA error code (0 on success).
+// batch_l = B * L. Pointers must be 16-byte aligned and contiguous,
+// I % 32 == 0 and O % 8 == 0 (the wrapper checks).
 extern "C" int dhconv_filter_forward(const void* xr, const void* xi,
                                      const void* wr, const void* wi,
                                      void* outr, void* outi, int batch_l,
                                      int L, int M, int I, int O,
                                      void* stream) {
-  const dim3 grid((O + BN - 1) / BN, (M + BM - 1) / BM, batch_l);
-  dhconv_filter_kernel<<<grid, THREADS, 0,
+  if (encode_tiled() == nullptr) return cudaErrorSymbolNotFound;
+  static int launch_regs = -1;
+  if (launch_regs < 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, dhconv_filter_kernel);
+    if (err != cudaSuccess) return err;
+    launch_regs = attr.numRegs;
+  }
+  // the consumers' setmaxnreg request must fit what the block holds
+  if (launch_regs * THREADS <
+      CONSUMERS * CONSUMER_REGS + (THREADS - CONSUMERS) * PRODUCER_REGS) {
+    return cudaErrorInvalidConfiguration;
+  }
+  CUtensorMap maps[6];
+  if (!make_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, xr, I, M,
+                batch_l, BK, ROWS) ||
+      !make_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, xi, I, M,
+                batch_l, BK, ROWS) ||
+      !make_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wr, O, I, L,
+                64, BK) ||
+      !make_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wi, O, I, L,
+                64, BK) ||
+      !make_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, outr, O, M,
+                batch_l, 64, 64) ||
+      !make_map(&maps[5], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, outi, O, M,
+                batch_l, 64, 64)) {
+    return cudaErrorInvalidValue;
+  }
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int n_mchunk = (M + ROWS - 1) / ROWS;
+  const int n_otile = (O + BN - 1) / BN;
+  const long long tiles = static_cast<long long>(batch_l) * n_mchunk * n_otile;
+  if (tiles > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dhconv_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  dhconv_filter_kernel<<<grid, THREADS, SMEM_BYTES,
                          reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xr), static_cast<const float*>(xi),
-      static_cast<const bf16*>(wr), static_cast<const bf16*>(wi),
-      static_cast<bf16*>(outr), static_cast<bf16*>(outi), L, M, I, O);
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], L, I, n_mchunk,
+      n_otile, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,17 @@ def dhconv_filter_plain(xr, xi, wr, wi, out_dtype=torch.bfloat16):
     return outr.to(out_dtype), outi.to(out_dtype)
 
 
+# the kernel's tile: all M rows of one l up to ROWS, and BN output columns
+ROWS, BN = 192, 128
+
+
+def filter_tiles(m: int, o: int) -> int:
+    """Tiles of the kernel for one (b, l): ``ceil(M / 192) * ceil(O /
+    128)``. A persistent grid of one block per SM walks ``B * L`` times
+    as many."""
+    return -(-m // ROWS) * -(-o // BN)
+
+
 def _check(xr, xi, wr, wi):
     for name, t in (("xr", xr), ("xi", xi), ("wr", wr), ("wi", wi)):
         if t.requires_grad:
@@ -96,8 +107,8 @@ def dhconv_filter(xr, xi, wr, wi, out_dtype=torch.bfloat16):
             f"dhconv_filter: the kernel needs I % 32 == 0 and O % 8 == 0, "
             f"got I={i}, O={o}"
         )
-    if batch_l > 65535 or m > 64 * 65535:
-        raise ValueError(f"dhconv_filter: grid too large for B*L={batch_l}")
+    if batch_l * filter_tiles(m, o) >= 2 ** 31:
+        raise ValueError(f"dhconv_filter: too many tiles for B*L={batch_l}")
     tensors = (xr, xi, wr, wi)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("dhconv_filter: the kernel needs contiguous tensors")
@@ -113,7 +124,10 @@ def dhconv_filter(xr, xi, wr, wi, out_dtype=torch.bfloat16):
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"dhconv_filter: kernel launch failed, cudaError {err}")
+        raise RuntimeError(
+            f"dhconv_filter: kernel launch failed, cudaError {err} (9: the "
+            "compiled kernel holds too few registers for its warpgroups)"
+        )
     dhconv_filter.launches += 1
     return outr, outi
 

@@ -25,28 +25,37 @@ import torch.nn.functional as F
 
 SOURCE = "fused_block_tail.cu"
 EPS = 1e-5
-# the kernel's row tile, and the shared memory a block may use on Hopper
+# the kernel's row tile, hidden chunk, ring of weight stages, and the
+# shared memory a block may use on Hopper
 ROWS = 64
+HIDDEN_CHUNK = 256
+STAGES, STAGE_BYTES = 3, 32768
 MAX_SMEM = 232448
 
 
 def tail_smem_bytes(c: int, hidden: int, noise: int) -> int:
-    """Dynamic shared memory of one kernel block (mirrors the layout in
-    ``csrc/fused_block_tail.cu``): the activation tile, the tile that
-    holds the residual, the noise or the hidden activations in turn, the
-    f32 staging tile and a ring of three weight stages."""
-    noise_pad = -(-max(noise, 1) // 32) * 32
-    act = ROWS * (c + 8) * 2
-    big = ROWS * (max(c, hidden, noise_pad) + 8) * 2
-    return act + big + ROWS * 68 * 4 + 3 * 32 * 72 * 2
+    """Dynamic shared memory of one kernel block, as
+    ``csrc/fused_block_tail.cu`` lays it out: 1 KB to align the base to
+    the 128-byte swizzle's 1024-byte period, the ring of weight stages, the
+    t/y tile (64 rows x C bf16), the tile that holds the residual, then
+    the staged skip product, then the noise (padded to a multiple of 64
+    channels), then each hidden chunk, and ten 8-byte barriers (the ring's
+    full and empty ones, and those of the residual and x_f tiles).
+    ``hidden`` does not enter: the hidden activations exist one 256-column
+    chunk at a time."""
+    del hidden
+    noise_pad = -(-max(noise, 1) // 64) * 64
+    second = max(c, noise_pad, HIDDEN_CHUNK)
+    return (1024 + STAGES * STAGE_BYTES + ROWS * c * 2 + ROWS * second * 2
+            + 10 * 8)
 
 
 def tail_shapes_supported(c: int, hidden: int, noise: int) -> bool:
     """Widths the kernel takes: C and hidden in whole 64-column tiles, at
-    least one noise channel, and a row tile that fits one block's shared
-    memory. The TPU's 128-lane rule does not apply."""
-    return (c % 64 == 0 and hidden % 64 == 0 and noise >= 1
-            and tail_smem_bytes(c, hidden, noise) <= MAX_SMEM)
+    least one noise channel, and a block that fits one SM's shared memory
+    (C up to 512). The TPU's 128-lane rule does not apply."""
+    return (c % 64 == 0 and hidden % 64 == 0 and c > 0 and hidden > 0
+            and noise >= 1 and tail_smem_bytes(c, hidden, noise) <= MAX_SMEM)
 
 
 def fused_block_tail_plain(xf, resid, noise, weights):

@@ -13,7 +13,7 @@
    the kernel, the plain version and what the port runs in its place
    (one PyTorch library call for K1, the unfused tail for K2,
    ``RealSHT.forward_pair`` for K3), beside the least time the card
-   could take.
+   could take (``bound_share`` = bound / kernel time).
 4. Reference phase: runs a small bf16 model on the card (kernels) and on
    the CPU (plain versions) with the same weights and noise, unfused
    (K1) and with the fused tail (K1 and K2), and compares.
@@ -563,6 +563,7 @@ def main() -> int:
     for name, row in kernels.items():
         row["launches"] = by_path[own_path[name]][name]
         row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

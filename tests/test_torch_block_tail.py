@@ -313,3 +313,39 @@ def test_wrapper_refuses_mismatched_shapes():
         tail.fused_block_tail(xf, resid, noise, w[:9])
     with pytest.raises(ValueError):
         tail.fused_block_tail(xf, resid, noise, (w[0][:, :64],) + w[1:])
+
+
+def _source_constant(name):
+    """An ``int`` constexpr of the kernel source, as the compiler sees it."""
+    import re
+    from ace_tpu_torch.ops.kernel_build import CSRC_DIR
+
+    text = (CSRC_DIR / tail.SOURCE).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize(
+    "shape", [(512, 1024, 32), (192, 384, 33), (64, 64, 1), (128, 256, 200)]
+)
+def test_smem_bytes_follow_the_kernel_source(shape):
+    """``tail_smem_bytes`` is the layout the kernel carves: 1 KB to align
+    the swizzled tiles, the ring, the 64-row t/y tile, the second tile (at
+    least one 256-column hidden chunk, or the noise padded to 64) and ten
+    barriers; the hidden width does not enter."""
+    c, hidden, nc = shape
+    rows, stages = _source_constant("ROWS"), _source_constant("STAGES")
+    stage, chunk = _source_constant("STAGE_BYTES"), _source_constant("HC")
+    assert (rows, stages, stage, chunk) == (
+        tail.ROWS, tail.STAGES, tail.STAGE_BYTES, tail.HIDDEN_CHUNK)
+    second = max(c, -(-nc // 64) * 64, chunk)
+    want = 1024 + stages * stage + rows * 2 * (c + second) + 10 * 8
+    assert tail.tail_smem_bytes(c, hidden, nc) == want
+    assert tail.tail_smem_bytes(c, 4 * hidden, nc) == want
+
+
+def test_smem_bytes_at_the_flagship_match_the_source_note():
+    from ace_tpu_torch.ops.kernel_build import CSRC_DIR
+
+    note = (CSRC_DIR / tail.SOURCE).read_text()
+    assert "230,480 bytes at C = 512" in note
+    assert tail.tail_smem_bytes(512, 1024, 32) == 230480 <= tail.MAX_SMEM

@@ -29,9 +29,18 @@ def cuda():
     return torch.device("cuda")
 
 
+# the kernel's tile edges: M against its three 64-row slabs and 192-row
+# chunks, O against its 128-column tiles and 64-column TMA boxes
+_FILTER_EDGES = [(2, 3, m, 96, o) for m in (1, 64, 65, 181, 193)
+                 for o in (8, 120, 136, 512)]
+
+
 @pytest.mark.parametrize(
-    "shape", [(1, 180, 181, 512, 512), (2, 3, 181, 96, 200), (1, 2, 5, 32, 8)],
-    ids=["flagship", "ragged", "tiny"],
+    "shape",
+    [(1, 180, 181, 512, 512), (2, 3, 181, 96, 200), (1, 2, 5, 32, 8)]
+    + _FILTER_EDGES,
+    ids=["flagship", "ragged", "tiny"]
+    + [f"M{s[2]}-O{s[4]}" for s in _FILTER_EDGES],
 )
 def test_dhconv_kernel_matches_plain(cuda, shape):
     """The kernel against its plain version at the flagship shape and at
@@ -58,6 +67,10 @@ def test_dhconv_kernel_refuses_shapes_it_does_not_take(cuda):
     w = torch.zeros(2, 48, 8, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         dhconv_filter(x, x, w, w)
+    # O % 8 != 0: the weight and output rows are no whole 16-byte TMA strides
+    w12 = torch.zeros(2, 32, 12, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="O % 8"):
+        dhconv_filter(x[..., :32], x[..., :32], w12, w12)
     with pytest.raises(NotImplementedError):
         dhconv_filter(x[..., :32], x[..., :32], w[:, :32], w[:, :32],
                       out_dtype=torch.float32)
@@ -129,9 +142,17 @@ def tail_inputs(n, c, hidden, nc, device, seed=0):
     return xf, resid, noise, tuple(w.to(bf).contiguous() for w in weights)
 
 
+# the kernel's tile edges: N against its 64-row tiles, C against the two
+# warpgroups' 64-column blocks (odd at 192), hidden against its 256-column
+# chunks, the noise against its 32-row weight stages and 64-channel tile
+_TAIL_EDGES = [(n, c, h, nc) for n in (1, 127, 128, 129) for c in (64, 192, 512)
+               for h in (64, 1024) for nc in (1, 4, 32, 33)]
+
+
 @pytest.mark.parametrize(
-    "shape", [(1000, 128, 256, 4), (64800, 512, 1024, 32)],
-    ids=["ragged", "flagship"],
+    "shape", [(1000, 128, 256, 4), (64800, 512, 1024, 32)] + _TAIL_EDGES,
+    ids=["ragged", "flagship"] + ["N{}-C{}-H{}-nc{}".format(*s)
+                                  for s in _TAIL_EDGES],
 )
 def test_block_tail_kernel_matches_plain(cuda, shape):
     """K2 against its plain version: the same bf16 products summed in
@@ -177,6 +198,10 @@ def test_block_tail_and_sht_kernels_refuse_what_they_do_not_take(cuda):
         fused_block_tail(xf, resid, noise.double(), w)
     with pytest.raises(ValueError, match="contiguous"):
         fused_block_tail(xf, resid, noise.t().contiguous().t(), w)
+    # C = 576: the tiles of a block no longer fit its shared memory
+    args = tail_inputs(70, 576, 64, 4, cuda)
+    with pytest.raises(ValueError, match="shared"):
+        fused_block_tail(*args)
     sht = RealSHT(16, 32, device=cuda)
     x = torch.zeros(1, 16, 32, 8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):

@@ -98,3 +98,26 @@ def test_wrapper_refuses_misuse(misuse):
         error = ValueError
     with pytest.raises(error):
         dhconv_filter(xr, xi, wr, wi)
+
+
+def _source_constant(name):
+    """An ``int`` constexpr of the kernel source, as the compiler sees it."""
+    import re
+    from ace_tpu_torch.ops import dhconv_filter as module
+    from ace_tpu_torch.ops.kernel_build import CSRC_DIR
+
+    text = (CSRC_DIR / module.SOURCE).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_filter_tiles_follow_the_kernel_source():
+    """The wrapper's tile count (its grid check) uses the kernel's tile:
+    three 64-row slabs and 128 output columns."""
+    from ace_tpu_torch.ops import dhconv_filter as module
+
+    assert module.BN == _source_constant("BN")
+    assert module.ROWS == 64 * _source_constant("SLABS")
+    assert module.filter_tiles(181, 512) == 4  # the flagship: 720 per call
+    assert module.filter_tiles(192, 128) == 1
+    assert module.filter_tiles(193, 129) == 4
+    assert module.filter_tiles(1, 8) == 1
