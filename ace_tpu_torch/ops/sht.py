@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ace_tpu_torch.ops.fused_sht import fused_sht
+from ace_tpu_torch.ops.fused_sht import fused_sht, kernel_tables
 from ace_tpu_torch.ops.legendre import precompute_legpoly
 from ace_tpu_torch.ops.quadrature import (
     clenshaw_curtiss_weights,
@@ -54,7 +54,7 @@ def quadrature_for_grid(grid: str, nlat: int):
 
 @functools.lru_cache(maxsize=32)
 def _dft_matrices(nlon: int, mmax: int):
-    """Forward/inverse real-DFT matrices for the lon axis.
+    """Forward/inverse real-DFT matrices for the lon axis, float64.
 
     Forward: ``xm = x @ (cosF - i sinF)`` equals ``rfft(x)`` rows
     0..mmax-1 (zero rows beyond nlon//2+1 if mmax is larger), scaled by
@@ -66,19 +66,19 @@ def _dft_matrices(nlon: int, mmax: int):
     ang = 2.0 * np.pi * np.outer(j, m) / nlon  # [nlon, mmax]
     valid = m <= nlon // 2  # modes beyond nyquist are zero-padding
     scale = 2.0 * np.pi / nlon
-    fwd_cos = (scale * np.cos(ang) * valid).astype(np.float32)
-    fwd_sin = (-scale * np.sin(ang) * valid).astype(np.float32)
+    fwd_cos = scale * np.cos(ang) * valid
+    fwd_sin = -scale * np.sin(ang) * valid
     # inverse: f_j = sum_m alpha_m (cr_m cos - ci_m sin)
     alpha = np.where((m == 0) | (2 * m == nlon), 1.0, 2.0) * valid
-    inv_cos = (alpha[:, None] * np.cos(ang.T)).astype(np.float32)  # [mmax, nlon]
-    inv_sin = (-alpha[:, None] * np.sin(ang.T)).astype(np.float32)
+    inv_cos = alpha[:, None] * np.cos(ang.T)  # [mmax, nlon]
+    inv_sin = -alpha[:, None] * np.sin(ang.T)
     return fwd_cos, fwd_sin, inv_cos, inv_sin
 
 
 @functools.lru_cache(maxsize=16)
 def _legendre_table(nlat: int, lmax: int, mmax: int, grid: str, norm: str,
                     csphase: bool, inverse: bool) -> np.ndarray:
-    """[m, l, k] float32 Legendre table; the forward one carries the
+    """[m, l, k] float64 Legendre table; the forward one carries the
     quadrature weights (weights are symmetric in latitude, so no flip)."""
     cost, w, _ = quadrature_for_grid(grid, nlat)
     # colatitudes ascending (north pole first)
@@ -87,7 +87,11 @@ def _legendre_table(nlat: int, lmax: int, mmax: int, grid: str, norm: str,
                              csphase=csphase)
     if not inverse:
         pct = pct * w[None, None, :]
-    return pct.astype(np.float32)
+    return pct
+
+
+def _f32(table: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(table, dtype=torch.float32, device=device)
 
 
 class RealSHT(nn.Module):
@@ -106,13 +110,11 @@ class RealSHT(nn.Module):
         table = _legendre_table(nlat, self.lmax, self.mmax, grid, norm,
                                 csphase, False)
         fc, fs, _, _ = _dft_matrices(nlon, self.mmax)
-        self.register_buffer("weights", torch.as_tensor(table, device=device),
-                             persistent=False)
-        self.register_buffer("fc", torch.as_tensor(fc, device=device),
-                             persistent=False)
-        self.register_buffer("fs", torch.as_tensor(fs, device=device),
-                             persistent=False)
-        self._fused_table = None
+        self.register_buffer("weights", _f32(table, device), persistent=False)
+        self.register_buffer("fc", _f32(fc, device), persistent=False)
+        self.register_buffer("fs", _f32(fs, device), persistent=False)
+        self.norm, self.csphase = norm, csphase
+        self._kernel_tables = None
 
     def forward_pair(self, x: torch.Tensor):
         x = x.float()
@@ -123,25 +125,43 @@ class RealSHT(nn.Module):
         return cr, ci
 
     def fused_table(self) -> torch.Tensor:
-        """The Legendre table in the fused kernel's layout ``[k, l, m]``,
-        prepared once per device."""
+        """The Legendre table in the fused transform's layout ``[k, l, m]``:
+        a view of ``weights``, so it costs no memory."""
+        return self.weights.permute(2, 1, 0)
+
+    def kernel_tables(self):
+        """The fused kernel's split TF32 tables
+        (``ops/fused_sht.py:kernel_tables``), prepared once per device."""
         w = self.weights
         key = (w.device, w.data_ptr())
-        if self._fused_table is None or self._fused_table[0] != key:
-            self._fused_table = (key, w.permute(2, 1, 0).contiguous())
-        return self._fused_table[1]
+        if self._kernel_tables is None or self._kernel_tables[0] != key:
+            self._kernel_tables = (
+                key, kernel_tables(self.fc, self.fs, self.fused_table())
+            )
+        return self._kernel_tables[1]
+
+    def tables_float64(self):
+        """``(fc, fs, weights)`` as float64 numpy arrays, before the
+        float32 cast: for measuring a transform's error against an exact
+        evaluation."""
+        fc, fs, _, _ = _dft_matrices(self.nlon, self.mmax)
+        table = _legendre_table(self.nlat, self.lmax, self.mmax, self.grid,
+                                self.norm, self.csphase, False)
+        return fc, fs, table
 
     def forward_fused(self, x: torch.Tensor):
-        """The forward transform in one pass (port of
+        """The forward transform in one call (port of
         ace_tpu/ops/sht.py:195): ``[B, K, J, C]`` only; returns (real,
         imag) float32 ``[B, lmax, mmax, C]`` as ``forward_pair`` does.
-        The kernel (``ops/fused_sht.py``) runs for CUDA tensors; it keeps
-        the DFT intermediate on chip and masks ragged edges, so nothing is
+        The kernel (``ops/fused_sht.py``) runs for CUDA tensors, in split
+        TF32 on the tensor cores, and masks ragged edges, so nothing is
         padded."""
         if x.dim() != 4:
             raise ValueError("forward_fused needs [B, K, J, C] input")
-        return fused_sht(x.float().contiguous(), self.fc, self.fs,
-                         self.fused_table())
+        x = x.float().contiguous()
+        tables = self.kernel_tables() if x.device.type == "cuda" else None
+        return fused_sht(x, self.fc, self.fs, self.fused_table(),
+                         tables=tables)
 
 
 class InverseRealSHT(nn.Module):
@@ -160,12 +180,9 @@ class InverseRealSHT(nn.Module):
         table = _legendre_table(nlat, self.lmax, self.mmax, grid, norm,
                                 csphase, True)
         _, _, ic, is_ = _dft_matrices(nlon, self.mmax)
-        self.register_buffer("pct", torch.as_tensor(table, device=device),
-                             persistent=False)
-        self.register_buffer("ic", torch.as_tensor(ic, device=device),
-                             persistent=False)
-        self.register_buffer("is_", torch.as_tensor(is_, device=device),
-                             persistent=False)
+        self.register_buffer("pct", _f32(table, device), persistent=False)
+        self.register_buffer("ic", _f32(ic, device), persistent=False)
+        self.register_buffer("is_", _f32(is_, device), persistent=False)
 
     def inverse_pair(self, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
         xr = torch.einsum("...lmc,mlk->...kmc", cr.float(), self.pct)

@@ -12,8 +12,10 @@
    the card, at the main path's shapes and at a ragged shape, and times
    the kernel, the plain version and what the port runs in its place
    (one PyTorch library call for K1, the unfused tail for K2,
-   ``RealSHT.forward_pair`` for K3), beside the least time the card
-   could take (``bound_share`` = bound / kernel time).
+   ``RealSHT.forward_pair`` and one three-operand einsum for K3), beside
+   the least time the card could take (``bound_share`` = bound / kernel
+   time). K3 and ``forward_pair`` are also held against a float64
+   evaluation of the same transform.
 4. Reference phase: runs a small bf16 model on the card (kernels) and on
    the CPU (plain versions) with the same weights and noise, unfused
    (K1) and with the fused tail (K1 and K2), and compares.
@@ -45,16 +47,18 @@ import sys
 import time
 
 N_STEPS = 20
-# published H100 SXM peaks (dense bf16 tensor cores, f32 outside the
-# tensor cores, HBM3)
+# published H100 SXM peaks (dense bf16 and TF32 tensor cores, f32 outside
+# the tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 BF16_TOL = 8e-3  # of the largest output: the final bf16 rounding
 # K2: four bf16 rounding points between the products, the JAX package's
 # fused-versus-module limit (tests/test_pallas_block.py)
 TAIL_TOL = 2e-2
-# K3: f32 sums of 360 and 180 terms in another order
+# K3: split-TF32 products (about 22 mantissa bits) summed over 360 and 180
+# terms in another order
 SHT_TOL = 1e-4
 
 
@@ -248,8 +252,9 @@ def block_tail_phase(gen, block):
 
 def sht_phase(gen, sht):
     """Kernel K3 (``RealSHT.forward_fused``) against ``forward_pair`` at a
-    ragged transform and on the flagship's own transform ``sht``; times
-    of the kernel, its plain version and ``forward_pair``."""
+    ragged transform and on the flagship's own transform ``sht``; both
+    against a float64 evaluation; times of the kernel, its plain version,
+    ``forward_pair`` and one three-operand einsum."""
     import torch
 
     from ace_tpu_torch.ops.fused_sht import fused_sht_plain
@@ -273,10 +278,32 @@ def sht_phase(gen, sht):
     shape = (1, sht.nlat, sht.nlon, flagship.EMBED)
     x = torch.randn(*shape, generator=gen, device="cuda")
     err, tol = check(sht, x, "flagship [1,180,360,512]")
+
+    # accuracy against a float64 evaluation from the float64 tables
+    fc, fs, w = (torch.as_tensor(t, device="cuda")
+                 for t in sht.tables_float64())
+    x64 = x.double()
+    exact = [torch.einsum("bkmc,mlk->blmc",
+                          torch.einsum("bkjc,jm->bkmc", x64, d), w)
+             for d in (fc, fs)]
+    err64 = {}
+    for name, fn in (("kernel", sht.forward_fused),
+                     ("forward_pair", sht.forward_pair)):
+        e, scale64 = max_err(fn(x), exact)
+        err64[name] = e / scale64
+    del exact, x64
+    print(f"fused_sht flagship vs float64: kernel {err64['kernel']:.3e}, "
+          f"forward_pair {err64['forward_pair']:.3e} of the largest output "
+          f"(the gate against forward_pair: {SHT_TOL:.0e})")
+
     table = sht.fused_table()
-    ms = cuda_ms(lambda: sht.forward_fused(x), 10)
+    dft = torch.stack((sht.fc, sht.fs), dim=1)  # [J, 2, M]
+    ms = cuda_ms(lambda: sht.forward_fused(x), 20)
     plain_ms = cuda_ms(lambda: fused_sht_plain(x, sht.fc, sht.fs, table), 10)
     pair_ms = cuda_ms(lambda: sht.forward_pair(x), 10)
+    # the same function as one library call (timed only, never used)
+    library_ms = cuda_ms(
+        lambda: torch.einsum("bkjc,jnm,klm->bnlmc", x, dft, table), 10)
     b, k, j, c = shape
     l, m = sht.lmax, sht.mmax
     n_bytes = (x.numel() + 2 * b * l * m * c
@@ -289,14 +316,22 @@ def sht_phase(gen, sht):
     leg_pairs = int((table != 0).any(0).sum())
     flops = 2 * b * k * j * dft_cols * c + 4 * b * k * leg_pairs * c
     dense_flops = 4 * b * k * j * m * c + 4 * b * l * k * m * c
-    bound_ms, bound_by, bytes_ms, flops_ms = bound(n_bytes, flops,
-                                                   PEAK_F32_FLOPS)
+    # an f32-accurate result either in f32 outside the tensor cores or as
+    # three TF32 products per product: the faster of the two bounds it
+    f32_ms = flops / PEAK_F32_FLOPS * 1e3
+    tf32_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    peak = PEAK_F32_FLOPS if f32_ms <= tf32_ms else PEAK_TF32_FLOPS / 3
+    bound_ms, bound_by, bytes_ms, _ = bound(n_bytes, flops, peak)
     print(f"fused_sht flagship: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"forward_pair (the einsum path the rollout runs; not one library "
-          f"call) {pair_ms:.4f} ms; bound: {n_bytes / 1e6:.1f} MB -> "
-          f"{bytes_ms:.4f} ms, {flops / 1e9:.2f} GFLOP (f32; {leg_pairs} "
-          f"nonzero (l, m) pairs, {dft_cols} DFT columns; the dense count "
-          f"is {dense_flops / 1e9:.2f} GFLOP) -> {flops_ms:.4f} ms")
+          f"forward_pair (the einsum path the rollout runs) {pair_ms:.4f} "
+          f"ms, library (one three-operand f32 einsum) {library_ms:.4f} ms; "
+          f"bound: {n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, "
+          f"{flops / 1e9:.2f} GFLOP ({leg_pairs} nonzero (l, m) pairs, "
+          f"{dft_cols} DFT columns; the dense count is "
+          f"{dense_flops / 1e9:.2f} GFLOP) -> {f32_ms:.4f} ms in f32 at "
+          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, {tf32_ms:.4f} ms as three "
+          f"TF32 products at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
     return {
         "name": "fused_sht", "route": "cuda",
         "source": "ace_tpu_torch/csrc/fused_sht.cu",
@@ -304,7 +339,10 @@ def sht_phase(gen, sht):
         "launches": None, "max_abs_err": err, "tol": tol,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "forward_pair_ms": pair_ms,
+        "library_ms": library_ms, "forward_pair_ms": pair_ms,
+        "f32_compute_ms": f32_ms, "split_tf32_compute_ms": tf32_ms,
+        "rel_err_vs_float64": err64["kernel"],
+        "forward_pair_rel_err_vs_float64": err64["forward_pair"],
     }
 
 

@@ -169,15 +169,41 @@ def test_block_tail_kernel_matches_plain(cuda, shape):
     assert float((out.float() - ref.float()).abs().max()) <= 2e-2 * scale
 
 
-@pytest.mark.parametrize(
-    "shape", [(2, 37, 72, 96), (1, 180, 360, 512)], ids=["ragged", "flagship"]
+# (B, nlat, nlon, C, lmax, mmax, grid) at the kernel's tile edges: the
+# 32-deep stages over K (phase 2) and J (phase 1), the 128-row tiles over
+# C (phase 1) and 2C (phase 2), the 64-column chunks and 192-column tiles
+# over 2M (phase 1) and L (phase 2), L < M, the other grids, B = 2
+_SHT_EDGES = (
+    [(1, k, 40, 64, None, None, "legendre-gauss") for k in (31, 32, 33)]
+    + [(1, 16, j, 8, None, None, "legendre-gauss") for j in (63, 64, 65)]
+    + [(1, 16, 32, c, None, None, "legendre-gauss")
+       for c in (60, 64, 68, 124, 128, 132)]
+    + [(1, 70, 16, 8, l, None, "legendre-gauss") for l in (63, 64, 65)]
+    + [(1, 200, 16, 8, l, None, "legendre-gauss") for l in (191, 192, 193)]
+    + [(1, 16, 200, 8, None, m, "legendre-gauss")
+       for m in (31, 32, 33, 95, 96, 97)]
+    + [(1, 12, 48, 8, 7, 20, "legendre-gauss"),
+       (2, 33, 64, 32, None, None, "lobatto"),
+       (2, 33, 64, 32, None, None, "equiangular"),
+       (2, 40, 80, 128, None, None, "legendre-gauss")]
 )
-def test_fused_sht_kernel_matches_forward_pair(cuda, shape):
-    """K3 against forward_pair (the einsum path): f32 sums of 360 and 180
-    terms in another order, so 1e-4 of the largest output."""
-    b, nlat, nlon, c = shape
-    sht = RealSHT(nlat, nlon, device=cuda)
-    x = torch.randn(*shape, generator=torch.Generator(cuda).manual_seed(0),
+
+
+@pytest.mark.parametrize(
+    "case",
+    [(2, 37, 72, 96, None, None, "legendre-gauss"),
+     (1, 180, 360, 512, None, None, "legendre-gauss")] + _SHT_EDGES,
+    ids=["ragged", "flagship"]
+    + ["B{}-K{}-J{}-C{}-L{}-M{}-{}".format(*s) for s in _SHT_EDGES],
+)
+def test_fused_sht_kernel_matches_forward_pair(cuda, case):
+    """K3 against forward_pair (the einsum path, f32): split-TF32 products
+    (about 22 mantissa bits) summed in another order over 360 and 180
+    terms, so 1e-4 of the largest output."""
+    b, nlat, nlon, c, lmax, mmax, grid = case
+    sht = RealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid, device=cuda)
+    x = torch.randn(b, nlat, nlon, c,
+                    generator=torch.Generator(cuda).manual_seed(0),
                     device=cuda)
     before = fused_sht.launches
     out = sht.forward_fused(x)
@@ -207,11 +233,15 @@ def test_block_tail_and_sht_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fused_sht(x.transpose(1, 2).contiguous().transpose(1, 2), sht.fc,
                   sht.fs, sht.fused_table())
-    # 1200 longitudes of staged x rows do not fit a block's shared memory
-    dft = torch.zeros(1200, 4, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_sht(torch.zeros(1, 2, 1200, 8, device=cuda), dft, dft,
-                  torch.zeros(2, 3, 4, device=cuda))
+    # C % 4 != 0: the rows of x are no whole 16-byte TMA strides
+    with pytest.raises(ValueError, match="C % 4"):
+        fused_sht(torch.zeros(1, 16, 32, 6, device=cuda), sht.fc, sht.fs,
+                  sht.fused_table())
+    # split tables of another transform
+    other = RealSHT(16, 32, lmax=8, device=cuda)
+    with pytest.raises(ValueError, match="tables"):
+        fused_sht(x, sht.fc, sht.fs, sht.fused_table(),
+                  tables=other.kernel_tables())
 
 
 def test_small_fused_rollout_on_card_matches_cpu(cuda, monkeypatch):

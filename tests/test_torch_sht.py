@@ -104,10 +104,19 @@ def test_forward_fused_matches_ace_tpu():
     ref_r, ref_i = fwd.forward_pair(torch.from_numpy(x))
     torch.testing.assert_close(cr, ref_r, rtol=0, atol=0)
     torch.testing.assert_close(ci, ref_i, rtol=0, atol=0)
-    # the kernel's table layout [k, l, m], prepared once
+    # the plain version's table layout [k, l, m], a view of the weights;
+    # the kernel's split tables, K-major and padded to 16-byte rows,
+    # prepared once
     table = fwd.fused_table()
     assert table.shape == (nlat, fwd.lmax, fwd.mmax)
-    assert fwd.fused_table() is table
+    assert table.data_ptr() == fwd.weights.data_ptr()
+    d_hi, d_lo, leg_hi, leg_lo = fwd.kernel_tables()
+    assert d_hi.shape == d_lo.shape == (2 * fwd.mmax, nlon)
+    assert leg_hi.shape == leg_lo.shape == (fwd.mmax, fwd.lmax, nlat)
+    torch.testing.assert_close(d_hi[0::2] + d_lo[0::2], fwd.fc.t())
+    torch.testing.assert_close(d_hi[1::2] + d_lo[1::2], fwd.fs.t())
+    torch.testing.assert_close(leg_hi + leg_lo, fwd.weights)
+    assert fwd.kernel_tables()[0] is d_hi
 
 
 def test_forward_fused_refuses_what_the_kernel_does_not_take():
@@ -158,3 +167,99 @@ def test_forward_fused_matches_forward_pair_on_every_grid(nlat, nlon, lmax,
     assert cr.shape == (2, fwd.lmax, fwd.mmax, 3)
     assert _rel_err(cr.numpy(), np.asarray(cr_j)) < 1e-5
     assert _rel_err(ci.numpy(), np.asarray(ci_j)) < 1e-5
+
+
+# the kernel's host-side split (ops/fused_sht.py:split_tf32) and the
+# arithmetic of its split-TF32 products, emulated on the CPU
+
+
+def _low_bits(t):
+    return int((t.view(torch.int32) & 0x1FFF).abs().max())
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_split_tf32_tables_keep_22_bits(grid):
+    """hi and lo are exact TF32 values (low 13 bits zero), and hi + lo
+    gives back every entry of the f32 DFT and Legendre tables within
+    2^-21 of its magnitude; hi alone is only TF32's 2^-11."""
+    from ace_tpu_torch.ops.fused_sht import split_tf32
+
+    fwd = sht.RealSHT(NLAT, NLON, grid=grid, device="cpu")
+    for t in (fwd.fc, fwd.fs, fwd.weights):
+        hi, lo = split_tf32(t)
+        assert _low_bits(hi) == 0 and _low_bits(lo) == 0
+        err = (hi.double() + lo.double() - t.double()).abs()
+        assert bool((err <= 2.0 ** -21 * t.double().abs()).all())
+        assert float((hi - t).abs().max()) > 2.0 ** -21 * float(t.abs().max())
+
+
+def test_split_tf32_rounds_to_nearest_ties_away():
+    """The host split rounds as the kernel's cvt.rna.tf32.f32: to nearest,
+    ties away from zero, never truncating."""
+    from ace_tpu_torch.ops.fused_sht import split_tf32
+
+    ulp = 2.0 ** -10  # TF32's ulp at 1
+    v = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp * 0.49,
+                      1 + ulp * 0.51, 1 + 1.5 * ulp], dtype=torch.float32)
+    hi, lo = split_tf32(v)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + ulp, 1 + 2 * ulp])
+    torch.testing.assert_close(hi, want, rtol=0, atol=0)
+    torch.testing.assert_close(hi + lo, v, rtol=0, atol=0)
+    with pytest.raises(TypeError):
+        split_tf32(v.double())
+
+
+def _split_product(a, b, equation):
+    """lo*hi + hi*lo + hi*hi in f32, both operands split as the kernel
+    splits them (the same three products, without the tensor cores)."""
+    from ace_tpu_torch.ops.fused_sht import split_tf32
+
+    a_hi, a_lo = split_tf32(a.contiguous())
+    b_hi, b_lo = split_tf32(b.contiguous())
+    return (torch.einsum(equation, a_lo, b_hi)
+            + torch.einsum(equation, a_hi, b_lo)
+            + torch.einsum(equation, a_hi, b_hi))
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_split_tf32_transform_is_f32_accurate(grid):
+    """The kernel's arithmetic, emulated: the DFT and the Legendre
+    contraction each as three split products in f32, on a 16 x 32 grid
+    with C = 8, against a float64 evaluation from the float64 tables. The
+    plain f32 version is ~2e-7 of the largest output off; the emulation
+    must stay within 1e-6 (single-pass TF32 is ~5e-4 off)."""
+    from ace_tpu_torch.ops.fused_sht import fused_sht_plain
+
+    fwd = sht.RealSHT(NLAT, NLON, grid=grid, device="cpu")
+    x = torch.from_numpy(
+        np.random.RandomState(2).randn(2, NLAT, NLON, 8).astype(np.float32))
+    fc, fs, w = (torch.from_numpy(t) for t in fwd.tables_float64())
+    ref = [torch.einsum("bkmc,mlk->blmc",
+                        torch.einsum("bkjc,jm->bkmc", x.double(), d), w)
+           for d in (fc, fs)]
+    emulated = [_split_product(_split_product(x, d, "bkjc,jm->bkmc"),
+                               fwd.weights, "bkmc,mlk->blmc")
+                for d in (fwd.fc, fwd.fs)]
+    plain = fused_sht_plain(x, fwd.fc, fwd.fs, fwd.fused_table())
+    scale = max(float(r.abs().max()) for r in ref)
+
+    def err(out):
+        return max(float((o.double() - r).abs().max())
+                   for o, r in zip(out, ref)) / scale
+
+    assert err(plain) < 1e-6
+    assert err(emulated) < 1e-6
+
+
+@pytest.mark.parametrize("name", ["nostore", "nomma", "onemma",
+                                  "nostore+nomma"])
+def test_profile_variants_apply_to_the_kernel_source(name):
+    """Each variant of ``profile_fused_sht`` finds the code it removes in
+    the kernel source, so the profile cannot time a stale edit."""
+    from ace_tpu_torch import profile_fused_sht
+    from ace_tpu_torch.ops import kernel_build
+
+    source = (kernel_build.CSRC_DIR / "fused_sht.cu").read_text()
+    assert profile_fused_sht.variant_source(name) != source
+    with pytest.raises(KeyError):
+        profile_fused_sht.variant_source("nothing")
