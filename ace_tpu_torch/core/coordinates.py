@@ -101,6 +101,15 @@ class LatLonCoordinates:
     def area_weights(self) -> np.ndarray:
         return spherical_area_weights(self.lat, len(self.lon))
 
+    @property
+    def grid(self) -> str:
+        """The latitude grid: "legendre-gauss" where the latitudes are
+        the Gauss grid's, else "equiangular"."""
+        gauss = gaussian_latitudes(len(self.lat))
+        if np.allclose(np.sort(self.lat), gauss, atol=1e-2):
+            return "legendre-gauss"
+        return "equiangular"
+
     def as_dict(self) -> dict:
         return {"lat": self.lat.tolist(), "lon": self.lon.tolist()}
 

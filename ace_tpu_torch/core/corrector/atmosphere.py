@@ -118,8 +118,14 @@ class AtmosphereCorrector:
             modified.update(changed.keys())
 
         if cfg.force_positive_names:
-            apply({n: torch.clamp(gen[n], min=0.0)
-                   for n in cfg.force_positive_names})
+            def clamp(x):
+                clamped = torch.clamp(x, min=0.0)
+                if cfg.keep_gradient_through_clamps:
+                    # the clamped value with the gradient of the identity
+                    return x + (clamped - x).detach()
+                return clamped
+
+            apply({n: clamp(gen[n]) for n in cfg.force_positive_names})
         if cfg.conserve_dry_air:
             if "global_dry_air_mass" not in state:
                 state.update(self.init_state(input_data))

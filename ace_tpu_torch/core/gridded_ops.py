@@ -26,3 +26,10 @@ class LatLonOperations:
             data, self.area_weights(data.device), dim=HORIZONTAL_DIMS,
             keepdim=keepdim,
         )
+
+    def area_weighted_mean_channels_last(self, data: torch.Tensor
+                                         ) -> torch.Tensor:
+        """Area-weighted spatial mean of a channels-last tensor
+        ``[..., lat, lon, C] -> [..., C]`` (the packed layout the losses
+        see)."""
+        return self.area_weighted_mean(data.movedim(-1, 0)).movedim(0, -1)

@@ -86,8 +86,8 @@ class NormalizationConfig:
 
 @dataclasses.dataclass
 class NetworkAndLossNormalizationConfig:
-    """Network-input normalization; the loss/residual entries are carried
-    for config compatibility and used by training, which is not ported."""
+    """Separate network-input and loss (residual) normalization (port of
+    ace_tpu/core/normalizer.py:175)."""
 
     network: NormalizationConfig
     loss: NormalizationConfig | None = None
@@ -99,3 +99,27 @@ class NetworkAndLossNormalizationConfig:
 
     def build_network_normalizer(self, names: list[str]) -> StandardNormalizer:
         return self.network.build(names)
+
+    def build_loss_normalizer(
+        self, names: list[str], residual_scaled_names: list[str] | None = None
+    ) -> StandardNormalizer:
+        """The loss normalizer: either explicit loss stats, or network stats
+        with both moments replaced by the residual stats for the
+        ``residual_scaled_names`` (the prognostic variables)."""
+        if self.loss is not None:
+            return self.loss.build(names)
+        if self.residual is None:
+            return self.network.build(names)
+        network = self.network.build(names)
+        residual_names = (
+            [n for n in residual_scaled_names if n in names]
+            if residual_scaled_names is not None
+            else names
+        )
+        residual = self.residual.build(residual_names)
+        means = dict(network.means)
+        stds = dict(network.stds)
+        for k in residual_names:
+            means[k] = residual.means[k]
+            stds[k] = residual.stds[k]
+        return StandardNormalizer(means, stds)

@@ -19,12 +19,18 @@ StepperState = dict
 @dataclasses.dataclass
 class StepArgs:
     """Arguments to ``step``. ``generator`` draws the model's noise; with
-    None the noise is zero (the JAX model without a "noise" rng)."""
+    None the noise is zero (the JAX model without a "noise" rng).
+    ``deterministic`` turns off dropout-like randomness (the ported models
+    have none; the noise is drawn either way, as in the JAX package);
+    ``corrector_disabled`` skips the post-step corrector (the train loop
+    sets it during the first ``corrector_disabled_epochs``)."""
 
     input: TensorMapping
     next_step_input_data: TensorMapping
     stepper_state: StepperState
     generator: torch.Generator | None = None
+    deterministic: bool = True
+    corrector_disabled: bool = False
 
 
 @dataclasses.dataclass

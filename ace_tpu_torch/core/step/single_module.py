@@ -51,6 +51,8 @@ def step_with_adjustments(args: StepArgs, network_call, normalizer, corrector,
 
     stepper_state = dict(args.stepper_state)
     diagnostics = {}
+    if corrector is not None and args.corrector_disabled:
+        corrector = None
     if corrector is not None:
         result = corrector(
             input_data, output, next_step_input_data,

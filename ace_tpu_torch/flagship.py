@@ -7,6 +7,11 @@ single-module step with normalization, prescribed SST and the dry-air
 corrector; 38 inputs and 44 outputs at ``nz=8``. The grid, depth and
 width are arguments so that a smaller copy can be built for checks. The
 weights are drawn from a seed: no trained checkpoint ships with the repo.
+
+``build_train_stepper`` adds the flagship pretraining recipe of
+bench.py:187-251 and :596-608 (per-block recompute, a CRPS and energy
+score ensemble loss over 2 members, AdamW with a bf16 first moment and
+gradient clipping, an EMA), and ``synthetic_batch`` its random batch.
 """
 
 from datetime import timedelta
@@ -20,14 +25,30 @@ from ace_tpu_torch.core.coordinates import (
     gaussian_latitudes,
 )
 from ace_tpu_torch.core.dataset_info import DatasetInfo
+from ace_tpu_torch.core.config import from_dict
+from ace_tpu_torch.core.loss import StepLossConfig
+from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
 from ace_tpu_torch.core.step import StepSelector
 from ace_tpu_torch.stepper.stepper import PrognosticState, Stepper, StepperConfig
+from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
 
 NLAT, NLON, NZ, EMBED, LAYERS = 180, 360, 8, 512, 8
 # limit of ``anomaly_error`` between the card and the CPU under
 # ``draw_check_weights``: bf16 rounds at other points on the two (~1%); a
 # filter that writes zeros is off by ~7%
 CHECK_TOL = 3e-2
+# limits between the card and the CPU for one train step of a bf16 model
+# under ``draw_check_weights``: its loss (relative) and each parameter's
+# gradient under ``train_gradients(..., smooth=True)`` (``gradient_error``,
+# relative L2). Under the ensemble loss itself each bf16 gradient moves by
+# 4-10% between two roundings of the same model (its abs kinks flip where
+# two values nearly agree; bf16 against f32 on the CPU), which would test
+# rounding, not the kernels; under the smooth loss bf16 and f32 differ by
+# at most 1%, and the card and the CPU by 0.55% (H100). The gradient norm
+# under the ensemble loss moves by about 1% (0.84% measured on an H100).
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 2e-2
+TRAIN_NORM_TOL = 5e-2
 
 
 def names(nz: int = NZ) -> tuple[list[str], list[str], list[str]]:
@@ -47,11 +68,13 @@ def names(nz: int = NZ) -> tuple[list[str], list[str], list[str]]:
 
 
 def build_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED, layers=LAYERS,
-                  device=None, fused_block_tail=False) -> Stepper:
+                  device=None, fused_block_tail=False,
+                  checkpointing=0) -> Stepper:
     """The flagship stepper (weights not drawn yet) on ``device``.
     ``fused_block_tail`` sends every block's tail through the fused kernel
     (``NoiseConditionedSFNO.use_fused_block_tail``); it is not part of the
-    model's config, as JAX checkpoints do not carry it."""
+    model's config, as JAX checkpoints do not carry it. ``checkpointing``
+    is the model config's per-block recompute level (1 for training)."""
     prognostic, diagnostics, forcings = names(nz)
     in_names = prognostic + forcings
     out_names = prognostic + diagnostics
@@ -63,6 +86,7 @@ def build_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED, layers=LAYERS,
         "separable": False, "spectral_layers": 3,
         "spectral_transform": "sht", "affine_norms": True,
         "normalize_big_skip": True, "compute_dtype": "bfloat16",
+        "checkpointing": checkpointing,
     }}
     step = dict(
         builder=builder, in_names=in_names, out_names=out_names,
@@ -92,6 +116,59 @@ def build_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED, layers=LAYERS,
     return stepper
 
 
+def build_train_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED,
+                        layers=LAYERS, fused_block_tail=False,
+                        device=None) -> TrainStepper:
+    """The flagship pretraining recipe (bench.py:_bench_train_step): the
+    flagship stepper with per-block recompute (``checkpointing=1``), one
+    forward step, 2 ensemble members, ``EnsembleLoss`` (CRPS 0.9, energy
+    score 0.1), AdamW at lr 1e-4 with a bf16 first moment and gradient
+    clipping at 1.0, and the default EMA. Weights not drawn yet: call
+    ``init`` (or ``stepper.init_params``)."""
+    stepper = build_stepper(nlat, nlon, nz, embed, layers, device=device,
+                            fused_block_tail=fused_block_tail,
+                            checkpointing=1)
+    return TrainStepper(
+        stepper,
+        StepperTrainConfig(
+            n_forward_steps=1,
+            n_ensemble=2,
+            remat=False,
+            loss=from_dict(StepLossConfig, {
+                "type": "EnsembleLoss",
+                "kwargs": {"crps_weight": 0.9, "energy_score_weight": 0.1},
+            }),
+        ),
+        OptimizationConfig(lr=1e-4, optimizer_type="AdamW",
+                           max_grad_norm=1.0,
+                           first_moment_dtype="bfloat16"),
+        EMAConfig(),
+    )
+
+
+def synthetic_batch(stepper: Stepper, batch: int = 2,
+                    n_forward_steps: int = 1,
+                    generator: torch.Generator | None = None,
+                    ) -> dict[str, torch.Tensor]:
+    """A random training batch ``[batch, n_forward_steps + 1, nlat, nlon]``
+    for every variable, on the stepper's device, shaped and scaled as
+    bench.py:230-243 draws it."""
+    nlat, nlon = stepper.dataset_info.img_shape
+    step = stepper.step
+    data = {}
+    for k in sorted(set(step.input_names) | set(step.output_names)):
+        v = torch.randn(batch, n_forward_steps + 1, nlat, nlon,
+                        generator=generator, device=stepper.device)
+        if k == "PRESsfc":
+            v = v * 100 + 1.0e5
+        if k.startswith("specific_total_water"):
+            v = v.abs() * 1e-3
+        if k == "ocean_fraction":
+            v = v.abs().clamp(0, 1)
+        data[k] = v
+    return data
+
+
 def draw_check_weights(stepper: Stepper, generator: torch.Generator):
     """Draw the weights for a comparison of two runs of one model (card
     against CPU): the default draw, then the parts that start at or near
@@ -105,6 +182,57 @@ def draw_check_weights(stepper: Stepper, generator: torch.Generator):
                 p.normal_(std=0.1, generator=generator)
             elif name.endswith("filter.weight"):
                 p.normal_(std=p.shape[0] ** -0.5, generator=generator)
+
+
+def fixed_noise(stepper: Stepper, noise: torch.Tensor):
+    """Make the stepper's model condition on ``noise`` (moved to its
+    device) whatever generator it is given: two runs on two devices then
+    see the same noise."""
+    noise = noise.to(stepper.device)
+    stepper.module.make_noise = lambda batch, generator: noise
+
+
+def train_gradients(train_stepper: TrainStepper, batch, generator=None,
+                    smooth=False
+                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The loss of ``batch`` and the gradient of every parameter (by
+    ``named_parameters`` name), without an update. ``smooth`` takes them
+    under an MSE of the same outputs, targets and normalizer in place of
+    the train stepper's loss (see ``TRAIN_GRAD_TOL``)."""
+    params = dict(train_stepper.module.named_parameters())
+    for p in params.values():
+        p.grad = None
+    step_loss = train_stepper.step_loss
+    if smooth:
+        train_stepper.step_loss = StepLossConfig(type="MSE").build(
+            train_stepper.stepper.dataset_info.gridded_operations,
+            out_names=train_stepper.stepper.step.output_names,
+            normalizer=step_loss.loss.normalizer,
+        )
+    try:
+        loss, _ = train_stepper.loss_fn(batch, generator)
+    finally:
+        train_stepper.step_loss = step_loss
+    loss.backward()
+    grads = {k: p.grad.detach().clone() for k, p in params.items()
+             if p.grad is not None}
+    for p in params.values():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def gradient_error(grads: dict, ref: dict) -> dict[str, float]:
+    """Relative L2 error of each gradient against ``ref`` (both on any
+    device), by name."""
+    if set(grads) != set(ref):
+        raise ValueError(f"gradients of other parameters: "
+                         f"{sorted(set(grads) ^ set(ref))}")
+    errs = {}
+    for k, r in ref.items():
+        r = r.double().cpu()
+        errs[k] = float((grads[k].double().cpu() - r).norm()
+                        / r.norm().clamp_min(1e-30))
+    return errs
 
 
 def anomaly_error(out: torch.Tensor, ref: torch.Tensor, dim) -> float:

@@ -11,14 +11,17 @@ The fused block tail (``ops/fused_block_tail.py``, kernel K2) is an
 explicit choice, ``NoiseConditionedSFNO.use_fused_block_tail(True)``, off
 by default as in the JAX package (where ``ACE_TPU_PALLAS_BLOCK=1`` turns
 it on). It reads the same parameters as the unfused tail, so the
-``state_dict`` is the same either way. Not ported yet: global layer norm,
-label conditioning, local (DISCO) blocks, LoRA and ``spectral_ratio``.
+``state_dict`` is the same either way. ``checkpointing >= 1`` recomputes
+each block in the backward pass (``torch.utils.checkpoint``), as the JAX
+model's ``nn.remat`` does. Not ported yet: global layer norm, label
+conditioning, local (DISCO) blocks, LoRA and ``spectral_ratio``.
 """
 
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ace_tpu_torch.models.layers import MLP, Linear, trunc_normal_init
@@ -150,47 +153,51 @@ class ConditionalFNOBlock(nn.Module):
             and noise is not None
         )
 
-    def tail_weights(self) -> tuple[torch.Tensor, ...]:
-        """The fused tail's weights in its layout (dense kernels ``[in,
-        out]``, all bf16): ``inner_skip``, ``norm1`` (ones and zeros
-        without affine norms) and ``mlp``, prepared once per weight
-        version (load, init or move)."""
+    def tail_params(self) -> tuple[torch.Tensor, ...]:
+        """The fused tail's weights as float32 views of the parameters
+        (dense kernels ``[in, out]``): ``inner_skip``, ``norm1`` (ones and
+        zeros without affine norms) and ``mlp``. Gradients reach the
+        parameters through them."""
         norm = self.norm1.norm
-        params = [self.inner_skip.weight, self.inner_skip.bias,
-                  self.norm1.w_scale_2d.weight, self.norm1.w_bias_2d.weight,
-                  self.mlp.fc1.weight, self.mlp.fc1.bias,
-                  self.mlp.fc2.weight, self.mlp.fc2.bias]
         if norm.weight is not None:
-            params += [norm.weight, norm.bias]
-        key = tuple((p.device, p.data_ptr(), p._version) for p in params)
+            ln_w, ln_b = norm.weight, norm.bias
+        else:
+            ln_w = torch.ones(self.embed_dim,
+                              device=self.inner_skip.weight.device)
+            ln_b = torch.zeros_like(ln_w)
+        return (
+            self.inner_skip.weight.t(), self.inner_skip.bias, ln_w, ln_b,
+            self.norm1.w_scale_2d.weight.t(), self.norm1.w_bias_2d.weight.t(),
+            self.mlp.fc1.weight.t(), self.mlp.fc1.bias,
+            self.mlp.fc2.weight.t(), self.mlp.fc2.bias,
+        )
+
+    def tail_weights(self) -> tuple[torch.Tensor, ...]:
+        """``tail_params`` in the kernel's layout (all bf16, contiguous)
+        for calls without grad, prepared once per weight version (load,
+        init, move or optimizer update). Copies made under
+        ``torch.inference_mode()`` are inference tensors, so the cache is
+        kept apart for that mode."""
+        params = list(self.parameters())
+        key = (tuple((p.device, p.data_ptr(), p._version) for p in params),
+               torch.is_inference_mode_enabled())
         if self._tail_weights is None or self._tail_weights[0] != key:
-            bf = torch.bfloat16
             with torch.no_grad():
-                if norm.weight is not None:
-                    ln_w, ln_b = norm.weight, norm.bias
-                else:
-                    ln_w = torch.ones(self.embed_dim, device=params[0].device)
-                    ln_b = torch.zeros_like(ln_w)
-                weights = (
-                    self.inner_skip.weight.t(), self.inner_skip.bias,
-                    ln_w, ln_b,
-                    self.norm1.w_scale_2d.weight.t(),
-                    self.norm1.w_bias_2d.weight.t(),
-                    self.mlp.fc1.weight.t(), self.mlp.fc1.bias,
-                    self.mlp.fc2.weight.t(), self.mlp.fc2.bias,
-                )
-                self._tail_weights = (
-                    key, tuple(w.to(bf).contiguous() for w in weights)
-                )
+                self._tail_weights = (key, tuple(
+                    w.to(torch.bfloat16).contiguous()
+                    for w in self.tail_params()
+                ))
         return self._tail_weights[1]
 
     def forward(self, x, noise):
         x_norm = self.norm0(x, noise)
         x_f, residual = self.filter(x_norm)
         if self._fuses(x_f, noise):
+            weights = (self.tail_params() if torch.is_grad_enabled()
+                       else self.tail_weights())
             return fused_block_tail(
                 x_f.contiguous(), residual.contiguous(), noise.contiguous(),
-                self.tail_weights(),
+                weights,
             )
         x_f = self.norm1(self.act(x_f + self.inner_skip(residual)), noise)
         if self.mlp is not None:
@@ -215,8 +222,8 @@ class NoiseConditionedSFNO(nn.Module):
                  pos_embed=True, big_skip=True, normalize_big_skip=False,
                  affine_norms=False, filter_residual=False,
                  filter_output=False, residual_filter_factor=1,
-                 data_grid="legendre-gauss", dtype=torch.float32,
-                 device=None):
+                 data_grid="legendre-gauss", checkpointing=0,
+                 dtype=torch.float32, device=None):
         super().__init__()
         if noise_type not in ("gaussian", "isotropic"):
             raise ValueError(f"unknown noise_type {noise_type!r}")
@@ -226,6 +233,7 @@ class NoiseConditionedSFNO(nn.Module):
         self.embed_dim, self.noise_embed_dim = embed_dim, noise_embed_dim
         self.noise_type = noise_type
         self.dtype = dtype
+        self.checkpointing = checkpointing
         self.act = _ACTIVATIONS[activation_function]
         self.big_skip, self.normalize_big_skip = big_skip, normalize_big_skip
         self.filter_residual = filter_residual or residual_filter_factor > 1
@@ -337,7 +345,15 @@ class NoiseConditionedSFNO(nn.Module):
         if self.pos_embed is not None:
             h = h + self.pos_embed.to(h.dtype)
         for block in self._blocks():
-            h = block(h, noise)
+            if self.checkpointing >= 1 and torch.is_grad_enabled():
+                # the block draws no random numbers (the noise is drawn
+                # once above), so the recompute needs no saved RNG state
+                h = torch.utils.checkpoint.checkpoint(
+                    block, h, noise, use_reentrant=False,
+                    preserve_rng_state=False,
+                )
+            else:
+                h = block(h, noise)
         if self.big_skip:
             h = torch.cat([h, residual.to(h.dtype)], dim=-1)
         for i in range(self.encoder_layers):

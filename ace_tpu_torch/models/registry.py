@@ -162,6 +162,7 @@ class NoiseConditionedSFNOBuilder(ModuleConfig):
             filter_output=self.filter_output,
             residual_filter_factor=self.residual_filter_factor,
             data_grid=self.data_grid,
+            checkpointing=self.checkpointing,
             dtype=compute_dtype(self.compute_dtype),
             device=device,
         )

@@ -10,7 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ace_tpu_torch.models.layers import exact_gelu
-from ace_tpu_torch.ops.dhconv_filter import dhconv_filter
+from ace_tpu_torch.ops.dhconv_filter import dhconv_filter, dhconv_filter_param
 
 _ACTIVATIONS = {
     "gelu": exact_gelu,
@@ -27,9 +27,12 @@ class SpectralConvS2(nn.Module):
     ``(filtered, residual)``; residual is the input, re-gridded when the
     two transforms' grids differ. The weight is ``[in, out, l, 2]`` float32
     as in the JAX package. For bfloat16 activations the filter runs
-    through ``ops/dhconv_filter.py`` (the kernel on CUDA tensors) on
-    weights prepared once in the kernel layout ``[l, in, out]`` bfloat16;
-    float32 activations take four float32 einsums.
+    through ``ops/dhconv_filter.py`` (the kernels on CUDA tensors): without
+    grad on weights prepared once in the kernel layout ``[l, in, out]``
+    bfloat16, in grad mode through the differentiable
+    ``dhconv_filter_param`` on ``weight`` itself, so that its gradient
+    reaches the float32 parameter. Float32 activations take four float32
+    einsums.
     """
 
     def __init__(self, forward_transform, inverse_transform, in_channels,
@@ -62,9 +65,13 @@ class SpectralConvS2(nn.Module):
 
     def kernel_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(w_r, w_i) in the kernel layout ``[l, in, out]`` bfloat16,
-        prepared once per weight version (load, init or move)."""
+        prepared once per weight version (load, init, move or optimizer
+        update) for calls without grad. Copies made under
+        ``torch.inference_mode()`` are inference tensors, so the cache is
+        kept apart for that mode."""
         w = self.weight
-        key = (w.device, w.data_ptr(), w._version)
+        key = (w.device, w.data_ptr(), w._version,
+               torch.is_inference_mode_enabled())
         if self._kernel_weights is None or self._kernel_weights[0] != key:
             with torch.no_grad():
                 wl = w.permute(2, 0, 1, 3).to(torch.bfloat16)
@@ -84,7 +91,12 @@ class SpectralConvS2(nn.Module):
         xr = xr_full[..., :modes_lat, :modes_lon, :]
         xi = xi_full[..., :modes_lat, :modes_lon, :]
 
-        if in_dtype == torch.bfloat16:
+        if in_dtype == torch.bfloat16 and torch.is_grad_enabled():
+            # training: the gradient reaches the f32 weight through 1b/1c
+            outr, outi = dhconv_filter_param(
+                xr.contiguous(), xi.contiguous(), self.weight
+            )
+        elif in_dtype == torch.bfloat16:
             # AMP semantics of the reference: bf16 operands, f32
             # accumulation, bf16 outputs; the kernel on CUDA tensors
             outr, outi = dhconv_filter(

@@ -14,14 +14,17 @@ with bf16 activations and the JAX package's rounding points
 before its bias is added, every elementwise step rounds to bf16, GELU is
 the tanh form. ``fused_block_tail`` launches the hand-written kernel
 ``csrc/fused_block_tail.cu`` for CUDA tensors and uses
-``fused_block_tail_plain`` only for tensors on the CPU. The kernel is
-inference-only for now: tensors that require grad are refused.
+``fused_block_tail_plain`` only for tensors on the CPU. With tensors that
+require grad it is differentiable: the forward is the kernel, the backward
+the VJP of the plain version recomputed, as JAX's ``_tail_bwd``
+(pallas_block.py:179-190) does.
 """
 
 import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 SOURCE = "fused_block_tail.cu"
 EPS = 1e-5
@@ -58,7 +61,7 @@ def tail_shapes_supported(c: int, hidden: int, noise: int) -> bool:
             and noise >= 1 and tail_smem_bytes(c, hidden, noise) <= MAX_SMEM)
 
 
-def fused_block_tail_plain(xf, resid, noise, weights):
+def fused_block_tail_plain(xf, resid, noise, weights, bf16_products=False):
     """Plain PyTorch version on ``[..., C]`` rows, with the kernel's
     rounding points.
 
@@ -68,12 +71,19 @@ def fused_block_tail_plain(xf, resid, noise, weights):
       noise: the conditioning channels ``[..., Nc]``.
       weights: ``(skip_k, skip_b, ln_w, ln_b, w_s, w_b, fc1_k, fc1_b,
         fc2_k, fc2_b)``, dense kernels ``[in, out]``; all rounded to bf16.
+      bf16_products: take each product as one bf16 ``torch.matmul`` (f32
+        accumulation, a bf16 result) instead of an f32 product of the
+        rounded operands rounded after: the same values up to the order of
+        the sum, and the tensor cores on a card. The backward's recompute
+        on CUDA uses it; JAX leaves these products to XLA's bf16 dots.
     """
     bf = torch.bfloat16
     (skip_k, skip_b, ln_w, ln_b, ws, wb,
      fc1_k, fc1_b, fc2_k, fc2_b) = (w.to(bf) for w in weights)
 
     def mm(x, w):
+        if bf16_products:
+            return x.to(bf) @ w
         return (x.to(bf).float() @ w.float()).to(bf)
 
     r = resid.to(bf)
@@ -92,12 +102,6 @@ def _check(xf, resid, noise, weights):
     named = [("xf", xf), ("resid", resid), ("noise", noise)] + [
         (f"weights[{i}]", w) for i, w in enumerate(weights)
     ]
-    for name, t in named:
-        if t.requires_grad:
-            raise NotImplementedError(
-                f"fused_block_tail: {name} requires grad; the tail has no "
-                "backward yet (call it under torch.inference_mode())"
-            )
     if len(weights) != 10:
         raise ValueError(f"fused_block_tail: want 10 weights, got {len(weights)}")
     c = xf.shape[-1]
@@ -135,9 +139,46 @@ def fused_block_tail(xf, resid, noise, weights):
     Returns:
       bfloat16 ``[..., C]``. CUDA tensors go through the kernel
       (``fused_block_tail.launches`` counts its launches); CPU tensors
-      through :func:`fused_block_tail_plain`. Other devices raise.
+      through :func:`fused_block_tail_plain`. Other devices raise. With
+      tensors that require grad (and grad mode on) the call is
+      differentiable; the weights may then be float32 (rounded to bf16
+      inside, their gradients float32) and need not be contiguous.
     """
     _check(xf, resid, noise, weights)
+    tensors = (xf, resid, noise, *weights)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _FusedBlockTail.apply(xf, resid, noise, *weights)
+    return _forward(xf, resid, noise, weights)
+
+
+class _FusedBlockTail(torch.autograd.Function):
+    """K2 forward; backward as the VJP of the plain tail, recomputed
+    (JAX's ``_tail_bwd``), with bf16 products on CUDA."""
+
+    @staticmethod
+    def forward(ctx, xf, resid, noise, *weights):
+        ctx.save_for_backward(xf, resid, noise, *weights)
+        bf = torch.bfloat16
+        return _forward(xf, resid, noise,
+                        tuple(w.detach().to(bf).contiguous() for w in weights))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = fused_block_tail_plain(
+                inputs[0], inputs[1], inputs[2], tuple(inputs[3:]),
+                bf16_products=inputs[0].device.type == "cuda",
+            )
+        grads = iter(torch.autograd.grad(out, wanted, g.to(torch.bfloat16)))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def _forward(xf, resid, noise, weights):
     device = xf.device
     if device.type == "cpu":
         return fused_block_tail_plain(xf, resid, noise, weights)

@@ -1,7 +1,8 @@
-"""Where the time of a flagship rollout step goes on the GPU.
+"""Where the time of a flagship rollout step, or train step, goes on the
+GPU.
 
     python -m ace_tpu_torch.profile_flagship [--steps N] [--out DIR]
-                                             [--fused-block-tail]
+                                             [--fused-block-tail] [--train]
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
 the CUDA device with weights from a seed, warms it up with one step, times
@@ -11,8 +12,11 @@ limit, the wall time per step, the device's busy and idle share of the
 traced window (the union of the trace's kernel, memcpy and memset
 intervals over the wall time), and the kernels that take the most device
 time. ``--fused-block-tail`` sends every block's tail through the fused
-kernel K2. Writes the Chrome trace to ``DIR/flagship_trace.json`` (default
-``build/profiles``).
+kernel K2. ``--train`` profiles the flagship pretraining step instead
+(``flagship.build_train_stepper``, a batch of 2, the same batch and noise
+each step): ``N`` untimed-apart steps (default 5 with ``--train``), then 2
+traced. Writes the Chrome trace to ``DIR/flagship_trace.json`` (or
+``flagship_train_trace.json``; default ``build/profiles``).
 """
 
 import argparse
@@ -30,6 +34,8 @@ from ace_tpu_torch.device import get_device
 
 
 TRACED_STEPS = 3
+TRACED_TRAIN_STEPS = 2
+TRAIN_BATCH = 2
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -54,11 +60,16 @@ def busy_us(events: list[dict]) -> float:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--steps", type=int, default=None,
+                        help="untraced steps to time (20; 5 with --train)")
     parser.add_argument("--out", default="build/profiles")
     parser.add_argument("--fused-block-tail", action="store_true",
                         help="run each block's tail through the fused kernel")
+    parser.add_argument("--train", action="store_true",
+                        help="profile the pretraining step, not the rollout")
     args = parser.parse_args(argv)
+    if args.steps is None:
+        args.steps = 5 if args.train else 20
 
     device = get_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -68,35 +79,34 @@ def main(argv=None):
         capture_output=True, text=True, check=True,
     ).stdout.strip())
 
-    stepper = flagship.build_stepper(
-        device=device, fused_block_tail=args.fused_block_tail
-    )
-    stepper.init_params(torch.Generator(device).manual_seed(0))
-    ic, forcing = flagship.synthetic_inputs(
-        stepper, args.steps, generator=torch.Generator(device).manual_seed(1)
-    )
+    if args.train:
+        run, n = _train_runner(device, args.fused_block_tail), TRACED_TRAIN_STEPS
+        name = "flagship_train_trace.json"
+    else:
+        run = _rollout_runner(device, args.fused_block_tail,
+                              max(args.steps, TRACED_STEPS))
+        n = TRACED_STEPS
+        name = "flagship_trace.json"
     t0 = time.perf_counter()
-    stepper.predict(ic, {k: v[:, :2] for k, v in forcing.items()})
+    run(1)
     torch.cuda.synchronize()
     print(f"first call (1 step): {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
-    stepper.predict(ic, forcing)
+    run(args.steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     print(f"{args.steps} steps untraced: {wall_s:.4f} s = "
           f"{wall_s / args.steps * 1e3:.2f} ms/step = "
           f"{args.steps / wall_s:.3f} steps/s")
 
-    n = TRACED_STEPS
-    window = {k: v[:, : n + 1] for k, v in forcing.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stepper.predict(ic, window)
+        run(n)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     os.makedirs(args.out, exist_ok=True)
-    trace_path = os.path.join(args.out, "flagship_trace.json")
+    trace_path = os.path.join(args.out, name)
     prof.export_chrome_trace(trace_path)
     events = device_events(trace_path)
     busy_s = busy_us(events) / 1e6
@@ -112,6 +122,35 @@ def main(argv=None):
     for name, (us, count) in rows[:30]:
         print(f"{us / 1e3 / n:14.3f} {100 * us / 1e6 / busy_s:5.1f}% "
               f"{count / n:10.1f}  {name[:110]}")
+
+
+def _rollout_runner(device, fused, max_steps):
+    """``run(n)``: an ``n``-step flagship rollout from the same state."""
+    stepper = flagship.build_stepper(device=device, fused_block_tail=fused)
+    stepper.init_params(torch.Generator(device).manual_seed(0))
+    ic, forcing = flagship.synthetic_inputs(
+        stepper, max_steps, generator=torch.Generator(device).manual_seed(1)
+    )
+
+    def run(n):
+        stepper.predict(ic, {k: v[:, : n + 1] for k, v in forcing.items()})
+
+    return run
+
+
+def _train_runner(device, fused):
+    """``run(n)``: ``n`` flagship train steps on one batch and noise."""
+    ts = flagship.build_train_stepper(device=device, fused_block_tail=fused)
+    ts.init(torch.Generator(device).manual_seed(0))
+    batch = flagship.synthetic_batch(
+        ts.stepper, TRAIN_BATCH, generator=torch.Generator(device).manual_seed(1)
+    )
+
+    def run(n):
+        for _ in range(n):
+            ts.train_step(batch, torch.Generator(device).manual_seed(2))
+
+    return run
 
 
 if __name__ == "__main__":

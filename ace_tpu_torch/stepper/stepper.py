@@ -37,6 +37,19 @@ class Stepper:
         self.step = step
         self.has_params = False
 
+    @staticmethod
+    def input_masker(data: TensorMapping) -> TensorDict:
+        """Input spatial masking: the identity, since ``input_masking``
+        is refused by ``StepperConfig`` and dataset masks by
+        ``DatasetInfo``."""
+        return dict(data)
+
+    @staticmethod
+    def output_masker(data: TensorMapping) -> TensorDict:
+        """Output spatial masking from dataset masks: the identity, since
+        ``DatasetInfo`` refuses masks."""
+        return dict(data)
+
     @property
     def device(self) -> torch.device:
         return self.step.device

@@ -1,4 +1,5 @@
-"""Parameter conversion from the JAX package's flax trees."""
+"""Parameter conversion between the JAX package's flax trees and the
+port's ``state_dict``."""
 
 import numpy as np
 import torch
@@ -35,3 +36,22 @@ def flax_params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
             name, value = "weight", value.t().contiguous()
         state[".".join(path[:-1] + (name,))] = value
     return state
+
+
+def state_dict_to_flax_params(state: dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`flax_params_to_state_dict`: dotted keys become
+    a nested tree, and a 2-D ``weight`` (``nn.Linear``'s ``[out, in]``)
+    becomes a ``kernel`` ``[in, out]``. Values become numpy arrays on the
+    host, in their dtype. Also maps gradients: pass ``{name: p.grad}`` to
+    compare them with ``jax.grad`` in the flax layout."""
+    tree: dict = {}
+    for key, value in state.items():
+        *path, name = key.split(".")
+        array = value.detach().cpu()
+        if name == "weight" and array.dim() == 2:
+            name, array = "kernel", array.t()
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = array.contiguous().numpy()
+    return tree

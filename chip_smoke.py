@@ -8,17 +8,23 @@
    (one process per source, all at once) and prints the build times and
    the compiler's resource reports (registers, shared memory, spills).
 3. Kernel phases: holds each kernel (K1 dhconv_filter, K2
-   fused_block_tail, K3 fused_sht) against its plain PyTorch version on
-   the card, at the main path's shapes and at a ragged shape, and times
-   the kernel, the plain version and what the port runs in its place
-   (one PyTorch library call for K1, the unfused tail for K2,
+   fused_block_tail, K3 fused_sht, and K1's backward: 1b dhconv_filter_dx
+   and 1c dhconv_filter_dw) against its plain PyTorch version on the card,
+   at the main paths' shapes (K1 and K2 also as paths T and T-A call them:
+   4 samples, float32 weights that require grad, through their autograd
+   Functions) and at a ragged shape, and times the kernel,
+   the plain version and what the port runs in its place (one PyTorch
+   library call for K1, 1b and 1c, the unfused tail for K2,
    ``RealSHT.forward_pair`` and one three-operand einsum for K3), beside
    the least time the card could take (``bound_share`` = bound / kernel
    time). K3 and ``forward_pair`` are also held against a float64
    evaluation of the same transform.
-4. Reference phase: runs a small bf16 model on the card (kernels) and on
+4. Reference phases: runs a small bf16 model on the card (kernels) and on
    the CPU (plain versions) with the same weights and noise, unfused
-   (K1) and with the fused tail (K1 and K2), and compares.
+   (K1) and with the fused tail (K1 and K2), and compares its outputs;
+   then (phase T) the same for one train step of it: loss, every
+   parameter's gradient (K1, 1b, 1c; K2 and its recomputed backward) and
+   the step's metrics.
 5. Paths, each driven with the launch counts set to 0 just before it and
    read just after, on the ACE2-ERA5 flagship stepper (NoiseConditionedSFNO,
    embed 512, 8 layers, 180x360 Gauss grid, bf16, 32 isotropic noise
@@ -32,8 +38,18 @@
    - path B, ``RealSHT.forward_fused`` (K3) on the flagship's transform,
      applied to the input a block's forward SHT sees, against
      ``forward_pair``.
+   - path T, the flagship pretraining step (``flagship.build_train_stepper``:
+     per-block recompute, 2 ensemble members, CRPS and energy score, AdamW
+     with a bf16 first moment, clipping, EMA) on a batch of 2: one
+     warm-up step, then 5 steps on the same batch and noise (K1, 1b, 1c);
+   - path T-A, one step of the same recipe with the fused tail (K2 too)
+     from the same weights, batch and noise, against path T's first.
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
-   and the launch counts, and print steps/s and peak device memory.
+   and the launch counts, and print steps/s and peak device memory; the
+   train steps check finite losses and gradient norms, a loss after the
+   6 updates below the warm-up step's (taken before any update), the
+   launch counts and that no step waits for the device, and print steps/s,
+   samples/s and peak device memory.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
@@ -42,11 +58,14 @@ line. Needs no network and imports nothing of JAX.
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
 
 N_STEPS = 20
+TRAIN_STEPS = 5
+TRAIN_BATCH = 2
 # published H100 SXM peaks (dense bf16 and TF32 tensor cores, f32 outside
 # the tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -60,6 +79,12 @@ TAIL_TOL = 2e-2
 # K3: split-TF32 products (about 22 mantissa bits) summed over 360 and 180
 # terms in another order
 SHT_TOL = 1e-4
+# 1b and 1c: bf16 products are exact in f32, so only the order of the f32
+# sums differs (over 512 and 1448 terms at the flagship)
+BWD_TOL = 1e-4
+# path T-A's first step against path T's: the fused tail rounds to bf16 at
+# other points than the unfused modules
+TRAIN_PATH_TOL = 2e-2
 
 
 def bound(n_bytes, flops, peak_flops):
@@ -140,6 +165,7 @@ def dhconv_phase(gen):
         raise AssertionError("dhconv_filter disagrees with its plain version "
                              "at the flagship shape")
     xr, xi, wr, wi = args
+    train_err, train_tol = dhconv_train_check(gen)
     # the same function as one bf16 library matmul on the stacked real
     # form [x_r | x_i] @ [[w_r, w_i], [-w_i, w_r]] (timed only, never used)
     a = torch.cat([xr, xi], dim=-1).to(torch.bfloat16)
@@ -161,36 +187,189 @@ def dhconv_phase(gen):
         "source": "ace_tpu_torch/csrc/dhconv_filter.cu",
         "replaces": "ace_tpu/ops/pallas_filter.py:69",
         "launches": None, "max_abs_err": err, "tol": tol,
+        "train_max_abs_err": train_err, "train_tol": train_tol,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
     }
 
 
-def tail_inputs(n, c, hidden, nc, gen):
+def dhconv_train_check(gen):
+    """K1 as path T calls it: 2 * TRAIN_BATCH samples through
+    ``dhconv_filter_param``, whose autograd Function rounds the float32
+    ``[I, O, L, 2]`` weight (which requires grad) to bf16 and slices it
+    into contiguous ``[L, I, O]`` copies before it launches K1; against
+    the plain version on the same float32 weights."""
+    import torch
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.ops.dhconv_filter import (
+        dhconv_filter_param,
+        dhconv_filter_plain,
+    )
+
+    b, l, m = 2 * TRAIN_BATCH, flagship.NLAT, flagship.NLON // 2 + 1
+    i = o = flagship.EMBED
+    kw = dict(generator=gen, device="cuda")
+    xr, xi = (torch.randn(b, l, m, i, **kw) for _ in range(2))
+    weight = (torch.randn(i, o, l, 2, **kw) * i ** -0.5).requires_grad_()
+    with torch.enable_grad():
+        out = dhconv_filter_param(xr, xi, weight)
+    if out[0].grad_fn is None:
+        raise AssertionError("dhconv_filter_param did not go through its "
+                             "autograd Function")
+    ref = dhconv_filter_plain(xr, xi, *(weight.detach()[..., k].permute(
+        2, 0, 1) for k in (0, 1)))
+    err, scale = max_err(tuple(t.detach() for t in out), ref)
+    tol = BF16_TOL * scale
+    print(f"dhconv_filter flagship-train [{b},{l},{m},{i}] through "
+          f"dhconv_filter_param (f32 [I, O, L, 2] weight): max_abs_err "
+          f"{err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError("dhconv_filter disagrees with its plain version "
+                             "at the flagship training shape")
+    return err, tol
+
+
+def dhconv_bwd_phase(gen):
+    """Kernels 1b (dx) and 1c (dW) against their plain versions at a
+    ragged shape and the flagship training shape (B = 4: 2 samples x 2
+    members), with their times beside their bounds, their plain versions
+    and one bf16 library matmul each."""
+    import torch
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.ops.dhconv_filter import (
+        dhconv_filter_dw,
+        dhconv_filter_dw_plain,
+        dhconv_filter_dx,
+        dhconv_filter_dx_plain,
+        param_layout,
+    )
+
+    def inputs(b, l, m, i, o):
+        kw = dict(generator=gen, device="cuda")
+        xr, xi = (torch.randn(b, l, m, i, **kw) for _ in range(2))
+        gr, gi = (torch.randn(b, l, m, o, **kw).to(torch.bfloat16)
+                  for _ in range(2))
+        wr, wi = ((torch.randn(l, i, o, **kw) / (i * o)).to(torch.bfloat16)
+                  for _ in range(2))
+        return xr, xi, gr, gi, wr, wi
+
+    def check(label, shape, name, out, ref):
+        err, scale = max_err(out, ref)
+        tol = BWD_TOL * scale
+        print(f"{name} {label} {list(shape)}: max_abs_err {err:.3e} (tol "
+              f"{tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at the {label} shape")
+        return err, tol
+
+    rows = {}
+    for label, shape in (("ragged", (2, 3, 181, 96, 200)),
+                         ("flagship-train", (2 * TRAIN_BATCH, flagship.NLAT,
+                                             flagship.NLON // 2 + 1,
+                                             flagship.EMBED, flagship.EMBED))):
+        xr, xi, gr, gi, wr, wi = inputs(*shape)
+        dx = check(label, shape, "dhconv_filter_dx",
+                   dhconv_filter_dx(gr, gi, wr, wi),
+                   dhconv_filter_dx_plain(gr, gi, wr, wi))
+        dw_ref = dhconv_filter_dw_plain(xr, xi, gr, gi)
+        dw = check(label, shape, "dhconv_filter_dw",
+                   (dhconv_filter_dw(xr, xi, gr, gi),),
+                   (param_layout(*dw_ref),))
+        del dw_ref
+    b, l, m, i, o = shape
+    bf = torch.bfloat16
+    # the same functions as one bf16 library matmul each, on the stacked
+    # real forms (timed only, never used):
+    # dx = [g_r | g_i] @ [[w_r^T, -w_i^T], [w_i^T, w_r^T]] per l, the
+    # operands laid out for it beforehand
+    g_cat = torch.cat([gr, gi], dim=-1).transpose(0, 1).reshape(
+        l, b * m, 2 * o).contiguous()
+    w_t = torch.cat([torch.cat([wr, -wi], dim=1),
+                     torch.cat([wi, wr], dim=1)], dim=2).transpose(1, 2)
+    w_t = w_t.contiguous()
+    # dW = [x_r; x_i]^T @ [[g_r, g_i], [g_i, -g_r]] per l, over b and m
+    x_st = torch.cat([xr, xi], dim=2).to(bf).permute(1, 3, 0, 2).reshape(
+        l, i, 2 * b * m).contiguous()
+    g_st = torch.cat([torch.cat([gr, gi], dim=-1),
+                      torch.cat([gi, -gr], dim=-1)], dim=2).permute(
+        1, 0, 2, 3).reshape(l, 2 * b * m, 2 * o).contiguous()
+    times = {
+        "dx": cuda_ms(lambda: dhconv_filter_dx(gr, gi, wr, wi), 20),
+        "dx_plain": cuda_ms(lambda: dhconv_filter_dx_plain(gr, gi, wr, wi),
+                            3),
+        "dx_library": cuda_ms(lambda: torch.matmul(g_cat, w_t), 20),
+        "dw": cuda_ms(lambda: dhconv_filter_dw(xr, xi, gr, gi), 20),
+        "dw_plain": cuda_ms(lambda: dhconv_filter_dw_plain(xr, xi, gr, gi),
+                            3),
+        "dw_library": cuda_ms(lambda: torch.matmul(x_st, g_st), 20),
+    }
+    flops = 8 * b * l * m * i * o
+    dx_bytes = 2 * b * l * m * o * 2 + 2 * l * i * o * 2 + 2 * b * l * m * i * 4
+    dw_bytes = 2 * b * l * m * i * 4 + 2 * b * l * m * o * 2 + 2 * l * i * o * 4
+    for name, n_bytes, key in (("dhconv_filter_dx", dx_bytes, "dx"),
+                               ("dhconv_filter_dw", dw_bytes, "dw")):
+        bound_ms, bound_by, bytes_ms, flops_ms = bound(n_bytes, flops,
+                                                       PEAK_BF16_FLOPS)
+        err, tol = dx if key == "dx" else dw
+        print(f"{name} flagship-train: kernel {times[key]:.4f} ms, plain "
+              f"{times[key + '_plain']:.4f} ms, library (bf16 matmul, "
+              f"stacked real form) {times[key + '_library']:.4f} ms; bound: "
+              f"{n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, "
+              f"{flops / 1e9:.1f} GFLOP -> {flops_ms:.4f} ms")
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "ace_tpu_torch/csrc/dhconv_filter_bwd.cu",
+            "replaces": "ace_tpu/ops/pallas_filter.py:129",
+            "launches": None, "max_abs_err": err, "tol": tol,
+            "ms": times[key], "plain_ms": times[key + "_plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": times[key + "_library"],
+        }
+    return rows
+
+
+def tail_inputs(n, c, hidden, nc, gen, params=False):
     """Rows and weights for K2, the weights drawn at std 1/sqrt(fan-in)
-    so that every product shows in the output."""
+    so that every product shows in the output: bf16 and contiguous, as
+    the rollout's cache holds them, or with ``params`` as path T-A hands
+    them to the autograd Function (``ConditionalFNOBlock.tail_params``):
+    float32 tensors that require grad, the dense kernels as transposed
+    views of ``[out, in]`` weights."""
     import torch
 
     def r(*shape, std=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * std
 
+    def dense(n_in, n_out, std):
+        if params:
+            return r(n_out, n_in, std=std).requires_grad_().t()
+        return r(n_in, n_out, std=std)
+
     bf = torch.bfloat16
     xf, resid = r(n, c).to(bf), r(n, c).to(bf)
     noise = r(n, nc)
     weights = (
-        r(c, c, std=c ** -0.5), r(c, std=0.1), 1.0 + r(c, std=0.1),
-        r(c, std=0.1), r(nc, c, std=0.1), r(nc, c, std=0.1),
-        r(c, hidden, std=c ** -0.5), r(hidden, std=0.1),
-        r(hidden, c, std=hidden ** -0.5), r(c, std=0.1),
+        dense(c, c, c ** -0.5), r(c, std=0.1), 1.0 + r(c, std=0.1),
+        r(c, std=0.1), dense(nc, c, 0.1), dense(nc, c, 0.1),
+        dense(c, hidden, c ** -0.5), r(hidden, std=0.1),
+        dense(hidden, c, hidden ** -0.5), r(c, std=0.1),
     )
+    if params:
+        return xf, resid, noise, tuple(
+            w if w.requires_grad else w.requires_grad_() for w in weights)
     return xf, resid, noise, tuple(w.to(bf).contiguous() for w in weights)
 
 
 def block_tail_phase(gen, block):
     """Kernel K2 against its plain version at a ragged and the flagship
-    shape; times beside the unfused tail of ``block`` (a flagship block,
-    as path 0 runs it) on the same rows."""
+    shape, and as path T-A calls it (the rows of 2 * TRAIN_BATCH samples,
+    float32 parameter views that require grad, through the autograd
+    Function); times beside the unfused tail of ``block`` (a flagship
+    block, as path 0 runs it) on the same rows."""
     import torch
 
     from ace_tpu_torch.ops.fused_block_tail import (
@@ -214,6 +393,25 @@ def block_tail_phase(gen, block):
 
     n = flagship.NLAT * flagship.NLON
     c, hidden, nc = flagship.EMBED, block.hidden, block.embed_dim_noise
+    n_train = 2 * TRAIN_BATCH * n
+    xf, resid, noise, params = tail_inputs(n_train, c, hidden, nc, gen,
+                                           params=True)
+    with torch.enable_grad():
+        out = fused_block_tail(xf, resid, noise, params)
+    if out.grad_fn is None:
+        raise AssertionError("fused_block_tail did not go through its "
+                             "autograd Function")
+    with torch.no_grad():
+        ref = fused_block_tail_plain(xf, resid, noise, params)
+    train_err, scale = max_err((out.detach(),), (ref,))
+    train_tol = TAIL_TOL * scale
+    print(f"fused_block_tail flagship-train N={n_train} (f32 parameter "
+          f"views through the autograd Function): max_abs_err "
+          f"{train_err:.3e} (tol {train_tol:.3e})")
+    if not train_err <= train_tol:
+        raise AssertionError("fused_block_tail disagrees with its plain "
+                             "version at the flagship training shape")
+    del xf, resid, noise, params, out, ref
     args = tail_inputs(n, c, hidden, nc, gen)
     err, tol = check(args, f"flagship N={n} C={c} H={hidden} nc={nc}")
     xf, resid, noise, weights = args
@@ -244,6 +442,7 @@ def block_tail_phase(gen, block):
         "source": "ace_tpu_torch/csrc/fused_block_tail.cu",
         "replaces": "ace_tpu/ops/pallas_block.py:85",
         "launches": None, "max_abs_err": err, "tol": tol,
+        "train_max_abs_err": train_err, "train_tol": train_tol,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "unfused_tail_ms": unfused_ms,
@@ -387,6 +586,67 @@ def reference_phase(fused):
         raise AssertionError(f"the reference model launched K2 {tails} times")
 
 
+def reference_train_phase(fused, counters):
+    """One train step of a small bf16 flagship-shaped model on the card
+    (K1, 1b, 1c; with ``fused`` K2 and its recomputed backward) against
+    the same step on the CPU (plain versions), from the same weights,
+    batch and noise: every parameter's gradient (under the smooth loss of
+    ``flagship.train_gradients``, see ``flagship.TRAIN_GRAD_TOL``), then
+    the loss and gradient norm of ``train_step`` itself."""
+    import torch
+
+    from ace_tpu_torch import flagship
+
+    kw = dict(nz=2, embed=128, layers=2, fused_block_tail=fused)
+    cpu = flagship.build_train_stepper(16, 32, device="cpu", **kw)
+    gpu = flagship.build_train_stepper(16, 32, device="cuda", **kw)
+    gen = torch.Generator().manual_seed(3)
+    flagship.draw_check_weights(cpu.stepper, gen)
+    gpu.stepper.load_state_dict(cpu.module.state_dict())
+    batch = flagship.synthetic_batch(cpu.stepper, TRAIN_BATCH, generator=gen)
+    noise = cpu.module.make_noise(2 * TRAIN_BATCH, gen)
+    for ts in (cpu, gpu):
+        flagship.fixed_noise(ts.stepper, noise)
+    gpu_batch = {k: v.cuda() for k, v in batch.items()}
+    ref_loss, ref_grads = flagship.train_gradients(cpu, batch, smooth=True)
+    (loss, grads), launches = counted(
+        counters, lambda: flagship.train_gradients(gpu, gpu_batch,
+                                                   smooth=True))
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    errs = flagship.gradient_error(grads, ref_grads)
+    worst = max(errs, key=errs.get)
+    label = "fused tail" if fused else "unfused"
+    print(f"reference T ({label}): smooth loss {float(loss):.6g} on the "
+          f"card, {float(ref_loss):.6g} on the CPU (relative error "
+          f"{loss_err:.3g}, tol {flagship.TRAIN_LOSS_TOL}); largest gradient error "
+          f"{errs[worst]:.4g} relative L2 ({worst}; tol "
+          f"{flagship.TRAIN_GRAD_TOL}) over {len(errs)} parameters; "
+          f"launches {launches}")
+    if not (loss_err <= flagship.TRAIN_LOSS_TOL
+            and errs[worst] <= flagship.TRAIN_GRAD_TOL):
+        raise AssertionError("the train step on the card disagrees with the "
+                             "CPU")
+    want = {"dhconv_filter": 4, "dhconv_filter_dx": 2, "dhconv_filter_dw": 2,
+            "fused_block_tail": 4 if fused else 0, "fused_sht": 0}
+    if launches != want:
+        raise AssertionError(f"reference T: launches {launches}, want {want}")
+    steps = [ts.train_step(b, None) for ts, b in ((cpu, batch),
+                                                  (gpu, gpu_batch))]
+    step_errs = {k: abs(float(steps[1][k]) - float(steps[0][k]))
+                 / abs(float(steps[0][k])) for k in ("loss", "grad_norm")}
+    print(f"reference T ({label}): train_step loss "
+          f"{float(steps[1]['loss']):.6g} / {float(steps[0]['loss']):.6g}, "
+          f"grad_norm {float(steps[1]['grad_norm']):.6g} / "
+          f"{float(steps[0]['grad_norm']):.6g} (card / CPU); relative "
+          f"errors {step_errs} (tol {flagship.TRAIN_LOSS_TOL} and "
+          f"{flagship.TRAIN_NORM_TOL})")
+    if not (step_errs["loss"] <= flagship.TRAIN_LOSS_TOL
+            and step_errs["grad_norm"] <= flagship.TRAIN_NORM_TOL):
+        raise AssertionError("reference T: train_step on the card disagrees "
+                             "with the CPU")
+    return errs[worst]
+
+
 def build_flagship(fused):
     """The flagship stepper on the card, weights from seed 0."""
     import torch
@@ -476,6 +736,84 @@ def rollout(label, stepper, ic, forcing, counters, expected):
     return steps_per_s, launches
 
 
+def build_train_flagship(fused):
+    """The flagship train stepper on the card, weights from seed 0."""
+    import torch
+
+    from ace_tpu_torch import flagship
+
+    t0 = time.perf_counter()
+    ts = flagship.build_train_stepper(device="cuda", fused_block_tail=fused)
+    ts.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in ts.parameters())
+    print(f"flagship train stepper (fused tail {fused}) built and "
+          f"initialized in {time.perf_counter() - t0:.2f} s: {n_params} "
+          f"parameters, checkpointing {ts.module.checkpointing}")
+    return ts
+
+
+def noise_generator():
+    """The generator each train step draws its noise from, seeded the same
+    for every step."""
+    import torch
+
+    return torch.Generator("cuda").manual_seed(2)
+
+
+def train_path(ts, batch, counters, expected):
+    """Path T: a warm-up train step, then ``TRAIN_STEPS`` timed steps on
+    the same batch and noise, with no synchronizing operation inside them;
+    returns the warm-up step's metrics, the rate and the launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    first = ts.train_step(batch, noise_generator())
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = [ts.train_step(batch, noise_generator())
+                       for _ in range(TRAIN_STEPS)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return metrics, time.perf_counter() - t0
+
+    (metrics, train_s), launches = counted(counters, run)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = ts.valid_step(batch, noise_generator())["loss"]
+    losses = [float(m["loss"]) for m in metrics] + [float(after)]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    rate = TRAIN_STEPS / train_s
+    print(f"path T: first step {first_s:.3f} s (loss "
+          f"{float(first['loss']):.6g}, grad_norm "
+          f"{float(first['grad_norm']):.6g}); {TRAIN_STEPS} steps "
+          f"{train_s:.3f} s = {rate:.4f} steps/s = "
+          f"{rate * TRAIN_BATCH:.4f} samples/s at batch {TRAIN_BATCH} (x2 "
+          f"ensemble members); peak device memory {peak_gb:.2f} GB; "
+          f"launches {launches}")
+    print(f"path T: losses {[round(v, 6) for v in losses]} (the last after "
+          f"the {TRAIN_STEPS} updates), grad_norms "
+          f"{[round(v, 6) for v in norms]}")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError("path T: a loss or gradient norm is not finite")
+    # against the warm-up step's loss, taken before any update (the first
+    # update raises it: tests/test_torch_train.py shows ace_tpu's does too)
+    if not losses[-1] < float(first["loss"]):
+        raise AssertionError(f"path T: the loss after {TRAIN_STEPS + 1} "
+                             f"updates on a fixed batch is not below the "
+                             f"loss before them")
+    want = {k: v * TRAIN_STEPS for k, v in expected.items()}
+    if launches != want:
+        raise AssertionError(f"path T: launches {launches}, want {want}")
+    return first, rate, launches
+
+
 def first_steps_agree(path0, path_a, ic, forcing):
     """Path A's first step against path 0's, from the same weights, state
     and noise (both draw it from the default seed). The weights of both
@@ -528,7 +866,7 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
           f"{torch.backends.cudnn.allow_tf32}")
 
-    sources = [k1.SOURCE, k2.SOURCE, k3.SOURCE]
+    sources = [k1.SOURCE, k1.BWD_SOURCE, k2.SOURCE, k3.SOURCE]
     t0 = time.perf_counter()
     seconds = kernel_build.build(sources)
     print(f"build: {seconds} in {time.perf_counter() - t0:.1f} s")
@@ -537,21 +875,26 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(2)
     kernels = {"dhconv_filter": dhconv_phase(gen)}
+    kernels.update(dhconv_bwd_phase(gen))
     reference_phase(fused=False)
     reference_phase(fused=True)
+    counters = [k1.dhconv_filter, k1.dhconv_filter_dx, k1.dhconv_filter_dw,
+                k2.fused_block_tail, k3.fused_sht]
+    for fused in (False, True):
+        reference_train_phase(fused, counters)
 
     path0 = build_flagship(fused=False)
     kernels["fused_block_tail"] = block_tail_phase(gen, path0.module.block_1)
     kernels["fused_sht"] = sht_phase(gen, path0.module.trans)
 
-    counters = [k1.dhconv_filter, k2.fused_block_tail, k3.fused_sht]
     per_step = flagship.LAYERS * N_STEPS
+    none = {c.__name__: 0 for c in counters}
     ic, forcing = flagship.synthetic_inputs(
         path0, N_STEPS, generator=torch.Generator("cuda").manual_seed(1)
     )
     rate0, launches0 = rollout(
         "0", path0, ic, forcing, counters,
-        {"dhconv_filter": per_step, "fused_block_tail": 0, "fused_sht": 0},
+        {**none, "dhconv_filter": per_step},
     )
 
     path_a = build_flagship(fused=True)
@@ -573,8 +916,7 @@ def main() -> int:
     path_a.init_params(torch.Generator("cuda").manual_seed(0))
     rate_a, launches_a = rollout(
         "A", path_a, ic, forcing, counters,
-        {"dhconv_filter": per_step, "fused_block_tail": per_step,
-         "fused_sht": 0},
+        {**none, "dhconv_filter": per_step, "fused_block_tail": per_step},
     )
     print(f"paths 0 and A, same call: {rate0:.3f} and {rate_a:.3f} steps/s")
 
@@ -591,13 +933,57 @@ def main() -> int:
     if not (all(torch.isfinite(c).all() for c in coeffs)
             and err <= SHT_TOL * scale):
         raise AssertionError("path B disagrees with forward_pair")
-    if launches_b != {"dhconv_filter": 0, "fused_block_tail": 0,
-                      "fused_sht": 1}:
+    if launches_b != {**none, "fused_sht": 1}:
         raise AssertionError(f"path B: kernel launches {launches_b}")
+    del path_a, trans, x, block_input, coeffs
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    by_path = {"0": launches0, "A": launches_a, "B": launches_b}
+    # path T: per train step, K1 in each block's forward and again in its
+    # recompute (checkpointing 1), 1b and 1c once per block
+    layers = flagship.LAYERS
+    per_train_step = {**none, "dhconv_filter": 2 * layers,
+                      "dhconv_filter_dx": layers, "dhconv_filter_dw": layers}
+    path_t = build_train_flagship(fused=False)
+    batch = flagship.synthetic_batch(
+        path_t.stepper, TRAIN_BATCH,
+        generator=torch.Generator("cuda").manual_seed(1))
+    weights0 = {k: v.clone() for k, v in path_t.module.state_dict().items()}
+    first_t, rate_t, launches_t = train_path(path_t, batch, counters,
+                                             per_train_step)
+    del path_t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # path T-A: the first step again, with the fused tail (K2 in each
+    # block's forward and recompute)
+    path_ta = build_train_flagship(fused=True)
+    for k, v in path_ta.module.state_dict().items():
+        if not torch.equal(v, weights0[k]):
+            raise AssertionError("paths T and T-A drew different weights")
+    del weights0
+    torch.cuda.reset_peak_memory_stats()
+    metrics_ta, launches_ta = counted(
+        counters, lambda: path_ta.train_step(batch, noise_generator()))
+    peak_ta = torch.cuda.max_memory_allocated() / 1e9
+    errs = {k: abs(float(metrics_ta[k]) - float(first_t[k]))
+            / abs(float(first_t[k])) for k in ("loss", "grad_norm")}
+    print(f"path T-A: first step loss {float(metrics_ta['loss']):.6g}, "
+          f"grad_norm {float(metrics_ta['grad_norm']):.6g}; against path "
+          f"T's first: relative errors {errs} (tol {TRAIN_PATH_TOL}); peak "
+          f"device memory {peak_ta:.2f} GB; launches {launches_ta}")
+    if not max(errs.values()) <= TRAIN_PATH_TOL:
+        raise AssertionError("path T-A's first step disagrees with path T's")
+    if launches_ta != {**per_train_step, "fused_block_tail": 2 * layers}:
+        raise AssertionError(f"path T-A: launches {launches_ta}")
+    print(f"path T, same call: {rate_t:.4f} train steps/s, "
+          f"{rate_t * TRAIN_BATCH:.4f} samples/s")
+
+    by_path = {"0": launches0, "A": launches_a, "B": launches_b,
+               "T": launches_t, "T-A": launches_ta}
     own_path = {"dhconv_filter": "0", "fused_block_tail": "A",
-                "fused_sht": "B"}
+                "fused_sht": "B", "dhconv_filter_dx": "T",
+                "dhconv_filter_dw": "T"}
     for name, row in kernels.items():
         row["launches"] = by_path[own_path[name]][name]
         row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}

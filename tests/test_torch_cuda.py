@@ -9,7 +9,16 @@ installed. There, skip the JAX-importing conftest:
 import pytest
 import torch
 
-from ace_tpu_torch.ops.dhconv_filter import dhconv_filter, dhconv_filter_plain
+from ace_tpu_torch.ops.dhconv_filter import (
+    dhconv_filter,
+    dhconv_filter_dw,
+    dhconv_filter_dw_plain,
+    dhconv_filter_dx,
+    dhconv_filter_dx_plain,
+    dhconv_filter_param,
+    dhconv_filter_plain,
+    param_layout,
+)
 from ace_tpu_torch.ops.fused_block_tail import (
     fused_block_tail,
     fused_block_tail_plain,
@@ -74,6 +83,95 @@ def test_dhconv_kernel_refuses_shapes_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError):
         dhconv_filter(x[..., :32], x[..., :32], w[:, :32], w[:, :32],
                       out_dtype=torch.float32)
+
+
+# 1b's tile edges: M against its 64-row tiles, I against its 128-column
+# tiles, O (its contraction) against its 32-deep stages
+_DX_EDGES = [(2, 3, m, i, o) for m in (1, 64, 65, 181) for i in (8, 128, 136)
+             for o in (8, 32, 40)]
+
+
+def _bwd_inputs(b, l, m, i, o, device):
+    gen = torch.Generator(device).manual_seed(0)
+    xr, xi = (torch.randn(b, l, m, i, generator=gen, device=device)
+              for _ in range(2))
+    gr, gi = (torch.randn(b, l, m, o, generator=gen, device=device)
+              .to(torch.bfloat16) for _ in range(2))
+    wr, wi = (torch.randn(l, i, o, generator=gen, device=device)
+              .mul(0.02).to(torch.bfloat16) for _ in range(2))
+    return xr, xi, gr, gi, wr, wi
+
+
+def _assert_f32_close(out, ref):
+    """bf16 products are exact in f32: only the order of the sum differs,
+    so 1e-4 of the largest output."""
+    for a, r in zip(out, ref):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        scale = float(r.abs().max())
+        assert float((a - r).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize(
+    "shape", [(4, 180, 181, 512, 512), (2, 3, 181, 96, 200)] + _DX_EDGES,
+    ids=["flagship-train", "ragged"]
+    + ["M{}-I{}-O{}".format(*s[2:]) for s in _DX_EDGES],
+)
+def test_dhconv_dx_kernel_matches_plain(cuda, shape):
+    """1b (dx) against its plain version at the training shape and its
+    tile edges."""
+    _, _, gr, gi, wr, wi = _bwd_inputs(*shape, cuda)
+    before = dhconv_filter_dx.launches
+    out = dhconv_filter_dx(gr, gi, wr, wi)
+    torch.cuda.synchronize()
+    assert dhconv_filter_dx.launches == before + 1
+    _assert_f32_close(out, dhconv_filter_dx_plain(gr, gi, wr, wi))
+
+
+# 1c's tile edges: M against its 32-row stages (the contraction runs over
+# B and M), I against its 64-row tiles, O against its 128-column tiles
+_DW_EDGES = [(b, 3, m, i, o) for b in (1, 3) for m in (1, 32, 33, 181)
+             for i, o in ((8, 8), (64, 128), (72, 136), (56, 120))]
+
+
+@pytest.mark.parametrize(
+    "shape", [(4, 180, 181, 512, 512), (2, 3, 181, 96, 200)] + _DW_EDGES,
+    ids=["flagship-train", "ragged"]
+    + ["B{}-M{}-I{}-O{}".format(s[0], *s[2:]) for s in _DW_EDGES],
+)
+def test_dhconv_dw_kernel_matches_plain(cuda, shape):
+    """1c (dW, in the weight's [I, O, L, 2] layout) against its plain
+    version."""
+    xr, xi, gr, gi, _, _ = _bwd_inputs(*shape, cuda)
+    before = dhconv_filter_dw.launches
+    out = dhconv_filter_dw(xr, xi, gr, gi)
+    torch.cuda.synchronize()
+    assert dhconv_filter_dw.launches == before + 1
+    ref = param_layout(*dhconv_filter_dw_plain(xr, xi, gr, gi))
+    _assert_f32_close((out,), (ref,))
+
+
+def test_dhconv_filter_gradients_on_card_match_cpu(cuda):
+    """The differentiable filter on the card (K1, 1b, 1c) against the same
+    call on the CPU (plain versions)."""
+    xr, xi, gr, gi, wr, wi = _bwd_inputs(2, 5, 37, 64, 64, cuda)
+    weight = param_layout(wr.float(), wi.float()).contiguous()
+    grads = {}
+    for dev in ("cpu", cuda):
+        x = [t.to(dev).requires_grad_() for t in (xr, xi, weight)]
+        outr, outi = dhconv_filter_param(*x)
+        torch.autograd.backward((outr, outi), (gr.to(dev), gi.to(dev)))
+        grads[str(dev)] = [t.grad.cpu() for t in x]
+    _assert_f32_close(grads["cuda"], grads["cpu"])
+
+
+def test_dhconv_bwd_kernels_refuse_what_they_do_not_take(cuda):
+    xr, xi, gr, gi, wr, wi = _bwd_inputs(1, 2, 5, 32, 12, cuda)
+    with pytest.raises(ValueError, match="O % 8"):
+        dhconv_filter_dx(gr, gi, wr, wi)
+    with pytest.raises(TypeError):
+        dhconv_filter_dw(xr, xi, gr.float(), gi.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        dhconv_filter_dx(gr[..., :8], gi[..., :8], wr[..., :8], wi[..., :8])
 
 
 def test_small_flagship_rollout_on_card_matches_cpu(cuda, monkeypatch):

@@ -8,10 +8,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from ace_tpu.ops.pallas_filter import _bwd as jax_filter_bwd
 from ace_tpu.ops.pallas_filter import dhconv_filter as jax_dhconv_filter
 from ace_tpu_torch.ops.dhconv_filter import (
     dhconv_filter,
+    dhconv_filter_bwd_plain,
+    dhconv_filter_dw,
+    dhconv_filter_dx,
+    dhconv_filter_param,
     dhconv_filter_plain,
+    param_layout,
 )
 
 torch.set_num_threads(2)
@@ -82,6 +90,8 @@ def test_wrapper_uses_plain_version_on_cpu():
 
 @pytest.mark.parametrize("misuse", ["x_bf16", "w_f32", "grad", "shape"])
 def test_wrapper_refuses_misuse(misuse):
+    """``grad``: tensors that require grad now go through the backward,
+    which exists for the bf16 outputs of the AMP contract only."""
     xr, xi, wr, wi = (torch.from_numpy(a) for a in _inputs(batch=1))
     wr, wi = wr.to(torch.bfloat16), wi.to(torch.bfloat16)
     if misuse == "x_bf16":
@@ -92,12 +102,93 @@ def test_wrapper_refuses_misuse(misuse):
         error = TypeError
     elif misuse == "grad":
         xr.requires_grad_(True)
-        error = NotImplementedError
+        with pytest.raises(NotImplementedError, match="bfloat16 outputs"):
+            dhconv_filter(xr, xi, wr, wi, out_dtype=torch.float32)
+        return
     else:
         wr, wi = wr[:, :-1], wi[:, :-1]
         error = ValueError
     with pytest.raises(error):
         dhconv_filter(xr, xi, wr, wi)
+
+
+def _cotangents(batch=2, l=L, m=M, o=O):
+    rng = np.random.RandomState(7)
+    return tuple(rng.randn(batch, l, m, o).astype(np.float32)
+                 for _ in range(2))
+
+
+def _f32_close(out, ref):
+    """Exact bf16 products, f32 sums in another order: 1e-5 of the
+    largest value."""
+    ref = np.asarray(ref, np.float32)
+    out = out.detach().numpy() if isinstance(out, torch.Tensor) else out
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=1e-5 * float(np.max(np.abs(ref))))
+
+
+def test_bwd_plain_matches_jax_bwd():
+    """dhconv_filter_bwd_plain against ace_tpu's ``_bwd`` einsums."""
+    xr, xi, wr, wi = _inputs()
+    gr, gi = (g.astype(jnp.bfloat16) for g in map(jnp.asarray, _cotangents()))
+    ref = jax_filter_bwd(jnp.bfloat16, True, tuple(
+        jnp.asarray(a) for a in (xr, xi, wr, wi)), (gr, gi))
+    out = dhconv_filter_bwd_plain(
+        *(torch.from_numpy(a) for a in (xr, xi, wr, wi)),
+        *(torch.from_numpy(np.asarray(g, np.float32)).to(torch.bfloat16)
+          for g in (gr, gi)),
+    )
+    for a, r in zip(out, ref):
+        assert a.dtype == torch.float32
+        _f32_close(a, r)
+
+
+@pytest.mark.parametrize("entry", ["lio", "param"])
+def test_filter_gradients_match_jax_vjp(entry):
+    """The autograd Function's gradients (the wrapper with f32 ``[L, I,
+    O]`` weights, or ``dhconv_filter_param`` on the ``[I, O, L, 2]``
+    parameter) against jax.vjp of ace_tpu's kernel in the interpreter."""
+    xr, xi, wr, wi = _inputs()
+    gr, gi = _cotangents()
+    bf = jnp.bfloat16
+    _, vjp = jax.vjp(
+        lambda a, b, c, d: jax_dhconv_filter(a, b, c, d, interpret=True),
+        *(jnp.asarray(t) for t in (xr, xi, wr, wi)),
+    )
+    ref = vjp((jnp.asarray(gr, bf), jnp.asarray(gi, bf)))
+    x = [torch.from_numpy(t).requires_grad_() for t in (xr, xi)]
+    cot = [torch.from_numpy(g).to(torch.bfloat16) for g in (gr, gi)]
+    if entry == "lio":
+        w = [torch.from_numpy(t).requires_grad_() for t in (wr, wi)]
+        out = dhconv_filter(*x, *w)
+        torch.autograd.backward(out, cot)
+        grads = [t.grad for t in x + w]
+    else:
+        weight = param_layout(*map(torch.from_numpy, (wr, wi)))
+        weight = weight.contiguous().requires_grad_()
+        out = dhconv_filter_param(*x, weight)
+        torch.autograd.backward(out, cot)
+        grads = [t.grad for t in x] + [weight.grad[..., 0].permute(2, 0, 1),
+                                       weight.grad[..., 1].permute(2, 0, 1)]
+    assert all(o.dtype == torch.bfloat16 for o in out)
+    for g, r in zip(grads, ref):
+        assert g.dtype == torch.float32
+        _f32_close(g, r)
+
+
+def test_backward_wrappers_use_plain_versions_on_cpu():
+    xr, xi, wr, wi = (torch.from_numpy(a) for a in _inputs())
+    gr, gi = (torch.from_numpy(g).to(torch.bfloat16) for g in _cotangents())
+    before = (dhconv_filter_dx.launches, dhconv_filter_dw.launches)
+    dxr, dxi = dhconv_filter_dx(gr, gi, wr.to(torch.bfloat16),
+                                wi.to(torch.bfloat16))
+    dw = dhconv_filter_dw(xr, xi, gr, gi)
+    assert (dhconv_filter_dx.launches, dhconv_filter_dw.launches) == before
+    assert dw.shape == (I, O, L, 2) and dxr.shape == xr.shape
+    ref = dhconv_filter_bwd_plain(xr, xi, wr, wi, gr, gi)
+    for a, r in zip((dxr, dxi), ref[:2]):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    torch.testing.assert_close(dw, param_layout(*ref[2:]), rtol=0, atol=0)
 
 
 def _source_constant(name):
