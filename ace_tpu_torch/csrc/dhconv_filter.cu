@@ -62,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "tma_wgmma.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -86,123 +88,6 @@ constexpr int SMEM_BYTES =
 constexpr int CONSUMER_REGS = 160;
 constexpr int PRODUCER_REGS = 32;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of `bar` with the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Store a box from shared memory by TMA (parts past the tensor are
-// dropped); wait until this thread's committed stores have read their
-// shared memory.
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
-                                             const void* src, int c0, int c1,
-                                             int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
-      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor for a tile written by TMA with the
-// 128-byte swizzle; lbo and sbo in bytes.
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving accumulator accesses across a fence.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x 128, f32) += SCALE_A * A (64 x 16, bf16 registers) * B (16 x 128,
-// bf16 shared memory, MN-major); D is overwritten when scale_d == 0. The
-// operand lists name every accumulator register, as wgmma requires.
-template <int SCALE_A>
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, %70, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d), "n"(SCALE_A));
-}
-
-
 // Two consecutive f32 values of an x stage ([ROWS, 32] f32 rows of 128
 // bytes, 16-byte chunk c of row r stored at chunk c ^ (r % 8)), rounded to
 // a bf16 pair (the lower column in the low half).
@@ -213,14 +98,6 @@ __device__ __forceinline__ uint32_t x_pair(const float* tile, int row,
                                                     chunk * 4 + (col & 3));
   const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// v, hidden from the compiler's loop-invariant code motion, so that
-// addresses derived from it are recomputed where they are used instead of
-// being kept in registers across the loops (the accumulators need them).
-__device__ __forceinline__ int opaque(int v) {
-  asm volatile("" : "+r"(v));
-  return v;
 }
 
 __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
@@ -390,45 +267,13 @@ dhconv_filter_kernel(const __grid_constant__ CUtensorMap map_xr,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &status);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &status);
-#endif
-    if (status == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// A rank-3 tiled map over a row-major [d2, d1, d0] tensor, 128-byte swizzle.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-              const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
-              uint32_t box0, uint32_t box1) {
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * elem_bytes, d0 * d1 * elem_bytes};
-  const cuuint32_t box[3] = {box0, box1, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode_tiled()(map, type, 3, const_cast<void*>(ptr), dims, strides,
-                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// A rank-3 tiled map over a row-major [d2, d1, d0] tensor.
+bool make_map_3d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                 const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
+                 uint32_t box0, uint32_t box1) {
+  const uint64_t dims[3] = {d0, d1, d2};
+  const uint32_t box[3] = {box0, box1, 1};
+  return make_map(map, type, elem_bytes, ptr, 3, dims, box);
 }
 
 }  // namespace
@@ -455,17 +300,17 @@ extern "C" int dhconv_filter_forward(const void* xr, const void* xi,
     return cudaErrorInvalidConfiguration;
   }
   CUtensorMap maps[6];
-  if (!make_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, xr, I, M,
+  if (!make_map_3d(&maps[0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, xr, I, M,
                 batch_l, BK, ROWS) ||
-      !make_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, xi, I, M,
+      !make_map_3d(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, xi, I, M,
                 batch_l, BK, ROWS) ||
-      !make_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wr, O, I, L,
+      !make_map_3d(&maps[2], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wr, O, I, L,
                 64, BK) ||
-      !make_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wi, O, I, L,
+      !make_map_3d(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wi, O, I, L,
                 64, BK) ||
-      !make_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, outr, O, M,
+      !make_map_3d(&maps[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, outr, O, M,
                 batch_l, 64, 64) ||
-      !make_map(&maps[5], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, outi, O, M,
+      !make_map_3d(&maps[5], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, outi, O, M,
                 batch_l, 64, 64)) {
     return cudaErrorInvalidValue;
   }

@@ -1,4 +1,5 @@
-// Backward of the complex dhconv spectral filter for Hopper (sm_90a).
+// Input gradient of the complex dhconv spectral filter (kernel 1b) for
+// Hopper (sm_90a).
 //
 // Serves the custom VJP of the Pallas TPU kernel
 // ace_tpu/ops/pallas_filter.py:dhconv_filter (_bwd :129-141), whose
@@ -6,40 +7,29 @@
 // With the forward out_r = x_r w_r - x_i w_i, out_i = x_r w_i + x_i w_r per
 // degree l, and g_r, g_i the bf16 cotangents of out_r, out_i:
 //
-//   1b (dx):  dx_r = g_r w_r^T + g_i w_i^T      dx_i = g_i w_r^T - g_r w_i^T
-//             per (b, l): [M, O] x [O, I] -> f32 [M, I]
-//   1c (dW):  dw_r = x_r^T g_r + x_i^T g_i      dw_i = x_r^T g_i - x_i^T g_r
-//             per l: [I, B*M] x [B*M, O] -> f32 [I, O], summed over b and m
+//   dx_r = g_r w_r^T + g_i w_i^T      dx_i = g_i w_r^T - g_r w_i^T
 //
-// x_r, x_i are f32 [B, L, M, I] and rounded to bf16 on chip; w_r, w_i are
-// bf16 [L, I, O]; g_r, g_i bf16 [B, L, M, O]. Both products of an output
-// element accumulate in one f32 accumulator (JAX adds two f32 einsums: the
-// bf16 products are exact in f32, so only the order of the sum differs).
+// per (b, l): [M, O] x [O, I] -> f32 [M, I]. w_r, w_i are bf16 [L, I, O];
+// g_r, g_i bf16 [B, L, M, O]. Both products of an output element
+// accumulate in one f32 accumulator (JAX adds two f32 einsums: the bf16
+// products are exact in f32, so only the order of the sum differs). The
+// weight gradient (1c) is dhconv_filter_dw.cu.
 //
-// What bounds them: at the flagship training shape (B=4, L=180, M=181,
-// I=O=512) each does 273 GFLOP (0.276 ms at 989 TFLOP/s bf16). 1b moves
-// 989 MB (g 267, w 189, dx 534: 0.295 ms at 3.35 TB/s), 1c 1178 MB (x
-// 534, g 267, dW 378: 0.352 ms). Both sit near the ridge.
+// What bounds it: at the flagship training shape (B=4, L=180, M=181,
+// I=O=512) it does 273 GFLOP (0.276 ms at 989 TFLOP/s bf16) and moves
+// 989 MB (g 267, w 189, dx 534: 0.295 ms at 3.35 TB/s): near the ridge.
 //
 // What the design does about it (a first, simple version):
 // - mma.sync m16n8k16 (bf16 in, f32 accumulators) on 64 x 128 block tiles,
 //   8 warps of 32 x 32 each, with both outputs (re and im) of a tile in one
 //   block, so every operand tile loaded feeds four products.
-// - 1b streams g and w by cp.async through a 3-stage ring of 32-deep
-//   stages; both operands are K-contiguous, so fragments come straight
-//   from ldmatrix. The transposed weight w^T is only an addressing choice:
-//   no transposed copy is made.
-// - 1c reads x in f32 (rounded to bf16 on the way into shared memory, one
-//   tile ahead in registers) and g by cp.async, 2 stages; its operands are
-//   M-contiguous, so fragments come from ldmatrix.trans.
-// - The minus signs flip the sign bits of a bf16 fragment (exact).
-// - The blocks of one l (1b), or of a group of four l (1c), run next to
-//   each other, so their operands leave device memory about once and are
-//   re-read from L2 by the other tiles.
-// - 1c writes dW straight into the spectral weight's parameter layout
-//   [I, O, L, 2]: one 8-byte (re, im) pair per element, whose 32-byte
-//   sector is completed by the blocks of the other three l of its group,
-//   which run beside it.
+// - g and w stream by cp.async through a 3-stage ring of 32-deep stages;
+//   both operands are K-contiguous, so fragments come straight from
+//   ldmatrix. The transposed weight w^T is only an addressing choice: no
+//   transposed copy is made.
+// - The minus sign flips the sign bits of a bf16 fragment (exact).
+// - The blocks of one l run next to each other, so their operands leave
+//   device memory about once and are re-read from L2 by the other tiles.
 // Rows past M (and columns past I or O) are zero-filled on load and
 // dropped on store. The wrapper checks I % 8 == 0 and O % 8 == 0 (16-byte
 // copies) and 16-byte alignment.
@@ -50,23 +40,16 @@
 
 namespace {
 
-constexpr int BM = 64;     // rows of a block tile (m for 1b, i for 1c)
-constexpr int BN = 128;    // columns of a block tile (i for 1b, o for 1c)
+constexpr int BM = 64;     // rows (m) of a block tile
+constexpr int BN = 128;    // columns (i) of a block tile
 constexpr int BK = 32;     // contraction depth of a stage
 constexpr int THREADS = 256;
-// 1b: stage rows of BK bf16 padded to 40 (80 bytes: ldmatrix rows fall in
+// stage rows of BK bf16 padded to 40 (80 bytes: ldmatrix rows fall in
 // distinct 16-byte bank groups)
 constexpr int DX_PITCH = BK + 8;
 constexpr int DX_STAGES = 3;
 constexpr int DX_STAGE_ELEMS = 2 * BM * DX_PITCH + 2 * BN * DX_PITCH;
 constexpr int DX_SMEM_BYTES = DX_STAGES * DX_STAGE_ELEMS * 2;
-// 1c: stage rows of BM (x) and BN (g) bf16, padded by 8
-constexpr int DW_XPITCH = BM + 8;
-constexpr int DW_GPITCH = BN + 8;
-constexpr int DW_STAGE_ELEMS = 2 * BK * DW_XPITCH + 2 * BK * DW_GPITCH;
-constexpr int DW_SMEM_BYTES = 2 * DW_STAGE_ELEMS * 2;
-// 1c: l per block group: 4 x 8 bytes of (re, im) fill one 32-byte sector
-constexpr int LGROUP = 4;
 
 typedef __nv_bfloat16 bf16;
 
@@ -96,15 +79,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
 // d (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
@@ -124,9 +98,7 @@ __device__ __forceinline__ void negate(uint32_t (&dst)[4],
 // The four products of one warp's 32 x 32 tile of both outputs for one
 // 16-deep step, from A fragments a_r, a_i [2 row tiles] and B fragments
 // b_r, b_i [4 column tiles][2]:
-//   out_r += a_r b_r + a_i b_i      out_i += a_i b_r - a_r b_i   (1b)
-//   out_r += a_r b_r + a_i b_i      out_i += a_r b_i - a_i b_r   (1c)
-template <bool DW>
+//   out_r += a_r b_r + a_i b_i      out_i += a_i b_r - a_r b_i
 __device__ __forceinline__ void products(float (&acc_r)[2][4][4],
                                          float (&acc_i)[2][4][4],
                                          const uint32_t (&a_r)[2][4],
@@ -136,23 +108,16 @@ __device__ __forceinline__ void products(float (&acc_r)[2][4][4],
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     uint32_t neg[4];
-    negate(neg, DW ? a_i[mt] : a_r[mt]);
+    negate(neg, a_r[mt]);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       mma(acc_r[mt][nt], a_r[mt], b_r[nt][0], b_r[nt][1]);
       mma(acc_r[mt][nt], a_i[mt], b_i[nt][0], b_i[nt][1]);
-      if (DW) {
-        mma(acc_i[mt][nt], a_r[mt], b_i[nt][0], b_i[nt][1]);
-        mma(acc_i[mt][nt], neg, b_r[nt][0], b_r[nt][1]);
-      } else {
-        mma(acc_i[mt][nt], a_i[mt], b_r[nt][0], b_r[nt][1]);
-        mma(acc_i[mt][nt], neg, b_i[nt][0], b_i[nt][1]);
-      }
+      mma(acc_i[mt][nt], a_i[mt], b_r[nt][0], b_r[nt][1]);
+      mma(acc_i[mt][nt], neg, b_i[nt][0], b_i[nt][1]);
     }
   }
 }
-
-// ---------------------------------------------------------------- 1b: dx
 
 __global__ void __launch_bounds__(THREADS)
 dhconv_dx_kernel(const bf16* __restrict__ gr, const bf16* __restrict__ gi,
@@ -262,7 +227,7 @@ dhconv_dx_kernel(const bf16* __restrict__ gr, const bf16* __restrict__ gi,
           bw[c][2 * np + 1][1] = q[3];
         }
       }
-      products<false>(acc_r, acc_i, a[0], a[1], bw[0], bw[1]);
+      products(acc_r, acc_i, a[0], a[1], bw[0], bw[1]);
     }
   }
   cp_async_wait<0>();
@@ -290,177 +255,6 @@ dhconv_dx_kernel(const bf16* __restrict__ gr, const bf16* __restrict__ gi,
   }
 }
 
-// ---------------------------------------------------------------- 1c: dW
-
-__device__ __forceinline__ uint2 bf16x4(float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  return make_uint2(*reinterpret_cast<uint32_t*>(&lo),
-                    *reinterpret_cast<uint32_t*>(&hi));
-}
-
-__global__ void __launch_bounds__(THREADS)
-dhconv_dw_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                 const bf16* __restrict__ gr, const bf16* __restrict__ gi,
-                 float* __restrict__ dw, int B, int L, int M, int I, int O,
-                 int n_it, int n_ot) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  // block order: the LGROUP consecutive l of a group fastest, so that the
-  // blocks that complete each 32-byte sector of the [I, O, L, 2] output run
-  // together; then column (o) tile, row (i) tile, l group (the tiles of a
-  // group share its x and g in L2)
-  int id = blockIdx.x;
-  const int lq = id % LGROUP;
-  id /= LGROUP;
-  const int ot = id % n_ot;
-  id /= n_ot;
-  const int it = id % n_it;
-  const int l = (id / n_it) * LGROUP + lq;
-  if (l >= L) return;
-  const int i0 = it * BM, o0 = ot * BN;
-  const int n_mc = (M + BK - 1) / BK;
-  const int nk = B * n_mc;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm0 = (warp / 4) * 32;
-  const int wn0 = (warp % 4) * 32;
-  const float* x_base[2] = {xr, xi};
-  const bf16* g_base[2] = {gr, gi};
-
-  auto stage_ptr = [&](int s) { return smem + s * DW_STAGE_ELEMS; };
-  // rows of contraction step kt: b = kt / n_mc, m = (kt % n_mc) * BK + row
-  auto row_offset = [&](int kt, int row, bool& valid) {
-    const int b = kt / n_mc;
-    const int m = (kt % n_mc) * BK + row;
-    valid = m < M;
-    return ((static_cast<long long>(b) * L + l) * M + m);
-  };
-  // x: 2 x BK rows x BM f32 = 1024 float4, 4 a thread, held in registers
-  // (q / 2 selects re or im, so each array index is known at compile time)
-  float4 xv[4];
-  auto load_x = [&](int kt) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int arr = q / 2, rem = tid + (q % 2) * THREADS;
-      const int row = rem / (BM / 4), col = (rem % (BM / 4)) * 4;
-      bool valid;
-      const long long rofs = row_offset(kt, row, valid);
-      valid = valid && (i0 + col < I);
-      xv[q] = valid ? *reinterpret_cast<const float4*>(
-                          x_base[arr] + rofs * I + i0 + col)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto store_x = [&](int s) {
-    bf16* st = stage_ptr(s);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int arr = q / 2, rem = tid + (q % 2) * THREADS;
-      const int row = rem / (BM / 4), col = (rem % (BM / 4)) * 4;
-      *reinterpret_cast<uint2*>(st + arr * BK * DW_XPITCH + row * DW_XPITCH +
-                                col) = bf16x4(xv[q]);
-    }
-  };
-  // g: 2 x BK rows x BN bf16 = 1024 16-byte chunks, 4 a thread
-  auto load_g = [&](int kt, int s) {
-    bf16* st = stage_ptr(s) + 2 * BK * DW_XPITCH;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int arr = q / 2, rem = tid + (q % 2) * THREADS;
-      const int row = rem / (BN / 8), col = (rem % (BN / 8)) * 8;
-      bool valid;
-      const long long rofs = row_offset(kt, row, valid);
-      valid = valid && (o0 + col < O);
-      const bf16* src =
-          valid ? g_base[arr] + rofs * O + o0 + col : g_base[arr];
-      cp_async16(st + arr * BK * DW_GPITCH + row * DW_GPITCH + col, src,
-                 valid ? 16 : 0);
-    }
-  };
-
-  float acc_r[2][4][4], acc_i[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_r[a][c][e] = acc_i[a][c][e] = 0.f;
-
-  load_x(0);
-  store_x(0);
-  load_g(0, 0);
-  cp_async_commit();
-  const int j = lane / 8, r = lane % 8;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    const bool next = kt + 1 < nk;
-    if (next) {
-      load_x(kt + 1);  // in flight during this step's products
-      load_g(kt + 1, cur ^ 1);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* st = stage_ptr(cur);
-    const bf16* sx[2] = {st, st + BK * DW_XPITCH};
-    const bf16* sg[2] = {st + 2 * BK * DW_XPITCH,
-                         st + 2 * BK * DW_XPITCH + BK * DW_GPITCH};
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[2][2][4];
-      uint32_t bg[2][4][2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          // stored [k][i]; matrices: i +0/+8 (j % 2), k +0/+8 (j / 2)
-          ldmatrix_x4_trans(a[c][mt],
-                            sx[c] + (kk * 16 + (j / 2) * 8 + r) * DW_XPITCH +
-                                wm0 + mt * 16 + (j % 2) * 8);
-        }
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          // stored [k][o]; matrices: k +0/+8 (j % 2), o +0/+8 (j / 2)
-          uint32_t q[4];
-          ldmatrix_x4_trans(q, sg[c] + (kk * 16 + (j % 2) * 8 + r) * DW_GPITCH +
-                                   wn0 + np * 16 + (j / 2) * 8);
-          bg[c][2 * np][0] = q[0];
-          bg[c][2 * np][1] = q[1];
-          bg[c][2 * np + 1][0] = q[2];
-          bg[c][2 * np + 1][1] = q[3];
-        }
-      }
-      products<true>(acc_r, acc_i, a[0], a[1], bg[0], bg[1]);
-    }
-    if (next) store_x(cur ^ 1);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + wm0 + mt * 16 + g + h * 8;
-      if (i >= I) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int o = o0 + wn0 + nt * 8 + 2 * t;
-        if (o >= O) continue;
-        const float r0 = acc_r[mt][nt][2 * h], r1 = acc_r[mt][nt][2 * h + 1];
-        const float q0 = acc_i[mt][nt][2 * h], q1 = acc_i[mt][nt][2 * h + 1];
-        // [I, O, L, 2]: (re, im) of (i, o, l) side by side
-        const long long e0 = ((static_cast<long long>(i) * O + o) * L + l) * 2;
-        *reinterpret_cast<float2*>(dw + e0) = make_float2(r0, q0);
-        *reinterpret_cast<float2*>(dw + e0 + 2LL * L) = make_float2(r1, q1);
-      }
-    }
-  }
-}
-
 }  // namespace
 
 // Launch 1b on `stream`; returns a CUDA error code (0 on success).
@@ -482,27 +276,5 @@ extern "C" int dhconv_filter_dx(const void* gr, const void* gi,
       static_cast<const bf16*>(wr), static_cast<const bf16*>(wi),
       static_cast<float*>(dxr), static_cast<float*>(dxi), B, L, M, I, O, n_mt,
       n_nt);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launch 1c on `stream`; returns a CUDA error code (0 on success).
-// x: f32 [B, L, M, I]; g: bf16 [B, L, M, O]; dw: f32 [I, O, L, 2].
-extern "C" int dhconv_filter_dw(const void* xr, const void* xi,
-                                const void* gr, const void* gi, void* dw,
-                                int B, int L, int M, int I, int O,
-                                void* stream) {
-  const int n_it = (I + BM - 1) / BM, n_ot = (O + BN - 1) / BN;
-  const long long l_padded = (L + LGROUP - 1) / LGROUP * LGROUP;
-  const long long blocks = l_padded * n_it * n_ot;
-  if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      dhconv_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      DW_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  dhconv_dw_kernel<<<static_cast<int>(blocks), THREADS, DW_SMEM_BYTES,
-                     reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xr), static_cast<const float*>(xi),
-      static_cast<const bf16*>(gr), static_cast<const bf16*>(gi),
-      static_cast<float*>(dw), B, L, M, I, O, n_it, n_ot);
   return static_cast<int>(cudaGetLastError());
 }

@@ -181,7 +181,8 @@ def draw_check_weights(stepper: Stepper, generator: torch.Generator):
             if "w_scale_2d" in name or "w_bias_2d" in name:
                 p.normal_(std=0.1, generator=generator)
             elif name.endswith("filter.weight"):
-                p.normal_(std=p.shape[0] ** -0.5, generator=generator)
+                # [2, L, I, O]: the fan-in is I
+                p.normal_(std=p.shape[2] ** -0.5, generator=generator)
 
 
 def fixed_noise(stepper: Stepper, noise: torch.Tensor):

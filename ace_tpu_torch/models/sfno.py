@@ -25,14 +25,15 @@ class SpectralConvS2(nn.Module):
 
     ``forward(x)`` with ``x: [B, nlat, nlon, C]`` returns
     ``(filtered, residual)``; residual is the input, re-gridded when the
-    two transforms' grids differ. The weight is ``[in, out, l, 2]`` float32
-    as in the JAX package. For bfloat16 activations the filter runs
-    through ``ops/dhconv_filter.py`` (the kernels on CUDA tensors): without
-    grad on weights prepared once in the kernel layout ``[l, in, out]``
-    bfloat16, in grad mode through the differentiable
-    ``dhconv_filter_param`` on ``weight`` itself, so that its gradient
-    reaches the float32 parameter. Float32 activations take four float32
-    einsums.
+    two transforms' grids differ. The weight is ``[2, l, in, out]`` float32
+    (re and im, each in the kernels' ``[l, in, out]`` layout; the JAX
+    package keeps ``[in, out, l, 2]``, and ``utils/convert.py`` maps
+    between the two). For bfloat16 activations the filter runs through
+    ``ops/dhconv_filter.py`` (the kernels on CUDA tensors): without grad on
+    a bfloat16 copy of the weight made once per weight version, in grad
+    mode through the differentiable ``dhconv_filter_param`` on ``weight``
+    itself, so that its gradient reaches the float32 parameter. Float32
+    activations take four float32 einsums.
     """
 
     def __init__(self, forward_transform, inverse_transform, in_channels,
@@ -48,7 +49,7 @@ class SpectralConvS2(nn.Module):
         self.in_channels, self.out_channels = in_channels, out_channels
         modes_lat = inverse_transform.lmax
         self.weight = nn.Parameter(torch.empty(
-            in_channels, out_channels, modes_lat, 2, device=device
+            2, modes_lat, in_channels, out_channels, device=device
         ))
         self.bias = (
             nn.Parameter(torch.empty(out_channels, device=device))
@@ -64,8 +65,8 @@ class SpectralConvS2(nn.Module):
                 self.bias.zero_()
 
     def kernel_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(w_r, w_i) in the kernel layout ``[l, in, out]`` bfloat16,
-        prepared once per weight version (load, init, move or optimizer
+        """(w_r, w_i) ``[l, in, out]`` bfloat16, one cast of ``weight``
+        made once per weight version (load, init, move or optimizer
         update) for calls without grad. Copies made under
         ``torch.inference_mode()`` are inference tensors, so the cache is
         kept apart for that mode."""
@@ -74,10 +75,8 @@ class SpectralConvS2(nn.Module):
                torch.is_inference_mode_enabled())
         if self._kernel_weights is None or self._kernel_weights[0] != key:
             with torch.no_grad():
-                wl = w.permute(2, 0, 1, 3).to(torch.bfloat16)
-                self._kernel_weights = (
-                    key, wl[..., 0].contiguous(), wl[..., 1].contiguous()
-                )
+                wl = w.to(torch.bfloat16).contiguous()
+                self._kernel_weights = (key, wl[0], wl[1])
         return self._kernel_weights[1], self._kernel_weights[2]
 
     def forward(self, x: torch.Tensor):
@@ -103,10 +102,10 @@ class SpectralConvS2(nn.Module):
                 xr.contiguous(), xi.contiguous(), *self.kernel_weights()
             )
         else:
-            wr, wi = self.weight[..., 0], self.weight[..., 1]
+            wr, wi = self.weight
 
             def ein(a, b):
-                return torch.einsum("...lmi,iol->...lmo", a, b)
+                return torch.einsum("...lmi,lio->...lmo", a, b)
 
             outr = ein(xr, wr) - ein(xi, wi)
             outi = ein(xr, wi) + ein(xi, wr)

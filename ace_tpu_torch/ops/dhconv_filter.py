@@ -11,8 +11,9 @@ the same contract with f32 results:
     dx_r = g_r w_r^T + g_i w_i^T       dx_i = g_i w_r^T - g_r w_i^T
     dw_r = x_r^T g_r + x_i^T g_i       dw_i = x_r^T g_i - x_i^T g_r
 
-Three kernels: K1 ``csrc/dhconv_filter.cu`` (the forward), 1b and 1c
-``csrc/dhconv_filter_bwd.cu`` (``dhconv_filter_dx``, ``dhconv_filter_dw``).
+Three kernels: K1 ``csrc/dhconv_filter.cu`` (the forward), 1b
+``csrc/dhconv_filter_bwd.cu`` (``dhconv_filter_dx``) and 1c
+``csrc/dhconv_filter_dw.cu`` (``dhconv_filter_dw``).
 Each wrapper launches its kernel for CUDA tensors and uses its plain
 version only for tensors on the CPU. Tensors that require grad go through
 an autograd Function whose backward calls 1b and 1c.
@@ -25,6 +26,7 @@ from torch.autograd.function import once_differentiable
 
 SOURCE = "dhconv_filter.cu"
 BWD_SOURCE = "dhconv_filter_bwd.cu"
+DW_SOURCE = "dhconv_filter_dw.cu"
 _BF16 = torch.bfloat16
 
 
@@ -69,11 +71,6 @@ def dhconv_filter_bwd_plain(xr, xi, wr, wi, gr, gi):
     bf16-rounded operands: ``(dx_r, dx_i, dw_r, dw_i)``, all f32."""
     return (*dhconv_filter_dx_plain(gr, gi, wr, wi),
             *dhconv_filter_dw_plain(xr, xi, gr, gi))
-
-
-def param_layout(dwr, dwi):
-    """``[L, I, O]`` re and im as the spectral weight's ``[I, O, L, 2]``."""
-    return torch.stack((dwr, dwi), dim=-1).permute(1, 2, 0, 3)
 
 
 # the forward kernel's tile: all M rows of one l up to ROWS, and BN output
@@ -136,8 +133,7 @@ def dhconv_filter(xr, xi, wr, wi, out_dtype=_BF16):
             raise NotImplementedError(
                 "dhconv_filter: the backward exists for bfloat16 outputs only"
             )
-        weight = param_layout(wr, wi)
-        return _DhconvFilter.apply(xr, xi, weight)
+        return _DhconvFilter.apply(xr, xi, torch.stack((wr, wi)))
     if wr.dtype != _BF16 or wi.dtype != _BF16:
         raise TypeError(
             f"dhconv_filter: w must be bfloat16, got {wr.dtype}/{wi.dtype}"
@@ -146,29 +142,26 @@ def dhconv_filter(xr, xi, wr, wi, out_dtype=_BF16):
 
 
 def dhconv_filter_param(xr, xi, weight):
-    """The filter on the spectral weight in its parameter layout ``[I, O,
-    L, 2]`` float32 (``SpectralConvS2.weight``): differentiable with
-    respect to x and ``weight``, whose gradient 1c writes in that layout
-    directly. The bf16 kernel weights are made inside, so the gradient
-    reaches the float32 parameter, as JAX's ``_bwd`` casts ``dw`` to the
-    dtype of the weights it was handed."""
-    i, o, l, two = weight.shape
-    if two != 2:
+    """The filter on the spectral weight in its parameter layout ``[2, L,
+    I, O]`` float32 (``SpectralConvS2.weight``: re and im stacked):
+    differentiable with respect to x and ``weight``, whose gradient 1c
+    writes in that layout. The bf16 kernel weights are made inside, so the
+    gradient reaches the float32 parameter, as JAX's ``_bwd`` casts ``dw``
+    to the dtype of the weights it was handed."""
+    if weight.dim() != 4 or weight.shape[0] != 2:
         raise ValueError(f"dhconv_filter: weight shape {tuple(weight.shape)}; "
-                         "want [I, O, L, 2]")
-    _check(xr, xi, weight[..., 0].permute(2, 0, 1),
-           weight[..., 1].permute(2, 0, 1))
+                         "want [2, L, I, O]")
+    _check(xr, xi, weight[0], weight[1])
     return _DhconvFilter.apply(xr, xi, weight)
 
 
 class _DhconvFilter(torch.autograd.Function):
     """K1 forward; backward through 1b (dx) and 1c (dW, in the weight's
-    ``[I, O, L, 2]`` layout) on CUDA, their plain versions on the CPU."""
+    ``[2, L, I, O]`` layout) on CUDA, their plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, xr, xi, weight):
-        wl = weight.detach().permute(2, 0, 1, 3).to(_BF16)
-        wr, wi = wl[..., 0].contiguous(), wl[..., 1].contiguous()
+        wr, wi = weight.detach().to(_BF16).contiguous()
         xr, xi = xr.detach().contiguous(), xi.detach().contiguous()
         ctx.save_for_backward(xr, xi, wr, wi)
         ctx.weight_dtype = weight.dtype
@@ -292,9 +285,9 @@ dhconv_filter_dx.launches = 0
 
 
 def dhconv_filter_dw(xr, xi, gr, gi):
-    """Kernel 1c: the weight gradient float32 ``[I, O, L, 2]`` (the
-    spectral weight's layout, written by the kernel directly) from float32
-    x ``[..., L, M, I]`` and bf16 cotangents ``[..., L, M, O]``, summed over
+    """Kernel 1c: the weight gradient float32 ``[2, L, I, O]`` (``dw_r``
+    and ``dw_i`` stacked: the spectral weight's layout) from float32 x
+    ``[..., L, M, I]`` and bf16 cotangents ``[..., L, M, O]``, summed over
     the leading axes. CUDA tensors go through the kernel
     (``dhconv_filter_dw.launches``), CPU tensors through
     :func:`dhconv_filter_dw_plain`."""
@@ -305,18 +298,18 @@ def dhconv_filter_dw(xr, xi, gr, gi):
                          "[..., L, M, O]")
     device = xr.device
     if device.type == "cpu":
-        return param_layout(*dhconv_filter_dw_plain(xr, xi, gr, gi))
+        return torch.stack(dhconv_filter_dw_plain(xr, xi, gr, gi))
     if device.type != "cuda":
         raise NotImplementedError(f"dhconv_filter_dw: no kernel for {device}")
     if xr.dtype != torch.float32 or xi.dtype != torch.float32:
         raise TypeError("dhconv_filter_dw: x must be float32")
     batch, l, m, i, o = _bwd_shapes("dhconv_filter_dw", gr, xr.shape[-1])
     _check_kernel_operands("dhconv_filter_dw", (xr, xi, gr, gi))
-    dw = torch.empty(i, o, l, 2, dtype=torch.float32, device=device)
+    dw = torch.empty(2, l, i, o, dtype=torch.float32, device=device)
     if batch == 0 or m == 0:
         dw.zero_()
     elif dw.numel():
-        err = _bwd_library().dhconv_filter_dw(
+        err = _dw_library().dhconv_filter_dw(
             xr.data_ptr(), xi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
             dw.data_ptr(), batch, l, m, i, o,
             torch.cuda.current_stream(device).cuda_stream,
@@ -352,6 +345,14 @@ def _bwd_library():
         lib.dhconv_filter_dx.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.dhconv_filter_dx.restype = ctypes.c_int
+    return lib
+
+
+def _dw_library():
+    from ace_tpu_torch.ops import kernel_build
+
+    lib = kernel_build.load(DW_SOURCE)
+    if lib.dhconv_filter_dw.argtypes is None:
         lib.dhconv_filter_dw.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.dhconv_filter_dw.restype = ctypes.c_int

@@ -3,10 +3,10 @@
 Each source under ``ace_tpu_torch/csrc/`` exposes a plain C interface and
 is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library, loaded with ``ctypes``. Libraries are built at first use into
-``build/kernels/`` at the repository root, named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused. :func:`build` starts one ``nvcc`` per missing library, all at
-once, and waits for all of them.
+``build/kernels/`` at the repository root, named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused. :func:`build` starts one
+``nvcc`` per missing library, all at once, and waits for all of them.
 """
 
 import ctypes
@@ -45,8 +45,9 @@ def nvcc() -> str:
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
     src = CSRC_DIR / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
@@ -84,6 +85,35 @@ def build(sources: list[str]) -> dict[str, float]:
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return seconds
+
+
+def build_variants(source: str,
+                   texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
+    """Compile edited copies of ``csrc/<source>`` (variant name -> source
+    text) under ``build/kernels/variants/``, beside copies of the shared
+    headers, one ``nvcc`` each, all at once; load them. For profiles that
+    compile parts of a kernel out."""
+    out_dir = BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for header in CSRC_DIR.glob("*.cuh"):
+        shutil.copy(header, out_dir / header.name)
+    stem = Path(source).stem
+    jobs = {}
+    for name, text in texts.items():
+        src = out_dir / f"{stem}_{name.replace('+', '_')}.cu"
+        src.write_text(text)
+        lib = src.with_suffix(".so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      lib)
+    libs = {}
+    for name, (proc, lib) in jobs.items():
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{output}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
 
 
 def build_log(source: str) -> str:

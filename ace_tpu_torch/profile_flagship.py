@@ -3,6 +3,7 @@ GPU.
 
     python -m ace_tpu_torch.profile_flagship [--steps N] [--out DIR]
                                              [--fused-block-tail] [--train]
+    python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
 the CUDA device with weights from a seed, warms it up with one step, times
@@ -10,8 +11,11 @@ an ``N``-step ``Stepper.predict`` (default 20) untraced, then traces a
 3-step one with ``torch.profiler``. Prints the card's name and power
 limit, the wall time per step, the device's busy and idle share of the
 traced window (the union of the trace's kernel, memcpy and memset
-intervals over the wall time), and the kernels that take the most device
-time. ``--fused-block-tail`` sends every block's tail through the fused
+intervals over the wall time), the kernels that take the most device
+time, the same time by family (``FAMILIES``) and the peak device memory.
+``--read`` prints the kernel and family tables of a trace written before
+(for example by another checkout of the repo), without a device.
+``--fused-block-tail`` sends every block's tail through the fused
 kernel K2. ``--train`` profiles the flagship pretraining step instead
 (``flagship.build_train_stepper``, a batch of 2, the same batch and noise
 each step): ``N`` untimed-apart steps (default 5 with ``--train``), then 2
@@ -37,6 +41,20 @@ TRACED_STEPS = 3
 TRACED_TRAIN_STEPS = 2
 TRAIN_BATCH = 2
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# kernel families, by the first pattern found in a device event's name
+FAMILIES = (
+    ("K1 dhconv_filter", ("dhconv_filter_kernel",)),
+    ("1b dhconv_dx", ("dhconv_dx_kernel",)),
+    ("1c dhconv_dw", ("dhconv_dw_kernel",)),
+    ("K2 fused_block_tail", ("fused_block_tail",)),
+    ("K3 fused_sht", ("fused_sht", "sht_dft", "sht_legendre")),
+    ("strided copies (copies, casts, DtoD)", ("direct_copy", "copy_kernel",
+                                               "Memcpy")),
+    ("f32 SGEMM", ("sgemm", "f32f32", "gemm_f32")),
+    ("bf16 GEMMs", ("nvjet", "cutlass", "gemm", "xmma")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)),
+)
 
 
 def device_events(trace_path: str) -> list[dict]:
@@ -58,6 +76,35 @@ def busy_us(events: list[dict]) -> float:
     return total
 
 
+def family(name: str) -> str:
+    for label, patterns in FAMILIES:
+        if any(p in name for p in patterns):
+            return label
+    return "rest"
+
+
+def print_tables(events: list[dict], n: int, top: int = 30):
+    """Device ms per step by kernel (the ``top`` largest) and by family,
+    over a trace of ``n`` steps."""
+    busy_s = busy_us(events) / 1e6
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    by_family = collections.defaultdict(float)
+    for e in events:
+        by_name[e["name"]][0] += e["dur"]
+        by_name[e["name"]][1] += 1
+        by_family[family(e["name"])] += e["dur"]
+    rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    print(f"{'device ms/step':>14} {'share':>6} {'calls/step':>10}  kernel")
+    for name, (us, count) in rows[:top]:
+        print(f"{us / 1e3 / n:14.3f} {100 * us / 1e6 / busy_s:5.1f}% "
+              f"{count / n:10.1f}  {name[:110]}")
+    print(f"{'device ms/step':>14} {'share':>6}  family (kernel time; "
+          "overlaps make the sum exceed busy)")
+    for label, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"{us / 1e3 / n:14.3f} {100 * us / 1e6 / busy_s:5.1f}%  {label}")
+    print(f"{busy_s / n * 1e3:14.3f}         busy")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=None,
@@ -67,7 +114,14 @@ def main(argv=None):
                         help="run each block's tail through the fused kernel")
     parser.add_argument("--train", action="store_true",
                         help="profile the pretraining step, not the rollout")
+    parser.add_argument("--read", metavar="TRACE",
+                        help="only print the tables of this Chrome trace")
+    parser.add_argument("--traced-steps", type=int, default=TRACED_TRAIN_STEPS,
+                        help="steps in the trace given to --read")
     args = parser.parse_args(argv)
+    if args.read:
+        print_tables(device_events(args.read), args.traced_steps)
+        return
     if args.steps is None:
         args.steps = 5 if args.train else 20
 
@@ -87,6 +141,7 @@ def main(argv=None):
                               max(args.steps, TRACED_STEPS))
         n = TRACED_STEPS
         name = "flagship_trace.json"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run(1)
     torch.cuda.synchronize()
@@ -112,16 +167,9 @@ def main(argv=None):
     busy_s = busy_us(events) / 1e6
     print(f"{n} steps traced: wall {wall_s / n * 1e3:.2f} ms/step; device "
           f"busy {busy_s / n * 1e3:.2f} ms/step ({100 * busy_s / wall_s:.1f}%), "
-          f"idle {100 * (1 - busy_s / wall_s):.1f}%")
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in events:
-        by_name[e["name"]][0] += e["dur"]
-        by_name[e["name"]][1] += 1
-    rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
-    print(f"{'device ms/step':>14} {'share':>6} {'calls/step':>10}  kernel")
-    for name, (us, count) in rows[:30]:
-        print(f"{us / 1e3 / n:14.3f} {100 * us / 1e6 / busy_s:5.1f}% "
-              f"{count / n:10.1f}  {name[:110]}")
+          f"idle {100 * (1 - busy_s / wall_s):.1f}%; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print_tables(events, n)
 
 
 def _rollout_runner(device, fused, max_steps):

@@ -60,25 +60,8 @@ def variant_source(name: str) -> str:
 
 def build_variants(names: list[str]) -> dict[str, ctypes.CDLL]:
     """Compile the variants, one nvcc each, all at once; load them."""
-    out_dir = kernel_build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in names:
-        src = out_dir / f"fused_sht_{name.replace('+', '_')}.cu"
-        src.write_text(variant_source(name))
-        lib = src.with_suffix(".so")
-        cmd = [kernel_build.nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(lib),
-               str(src)]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      lib)
-    libs = {}
-    for name, (proc, lib) in jobs.items():
-        output, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{output}")
-        libs[name] = ctypes.CDLL(str(lib))
-    return libs
+    return kernel_build.build_variants(
+        k3.SOURCE, {name: variant_source(name) for name in names})
 
 
 def phase_ms(sht, x, iters=20) -> dict[str, float]:

@@ -197,9 +197,9 @@ def dhconv_phase(gen):
 def dhconv_train_check(gen):
     """K1 as path T calls it: 2 * TRAIN_BATCH samples through
     ``dhconv_filter_param``, whose autograd Function rounds the float32
-    ``[I, O, L, 2]`` weight (which requires grad) to bf16 and slices it
-    into contiguous ``[L, I, O]`` copies before it launches K1; against
-    the plain version on the same float32 weights."""
+    ``[2, L, I, O]`` weight (which requires grad) to bf16, one contiguous
+    cast whose halves are K1's ``[L, I, O]`` weights; against the plain
+    version on the same float32 weights."""
     import torch
 
     from ace_tpu_torch import flagship
@@ -212,18 +212,17 @@ def dhconv_train_check(gen):
     i = o = flagship.EMBED
     kw = dict(generator=gen, device="cuda")
     xr, xi = (torch.randn(b, l, m, i, **kw) for _ in range(2))
-    weight = (torch.randn(i, o, l, 2, **kw) * i ** -0.5).requires_grad_()
+    weight = (torch.randn(2, l, i, o, **kw) * i ** -0.5).requires_grad_()
     with torch.enable_grad():
         out = dhconv_filter_param(xr, xi, weight)
     if out[0].grad_fn is None:
         raise AssertionError("dhconv_filter_param did not go through its "
                              "autograd Function")
-    ref = dhconv_filter_plain(xr, xi, *(weight.detach()[..., k].permute(
-        2, 0, 1) for k in (0, 1)))
+    ref = dhconv_filter_plain(xr, xi, *weight.detach())
     err, scale = max_err(tuple(t.detach() for t in out), ref)
     tol = BF16_TOL * scale
     print(f"dhconv_filter flagship-train [{b},{l},{m},{i}] through "
-          f"dhconv_filter_param (f32 [I, O, L, 2] weight): max_abs_err "
+          f"dhconv_filter_param (f32 [2, L, I, O] weight): max_abs_err "
           f"{err:.3e} (tol {tol:.3e})")
     if not err <= tol:
         raise AssertionError("dhconv_filter disagrees with its plain version "
@@ -244,7 +243,6 @@ def dhconv_bwd_phase(gen):
         dhconv_filter_dw_plain,
         dhconv_filter_dx,
         dhconv_filter_dx_plain,
-        param_layout,
     )
 
     def inputs(b, l, m, i, o):
@@ -278,7 +276,7 @@ def dhconv_bwd_phase(gen):
         dw_ref = dhconv_filter_dw_plain(xr, xi, gr, gi)
         dw = check(label, shape, "dhconv_filter_dw",
                    (dhconv_filter_dw(xr, xi, gr, gi),),
-                   (param_layout(*dw_ref),))
+                   (torch.stack(dw_ref),))
         del dw_ref
     b, l, m, i, o = shape
     bf = torch.bfloat16
@@ -310,8 +308,9 @@ def dhconv_bwd_phase(gen):
     flops = 8 * b * l * m * i * o
     dx_bytes = 2 * b * l * m * o * 2 + 2 * l * i * o * 2 + 2 * b * l * m * i * 4
     dw_bytes = 2 * b * l * m * i * 4 + 2 * b * l * m * o * 2 + 2 * l * i * o * 4
-    for name, n_bytes, key in (("dhconv_filter_dx", dx_bytes, "dx"),
-                               ("dhconv_filter_dw", dw_bytes, "dw")):
+    for name, n_bytes, key, source, replaces in (
+            ("dhconv_filter_dx", dx_bytes, "dx", "dhconv_filter_bwd.cu", 129),
+            ("dhconv_filter_dw", dw_bytes, "dw", "dhconv_filter_dw.cu", 137)):
         bound_ms, bound_by, bytes_ms, flops_ms = bound(n_bytes, flops,
                                                        PEAK_BF16_FLOPS)
         err, tol = dx if key == "dx" else dw
@@ -322,8 +321,8 @@ def dhconv_bwd_phase(gen):
               f"{flops / 1e9:.1f} GFLOP -> {flops_ms:.4f} ms")
         rows[name] = {
             "name": name, "route": "cuda",
-            "source": "ace_tpu_torch/csrc/dhconv_filter_bwd.cu",
-            "replaces": "ace_tpu/ops/pallas_filter.py:129",
+            "source": f"ace_tpu_torch/csrc/{source}",
+            "replaces": f"ace_tpu/ops/pallas_filter.py:{replaces}",
             "launches": None, "max_abs_err": err, "tol": tol,
             "ms": times[key], "plain_ms": times[key + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -866,7 +865,7 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
           f"{torch.backends.cudnn.allow_tf32}")
 
-    sources = [k1.SOURCE, k1.BWD_SOURCE, k2.SOURCE, k3.SOURCE]
+    sources = [k1.SOURCE, k1.BWD_SOURCE, k1.DW_SOURCE, k2.SOURCE, k3.SOURCE]
     t0 = time.perf_counter()
     seconds = kernel_build.build(sources)
     print(f"build: {seconds} in {time.perf_counter() - t0:.1f} s")

@@ -17,7 +17,6 @@ from ace_tpu_torch.ops.dhconv_filter import (
     dhconv_filter_dx_plain,
     dhconv_filter_param,
     dhconv_filter_plain,
-    param_layout,
 )
 from ace_tpu_torch.ops.fused_block_tail import (
     fused_block_tail,
@@ -128,9 +127,12 @@ def test_dhconv_dx_kernel_matches_plain(cuda, shape):
 
 
 # 1c's tile edges: M against its 32-row stages (the contraction runs over
-# B and M), I against its 64-row tiles, O against its 128-column tiles
+# B and M), I against its 32-column x boxes, 64-row slabs and 128-row
+# tiles, O against its 32-column stores, 64-column g boxes and 128-column
+# tiles
 _DW_EDGES = [(b, 3, m, i, o) for b in (1, 3) for m in (1, 32, 33, 181)
-             for i, o in ((8, 8), (64, 128), (72, 136), (56, 120))]
+             for i, o in ((8, 8), (64, 128), (72, 136), (56, 120),
+                          (200, 264))]
 
 
 @pytest.mark.parametrize(
@@ -139,14 +141,14 @@ _DW_EDGES = [(b, 3, m, i, o) for b in (1, 3) for m in (1, 32, 33, 181)
     + ["B{}-M{}-I{}-O{}".format(s[0], *s[2:]) for s in _DW_EDGES],
 )
 def test_dhconv_dw_kernel_matches_plain(cuda, shape):
-    """1c (dW, in the weight's [I, O, L, 2] layout) against its plain
+    """1c (dW, in the weight's [2, L, I, O] layout) against its plain
     version."""
     xr, xi, gr, gi, _, _ = _bwd_inputs(*shape, cuda)
     before = dhconv_filter_dw.launches
     out = dhconv_filter_dw(xr, xi, gr, gi)
     torch.cuda.synchronize()
     assert dhconv_filter_dw.launches == before + 1
-    ref = param_layout(*dhconv_filter_dw_plain(xr, xi, gr, gi))
+    ref = torch.stack(dhconv_filter_dw_plain(xr, xi, gr, gi))
     _assert_f32_close((out,), (ref,))
 
 
@@ -154,7 +156,7 @@ def test_dhconv_filter_gradients_on_card_match_cpu(cuda):
     """The differentiable filter on the card (K1, 1b, 1c) against the same
     call on the CPU (plain versions)."""
     xr, xi, gr, gi, wr, wi = _bwd_inputs(2, 5, 37, 64, 64, cuda)
-    weight = param_layout(wr.float(), wi.float()).contiguous()
+    weight = torch.stack((wr.float(), wi.float()))
     grads = {}
     for dev in ("cpu", cuda):
         x = [t.to(dev).requires_grad_() for t in (xr, xi, weight)]

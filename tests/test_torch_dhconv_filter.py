@@ -19,7 +19,6 @@ from ace_tpu_torch.ops.dhconv_filter import (
     dhconv_filter_dx,
     dhconv_filter_param,
     dhconv_filter_plain,
-    param_layout,
 )
 
 torch.set_num_threads(2)
@@ -146,7 +145,7 @@ def test_bwd_plain_matches_jax_bwd():
 @pytest.mark.parametrize("entry", ["lio", "param"])
 def test_filter_gradients_match_jax_vjp(entry):
     """The autograd Function's gradients (the wrapper with f32 ``[L, I,
-    O]`` weights, or ``dhconv_filter_param`` on the ``[I, O, L, 2]``
+    O]`` weights, or ``dhconv_filter_param`` on the ``[2, L, I, O]``
     parameter) against jax.vjp of ace_tpu's kernel in the interpreter."""
     xr, xi, wr, wi = _inputs()
     gr, gi = _cotangents()
@@ -164,12 +163,11 @@ def test_filter_gradients_match_jax_vjp(entry):
         torch.autograd.backward(out, cot)
         grads = [t.grad for t in x + w]
     else:
-        weight = param_layout(*map(torch.from_numpy, (wr, wi)))
-        weight = weight.contiguous().requires_grad_()
+        weight = torch.stack([torch.from_numpy(t) for t in (wr, wi)])
+        weight.requires_grad_()
         out = dhconv_filter_param(*x, weight)
         torch.autograd.backward(out, cot)
-        grads = [t.grad for t in x] + [weight.grad[..., 0].permute(2, 0, 1),
-                                       weight.grad[..., 1].permute(2, 0, 1)]
+        grads = [t.grad for t in x] + list(weight.grad)
     assert all(o.dtype == torch.bfloat16 for o in out)
     for g, r in zip(grads, ref):
         assert g.dtype == torch.float32
@@ -184,11 +182,11 @@ def test_backward_wrappers_use_plain_versions_on_cpu():
                                 wi.to(torch.bfloat16))
     dw = dhconv_filter_dw(xr, xi, gr, gi)
     assert (dhconv_filter_dx.launches, dhconv_filter_dw.launches) == before
-    assert dw.shape == (I, O, L, 2) and dxr.shape == xr.shape
+    assert dw.shape == (2, L, I, O) and dxr.shape == xr.shape
     ref = dhconv_filter_bwd_plain(xr, xi, wr, wi, gr, gi)
     for a, r in zip((dxr, dxi), ref[:2]):
         torch.testing.assert_close(a, r, rtol=0, atol=0)
-    torch.testing.assert_close(dw, param_layout(*ref[2:]), rtol=0, atol=0)
+    torch.testing.assert_close(dw, torch.stack(ref[2:]), rtol=0, atol=0)
 
 
 def _source_constant(name):
@@ -212,3 +210,33 @@ def test_filter_tiles_follow_the_kernel_source():
     assert module.filter_tiles(192, 128) == 1
     assert module.filter_tiles(193, 129) == 4
     assert module.filter_tiles(1, 8) == 1
+
+
+def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by its source, the shared ``csrc/*.cuh``
+    headers and the flags: an edited header rebuilds every kernel."""
+    from ace_tpu_torch.ops import kernel_build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(kernel_build, "CSRC_DIR", tmp_path)
+    before = kernel_build.library_path("k.cu")
+    assert kernel_build.library_path("k.cu") == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert kernel_build.library_path("k.cu") != before
+    assert kernel_build.library_path("k.cu").name.startswith("k-")
+
+
+@pytest.mark.parametrize("name", ["nomma", "noload", "nostore",
+                                  "noload+nostore"])
+def test_profile_variants_apply_to_the_dw_source(name):
+    """Each variant of ``profile_dhconv_dw`` finds the code it removes in
+    1c's source, so the profile cannot time a stale edit."""
+    from ace_tpu_torch import profile_dhconv_dw
+    from ace_tpu_torch.ops import dhconv_filter as module
+    from ace_tpu_torch.ops.kernel_build import CSRC_DIR
+
+    source = (CSRC_DIR / module.DW_SOURCE).read_text()
+    assert profile_dhconv_dw.variant_source(name) != source
+    with pytest.raises(KeyError):
+        profile_dhconv_dw.variant_source("nothing")

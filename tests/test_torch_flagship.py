@@ -21,7 +21,7 @@ from ace_tpu_torch.core.step import StepArgs
 from ace_tpu_torch.models import sfno
 from ace_tpu_torch.models.conditional_sfno import NoiseConditionedSFNO
 from ace_tpu_torch.ops.dhconv_filter import dhconv_filter_plain
-from ace_tpu_torch.profile_flagship import busy_us
+from ace_tpu_torch.profile_flagship import busy_us, family, print_tables
 from ace_tpu_torch.utils.convert import flax_params_to_state_dict
 
 torch.set_num_threads(2)
@@ -170,3 +170,27 @@ def test_busy_time_is_the_union_of_device_intervals():
               {"ts": 6.0, "dur": 2.0}, {"ts": 20.0, "dur": 5.0}]
     assert busy_us(events) == 20.0
     assert busy_us([]) == 0.0
+
+
+def test_profile_families_and_tables(capsys):
+    """Each kernel name falls in one family, the first whose pattern it
+    holds; the tables of a trace print per-step device time by family."""
+    assert family("void dhconv_dw_kernel(CUtensorMap)") == "1c dhconv_dw"
+    assert family("void dhconv_filter_kernel(CUtensorMap)") == \
+        "K1 dhconv_filter"
+    assert family("void at::native::elementwise_kernel<128, 4, "
+                  "direct_copy_kernel_cuda>") == \
+        "strided copies (copies, casts, DtoD)"
+    assert family("Memcpy DtoD (Device -> Device)") == \
+        "strided copies (copies, casts, DtoD)"
+    assert family("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n") == "f32 SGEMM"
+    assert family("nvjet_tst_192x192_64x4") == "bf16 GEMMs"
+    assert family("void at::native::vectorized_elementwise_kernel<4, "
+                  "AUnaryFunctor>") == "elementwise"
+    assert family("something else") == "rest"
+    events = [{"name": "void dhconv_dw_kernel()", "ts": 0.0, "dur": 3000.0},
+              {"name": "nvjet_tst", "ts": 3000.0, "dur": 1000.0}]
+    print_tables(events, 2)
+    out = capsys.readouterr().out
+    assert "1.500  75.0%  1c dhconv_dw" in out
+    assert "2.000         busy" in out

@@ -80,7 +80,11 @@ def test_spectral_conv_matches_ace_tpu(case):
         sht.InverseRealSHT(NLAT, NLON, device="cpu"),
         c, c, use_bias=True, device="cpu",
     )
-    layer.load_state_dict(flax_params_to_state_dict(params))
+    # the converter maps the filter weight's layout under a block's
+    # ``filter``: name the lone layer so
+    state = flax_params_to_state_dict({"filter": params["params"]})
+    layer.load_state_dict({k.removeprefix("filter."): v
+                           for k, v in state.items()})
     with torch.inference_mode():
         out, residual = layer(torch.from_numpy(x).to(tdt))
     assert out.dtype == tdt

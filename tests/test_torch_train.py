@@ -475,7 +475,7 @@ def _filter_dw_variant(variant):
         dw = plain(xr, xi, gr, gi)
         if variant == "zeros":
             return torch.zeros_like(dw)
-        return dw.flip(-1)  # re and im swapped
+        return dw.flip(0)  # re and im swapped
 
     return dhconv_filter_dw
 
