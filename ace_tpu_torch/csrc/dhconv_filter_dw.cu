@@ -306,6 +306,9 @@ extern "C" int dhconv_filter_dw(const void* xr, const void* xi,
       CONSUMERS * CONSUMER_REGS + (THREADS - CONSUMERS) * PRODUCER_REGS) {
     return cudaErrorInvalidConfiguration;
   }
+  const int device = current_device();
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const uint64_t x_dims[4] = {static_cast<uint64_t>(I),
                               static_cast<uint64_t>(M),
                               static_cast<uint64_t>(L),
@@ -330,9 +333,6 @@ extern "C" int dhconv_filter_dw(const void* xr, const void* xi,
                 dw_box)) {
     return cudaErrorInvalidValue;
   }
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int n_mc = (M + BK - 1) / BK;
   const int n_it = (I + BI - 1) / BI;
   const int n_ot = (O + BN - 1) / BN;

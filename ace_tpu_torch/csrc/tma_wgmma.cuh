@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the dhconv filter's kernels
-// (K1 dhconv_filter.cu, 1c dhconv_filter_dw.cu): mbarriers, TMA copies and
-// stores, wgmma shared-memory descriptors and the m64n128k16 bf16 product
-// with A from registers, and `cuTensorMapEncodeTiled`, looked up through
-// the CUDA runtime so that no library links against libcuda.
+// (K1 dhconv_filter.cu, 1b dhconv_filter_bwd.cu, 1c dhconv_filter_dw.cu):
+// mbarriers, TMA copies and stores, wgmma shared-memory descriptors and
+// the m64n128k16 bf16 product with A from registers or from shared memory,
+// and `cuTensorMapEncodeTiled`, looked up through the CUDA runtime so that
+// no library links against libcuda.
 
 #pragma once
 
@@ -116,6 +117,15 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
 }
 
+// Descriptor of a K-major bf16 operand written by TMA with the 64-byte
+// swizzle: rows (M or N) of 32 values (64 bytes), 8-row atoms 512 bytes
+// apart (SBO); the leading offset is unused in this layout (1, as CUTLASS
+// sets it). A 16-deep step starts 32 bytes further into the atom.
+__device__ __forceinline__ uint64_t desc_kmajor_sw64(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | 1ull << 16 |
+         static_cast<uint64_t>(512 >> 4) << 32 | 2ull << 62;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -124,6 +134,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keep the compiler from moving accumulator accesses across a fence.
 template <int N>
@@ -155,6 +170,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(SCALE_A));
+}
+
+// D (64 x 128, f32) += SCALE_A * A (64 x 16) * B (16 x 128), both bf16 in
+// shared memory and K-major (no transpose bits); D is overwritten when
+// scale_d == 0.
+template <int SCALE_A>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, %67, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(SCALE_A));
 }
 
 // v, hidden from the compiler's loop-invariant code motion, so that
@@ -191,13 +230,25 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The calling thread's device, with its primary context made current. A
+// thread that has launched nothing yet (autograd's worker thread, when a
+// backward kernel is its first CUDA work) has no current context, and
+// cuTensorMapEncodeTiled then fails.
+inline int current_device() {
+  int device = 0;
+  cudaGetDevice(&device);
+  cudaSetDevice(device);
+  return device;
+}
+
 // A tiled map of `rank` dimensions over a row-major tensor whose dimension
-// 0 (`dims[0]`, innermost) is contiguous, with the 128-byte swizzle; boxes
-// of `box` elements, rows past the tensor zero-filled on load and dropped
-// on store.
+// 0 (`dims[0]`, innermost) is contiguous, with the given swizzle (the
+// 128-byte one unless said); boxes of `box` elements, rows past the tensor
+// zero-filled on load and dropped on store.
 bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
               const void* ptr, int rank, const uint64_t* dims,
-              const uint32_t* box) {
+              const uint32_t* box,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   cuuint64_t d[5], strides[4];
   cuuint32_t b[5], unit[5];
   uint64_t stride = elem_bytes;
@@ -209,8 +260,7 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
     stride *= dims[k];
   }
   return encode_tiled()(map, type, rank, const_cast<void*>(ptr), d, strides,
-                        b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -248,10 +248,10 @@ def _bwd_shapes(name, g, i):
 
 def dhconv_filter_dx(gr, gi, wr, wi):
     """Kernel 1b: ``(dx_r, dx_i)`` float32 ``[..., L, M, I]`` from bf16
-    cotangents ``[..., L, M, O]`` and bf16 weights ``[L, I, O]`` (the
-    transpose is the kernel's addressing; no copy is made). CUDA tensors go
-    through the kernel (``dhconv_filter_dx.launches``), CPU tensors through
-    :func:`dhconv_filter_dx_plain`."""
+    cotangents ``[..., L, M, O]`` and bf16 weights ``[L, I, O]`` (as they
+    lie, the kernel's K-major B operand: no transposed copy is made). CUDA
+    tensors go through the kernel (``dhconv_filter_dx.launches``), CPU
+    tensors through :func:`dhconv_filter_dx_plain`."""
     if gr.shape != gi.shape or wr.shape != wi.shape or (
             tuple(wr.shape[::2]) != (gr.shape[-3], gr.shape[-1])):
         raise ValueError(f"dhconv_filter_dx: g {tuple(gr.shape)}, w "
@@ -264,11 +264,16 @@ def dhconv_filter_dx(gr, gi, wr, wi):
     if wr.dtype != _BF16 or wi.dtype != _BF16:
         raise TypeError("dhconv_filter_dx: w must be bfloat16")
     batch, l, m, i, o = _bwd_shapes("dhconv_filter_dx", gr, wr.shape[1])
+    # 1b's tile is K1's, over the columns (I) of dx
+    if batch * l * filter_tiles(m, i) >= 2 ** 31:
+        raise ValueError(f"dhconv_filter_dx: too many tiles for B*L={batch * l}")
     _check_kernel_operands("dhconv_filter_dx", (gr, gi, wr, wi))
     dxr = torch.empty(gr.shape[:-1] + (i,), dtype=torch.float32, device=device)
     dxi = torch.empty_like(dxr)
     if dxr.numel() == 0:
         return dxr, dxi
+    if o == 0:
+        return dxr.zero_(), dxi.zero_()
     err = _bwd_library().dhconv_filter_dx(
         gr.data_ptr(), gi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
         dxr.data_ptr(), dxi.data_ptr(), batch, l, m, i, o,

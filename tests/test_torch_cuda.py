@@ -84,10 +84,18 @@ def test_dhconv_kernel_refuses_shapes_it_does_not_take(cuda):
                       out_dtype=torch.float32)
 
 
-# 1b's tile edges: M against its 64-row tiles, I against its 128-column
-# tiles, O (its contraction) against its 32-deep stages
+# 1b's tile edges: M against its 64-row slabs and 192-row tiles, I against
+# its 32-column stores, 64-column staging and 128-column tiles, O (its
+# contraction) against its 32-deep stages and 16-deep steps; B = 1 and 3
+# beside the B = 2 cases
 _DX_EDGES = [(2, 3, m, i, o) for m in (1, 64, 65, 181) for i in (8, 128, 136)
-             for o in (8, 32, 40)]
+             for o in (8, 32, 40)] + [
+    (b, 3, m, i, o) for b in (1, 3) for m in (1, 64, 65, 181, 192, 193)
+    for i in (8, 40, 128, 136, 264) for o in (8, 40, 64, 72, 520)]
+# more tiles than the card has SMs, so that each block of the persistent
+# grid walks several, across (b, l) boundaries at odd counts
+_DX_WALKS = [(1, 181, 65, 136, 40), (3, 45, 193, 264, 520),
+             (3, 37, 181, 392, 72)]
 
 
 def _bwd_inputs(b, l, m, i, o, device):
@@ -111,9 +119,12 @@ def _assert_f32_close(out, ref):
 
 
 @pytest.mark.parametrize(
-    "shape", [(4, 180, 181, 512, 512), (2, 3, 181, 96, 200)] + _DX_EDGES,
+    "shape",
+    [(4, 180, 181, 512, 512), (2, 3, 181, 96, 200)] + _DX_EDGES + _DX_WALKS,
     ids=["flagship-train", "ragged"]
-    + ["M{}-I{}-O{}".format(*s[2:]) for s in _DX_EDGES],
+    + ["M{}-I{}-O{}".format(*s[2:]) if s[0] == 2
+       else "B{}-M{}-I{}-O{}".format(s[0], *s[2:]) for s in _DX_EDGES]
+    + ["walk-B{}-L{}-M{}-I{}-O{}".format(*s) for s in _DX_WALKS],
 )
 def test_dhconv_dx_kernel_matches_plain(cuda, shape):
     """1b (dx) against its plain version at the training shape and its
@@ -164,6 +175,37 @@ def test_dhconv_filter_gradients_on_card_match_cpu(cuda):
         torch.autograd.backward((outr, outi), (gr.to(dev), gi.to(dev)))
         grads[str(dev)] = [t.grad.cpu() for t in x]
     _assert_f32_close(grads["cuda"], grads["cpu"])
+
+
+def test_dhconv_bwd_kernels_run_in_a_fresh_thread(cuda):
+    """1b and 1c, each the first CUDA work of a new thread, as in autograd's
+    worker thread: such a thread has no current context until something
+    binds one, and the kernels' tensor maps cannot be encoded without it."""
+    import threading
+
+    xr, xi, gr, gi, wr, wi = _bwd_inputs(2, 5, 37, 64, 64, cuda)
+    calls = {
+        "dx": (lambda: dhconv_filter_dx(gr, gi, wr, wi),
+               lambda: dhconv_filter_dx_plain(gr, gi, wr, wi)),
+        "dw": (lambda: (dhconv_filter_dw(xr, xi, gr, gi),),
+               lambda: (torch.stack(dhconv_filter_dw_plain(xr, xi, gr, gi)),)),
+    }
+    for name, (kernel, plain) in calls.items():
+        result = {}
+
+        def run():
+            try:
+                result["out"] = kernel()
+                torch.cuda.synchronize()
+            except Exception as err:  # reported below, on the test's thread
+                result["err"] = err
+
+        thread = threading.Thread(target=run)
+        thread.start()
+        thread.join(timeout=120)
+        assert not thread.is_alive(), f"{name}: still running"
+        assert "err" not in result, f"{name}: {result.get('err')}"
+        _assert_f32_close(result["out"], plain())
 
 
 def test_dhconv_bwd_kernels_refuse_what_they_do_not_take(cuda):

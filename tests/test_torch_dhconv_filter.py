@@ -189,13 +189,14 @@ def test_backward_wrappers_use_plain_versions_on_cpu():
     torch.testing.assert_close(dw, torch.stack(ref[2:]), rtol=0, atol=0)
 
 
-def _source_constant(name):
-    """An ``int`` constexpr of the kernel source, as the compiler sees it."""
+def _source_constant(name, source=None):
+    """An ``int`` constexpr of a kernel source (K1's by default), as the
+    compiler sees it."""
     import re
     from ace_tpu_torch.ops import dhconv_filter as module
     from ace_tpu_torch.ops.kernel_build import CSRC_DIR
 
-    text = (CSRC_DIR / module.SOURCE).read_text()
+    text = (CSRC_DIR / (source or module.SOURCE)).read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
@@ -210,6 +211,17 @@ def test_filter_tiles_follow_the_kernel_source():
     assert module.filter_tiles(192, 128) == 1
     assert module.filter_tiles(193, 129) == 4
     assert module.filter_tiles(1, 8) == 1
+
+
+def test_dx_grid_check_follows_the_kernel_source():
+    """1b's grid check counts its tiles with ``filter_tiles(M, I)``: 1b's
+    tile is K1's, three 64-row slabs over M and 128 columns of dx (I)."""
+    from ace_tpu_torch.ops import dhconv_filter as module
+
+    source = module.BWD_SOURCE
+    assert module.ROWS == 64 * _source_constant("SLABS", source)
+    assert module.BN == _source_constant("BN", source)
+    assert module.filter_tiles(181, 512) == 4  # 2,880 tiles at B = 4
 
 
 def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
@@ -227,16 +239,22 @@ def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
     assert kernel_build.library_path("k.cu").name.startswith("k-")
 
 
-@pytest.mark.parametrize("name", ["nomma", "noload", "nostore",
-                                  "noload+nostore"])
-def test_profile_variants_apply_to_the_dw_source(name):
-    """Each variant of ``profile_dhconv_dw`` finds the code it removes in
-    1c's source, so the profile cannot time a stale edit."""
-    from ace_tpu_torch import profile_dhconv_dw
-    from ace_tpu_torch.ops import dhconv_filter as module
+_VARIANTS = ["nomma", "noload", "nostore", "noload+nostore"]
+
+
+@pytest.mark.parametrize(
+    "kernel,name", [("dw", n) for n in _VARIANTS]
+    + [("dx", n) for n in _VARIANTS],
+    ids=_VARIANTS + [f"dx-{n}" for n in _VARIANTS],
+)
+def test_profile_variants_apply_to_the_dw_source(kernel, name):
+    """Each variant of ``profile_dhconv_bwd`` finds the code it removes in
+    its kernel's source (1c, ``dw``, and 1b, ``dx``), so the profile cannot
+    time a stale edit."""
+    from ace_tpu_torch import profile_dhconv_bwd
     from ace_tpu_torch.ops.kernel_build import CSRC_DIR
 
-    source = (CSRC_DIR / module.DW_SOURCE).read_text()
-    assert profile_dhconv_dw.variant_source(name) != source
+    source = (CSRC_DIR / profile_dhconv_bwd.SOURCES[kernel]).read_text()
+    assert profile_dhconv_bwd.variant_source(name, kernel) != source
     with pytest.raises(KeyError):
-        profile_dhconv_dw.variant_source("nothing")
+        profile_dhconv_bwd.variant_source("nothing", kernel)
