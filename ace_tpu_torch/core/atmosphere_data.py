@@ -1,6 +1,6 @@
 """Named-field accessor over a TensorDict with the atmospheric physics
-the corrector needs (port of ace_tpu/core/atmosphere_data.py and
-ace_tpu/core/stacker.py).
+the corrector and the derived variables need (port of
+ace_tpu/core/atmosphere_data.py and ace_tpu/core/stacker.py).
 
 Vertical-level variables (``specific_total_water_{k}``) are stacked on
 demand along a trailing axis.
@@ -11,19 +11,39 @@ import re
 import torch
 
 from ace_tpu_torch.core import metrics
-from ace_tpu_torch.core.constants import LATENT_HEAT_OF_VAPORIZATION
+from ace_tpu_torch.core.constants import (
+    GRAVITY,
+    LATENT_HEAT_OF_FREEZING,
+    LATENT_HEAT_OF_VAPORIZATION,
+    RDGAS,
+    RVGAS,
+    SPECIFIC_HEAT_OF_DRY_AIR_CONST_VOLUME,
+)
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
 
 ATMOSPHERE_FIELD_NAME_PREFIXES = {
     "specific_total_water": ["specific_total_water_"],
     "surface_pressure": ["PRESsfc", "PS"],
+    "surface_height": ["HGTsfc"],
+    "surface_geopotential": ["PHIS"],
     "tendency_of_total_water_path_due_to_advection": [
         "tendency_of_total_water_path_due_to_advection"
     ],
     "latent_heat_flux": ["LHTFLsfc", "LHFLX"],
+    "sensible_heat_flux": ["SHTFLsfc", "SHFLX"],
     "precipitation_rate": ["PRATEsfc", "surface_precipitation_rate"],
+    "sfc_down_sw_radiative_flux": ["DSWRFsfc", "FSDS"],
+    "sfc_up_sw_radiative_flux": ["USWRFsfc", "surface_upward_shortwave_flux"],
+    "sfc_down_lw_radiative_flux": ["DLWRFsfc", "FLDS"],
+    "sfc_up_lw_radiative_flux": ["ULWRFsfc", "surface_upward_longwave_flux"],
+    "toa_up_lw_radiative_flux": ["ULWRFtoa", "FLUT"],
+    "toa_up_sw_radiative_flux": ["USWRFtoa",
+                                 "top_of_atmos_upward_shortwave_flux"],
+    "toa_down_sw_radiative_flux": ["DSWRFtoa", "SOLIN"],
     "air_temperature": ["air_temperature_", "T_"],
     "frozen_precipitation_rate": ["total_frozen_precipitation_rate"],
+    "eastward_wind_at_10m": ["UGRD10m"],
+    "northward_wind_at_10m": ["VGRD10m"],
 }
 
 LEVEL_PATTERN = re.compile(r"_(\d+)$")
@@ -132,7 +152,19 @@ class AtmosphereData:
 
     @property
     def frozen_precipitation_rate(self):
-        return self._get("frozen_precipitation_rate")
+        """The frozen precipitation, else the sum of its three parts, else
+        zero."""
+        try:
+            return self._get("frozen_precipitation_rate")
+        except KeyError:
+            try:
+                return (self._data["ICEsfc"] + self._data["GRAUPELsfc"]
+                        + self._data["SNOWsfc"])
+            except KeyError:
+                try:
+                    return torch.zeros_like(self.surface_pressure)
+                except KeyError:
+                    return torch.zeros_like(self.precipitation_rate)
 
     def set_frozen_precipitation_rate(self, value):
         self._set("frozen_precipitation_rate", value)
@@ -143,3 +175,102 @@ class AtmosphereData:
 
     def set_tendency_of_total_water_path_due_to_advection(self, value):
         self._set("tendency_of_total_water_path_due_to_advection", value)
+
+    @property
+    def air_temperature(self) -> torch.Tensor:
+        return self._stacked("air_temperature")
+
+    @property
+    def surface_height(self) -> torch.Tensor:
+        try:
+            return self._get("surface_height")
+        except KeyError:
+            # E3SM stores geopotential; convert with its gravity constant
+            return self._get("surface_geopotential") / 9.80616
+
+    @property
+    def net_surface_energy_flux(self):
+        """Net surface energy flux, W/m^2, positive into the surface."""
+        radiative = (
+            self._get("sfc_down_sw_radiative_flux")
+            - self._get("sfc_up_sw_radiative_flux")
+            + self._get("sfc_down_lw_radiative_flux")
+            - self._get("sfc_up_lw_radiative_flux")
+        )
+        turbulent = (-self._get("latent_heat_flux")
+                     - self._get("sensible_heat_flux"))
+        return (radiative + turbulent
+                - self.frozen_precipitation_rate * LATENT_HEAT_OF_FREEZING)
+
+    @property
+    def net_top_of_atmosphere_energy_flux(self):
+        """Net TOA energy flux, W/m^2, positive into the atmosphere."""
+        return (self._get("toa_down_sw_radiative_flux")
+                - self._get("toa_up_sw_radiative_flux")
+                - self._get("toa_up_lw_radiative_flux"))
+
+    @property
+    def net_energy_flux_into_atmosphere(self):
+        return (self.net_top_of_atmosphere_energy_flux
+                - self.net_surface_energy_flux)
+
+    @property
+    def height_at_midpoint(self) -> torch.Tensor:
+        if self._vertical_coordinate is None:
+            raise ValueError("height_at_midpoint requires a vertical coordinate")
+        interface_pressure = self._vertical_coordinate.interface_pressure(
+            self.surface_pressure
+        )
+        thickness = compute_layer_thickness(
+            interface_pressure, self.air_temperature, self.specific_total_water
+        )
+        height = _height_at_interface(thickness, self.surface_height)
+        return 0.5 * (height[..., :-1] + height[..., 1:])
+
+    @property
+    def total_energy_ace2(self) -> torch.Tensor:
+        """Total energy under ACE2's assumptions: no kinetic energy,
+        hydrostatic geopotential, total water as specific humidity."""
+        return (
+            self.air_temperature * SPECIFIC_HEAT_OF_DRY_AIR_CONST_VOLUME
+            + self.specific_total_water * LATENT_HEAT_OF_VAPORIZATION
+            + self.height_at_midpoint * GRAVITY
+        )
+
+    @property
+    def total_energy_ace2_path(self) -> torch.Tensor:
+        if self._vertical_coordinate is None:
+            # a ValueError, so that the derived-variable pass skips it
+            raise ValueError(
+                "total_energy_ace2_path requires a vertical coordinate"
+            )
+        return self._vertical_coordinate.vertical_integral(
+            self.total_energy_ace2, self.surface_pressure
+        )
+
+    @property
+    def windspeed_at_10m(self) -> torch.Tensor:
+        return torch.sqrt(self._get("eastward_wind_at_10m") ** 2
+                          + self._get("northward_wind_at_10m") ** 2)
+
+
+def compute_layer_thickness(pressure_at_interface, air_temperature,
+                            specific_total_water) -> torch.Tensor:
+    """Hydrostatic layer thickness; the interface pressure is clamped to
+    at least 1 Pa before the log (ERA5's top interface is 0 Pa)."""
+    tv = air_temperature * (1 + (RVGAS / RDGAS - 1.0) * specific_total_water)
+    dlogp = torch.diff(torch.log(pressure_at_interface.clamp(min=1.0)), dim=-1)
+    return dlogp * RDGAS * tv / GRAVITY
+
+
+def _height_at_interface(layer_thickness, surface_height) -> torch.Tensor:
+    cumulative = torch.flip(
+        torch.cumsum(torch.flip(layer_thickness, dims=(-1,)), dim=-1),
+        dims=(-1,),
+    )
+    hsfc = torch.where(surface_height < 0.0, 0.0, surface_height)[..., None]
+    return torch.cat(
+        [cumulative + hsfc.expand_as(cumulative),
+         hsfc.expand(*cumulative.shape[:-1], 1)],
+        dim=-1,
+    )

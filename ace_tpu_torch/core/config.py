@@ -203,3 +203,30 @@ def to_dict(obj: Any) -> Any:
     if isinstance(obj, dict):
         return {k: to_dict(v) for k, v in obj.items()}
     return obj
+
+
+def update_dict_with_dotlist(
+    data: dict[str, Any], dotlist: list[str] | None
+) -> dict[str, Any]:
+    """Apply ``--override a.b.c=value`` dotlist entries onto a nested dict
+    (reference: fme/core/config.py:7).
+
+    Values are parsed as YAML scalars (so ``1`` is an int, ``true`` a bool).
+    """
+    import yaml
+
+    if not dotlist:
+        return data
+    for item in dotlist:
+        if "=" not in item:
+            raise ConfigError(f"dotlist entry {item!r} must be KEY=VALUE")
+        key, value_str = item.split("=", 1)
+        value = yaml.safe_load(value_str)
+        node = data
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+            if not isinstance(node, dict):
+                raise ConfigError(f"dotlist key {key!r}: {part!r} is not a mapping")
+        node[parts[-1]] = value
+    return data

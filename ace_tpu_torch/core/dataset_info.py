@@ -26,6 +26,10 @@ class VariableMetadata:
     long_name: str
 
 
+class IncompatibleDatasetInfo(ValueError):
+    """Raised when two DatasetInfos cannot be used together."""
+
+
 @dataclasses.dataclass
 class DatasetInfo:
     horizontal_coordinates: LatLonCoordinates | None = None
@@ -55,6 +59,35 @@ class DatasetInfo:
         if isinstance(self.vertical_coordinate, HybridSigmaPressureCoordinate):
             return self.vertical_coordinate
         return None
+
+    def assert_compatible_with(self, other: "DatasetInfo"):
+        """Check that a model trained on this dataset can be used with
+        ``other`` (port of ace_tpu/core/dataset_info.py:88): the grids,
+        the timesteps and the vertical coordinates, where both have one,
+        must agree."""
+        if (
+            self.horizontal_coordinates is not None
+            and other.horizontal_coordinates is not None
+            and self.horizontal_coordinates != other.horizontal_coordinates
+        ):
+            raise IncompatibleDatasetInfo(
+                "horizontal coordinates differ between datasets"
+            )
+        if (
+            self.timestep is not None
+            and other.timestep is not None
+            and self.timestep != other.timestep
+        ):
+            raise IncompatibleDatasetInfo(
+                f"timesteps differ: {self.timestep} vs {other.timestep}"
+            )
+        if (
+            isinstance(self.vertical_coordinate, HybridSigmaPressureCoordinate)
+            and isinstance(other.vertical_coordinate,
+                           HybridSigmaPressureCoordinate)
+            and self.vertical_coordinate != other.vertical_coordinate
+        ):
+            raise IncompatibleDatasetInfo("vertical coordinates differ")
 
     def get_state(self) -> dict:
         state: dict = {"variable_metadata": {

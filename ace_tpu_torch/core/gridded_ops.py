@@ -1,11 +1,13 @@
 """Grid-aware reductions (port of ace_tpu/core/gridded_ops.py:129
-LatLonOperations). Reductions run over the last two (lat, lon) axes with
-cos-lat area weights, held on the device of the data they reduce."""
+LatLonOperations and the helpers of its base class, :49-80). Reductions
+run over the last two (lat, lon) axes with cos-lat area weights, held on
+the device of the data they reduce."""
 
 import numpy as np
 import torch
 
 from ace_tpu_torch.core import metrics
+from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
 from ace_tpu_torch.device import cached_on_device
 
 HORIZONTAL_DIMS = (-2, -1)
@@ -20,6 +22,17 @@ class LatLonOperations:
         return cached_on_device(self._device_cache, "area_weights",
                                 self._area_weights, device)
 
+    @staticmethod
+    def zonal_mean(data: torch.Tensor) -> torch.Tensor:
+        return data.mean(dim=-1)
+
+    def area_weighted_sum(self, data: torch.Tensor, keepdim: bool = False,
+                          name: str | None = None) -> torch.Tensor:
+        return metrics.weighted_sum(
+            data, self.area_weights(data.device), dim=HORIZONTAL_DIMS,
+            keepdim=keepdim,
+        )
+
     def area_weighted_mean(self, data: torch.Tensor, keepdim: bool = False,
                            name: str | None = None) -> torch.Tensor:
         return metrics.weighted_mean(
@@ -33,3 +46,36 @@ class LatLonOperations:
         ``[..., lat, lon, C] -> [..., C]`` (the packed layout the losses
         see)."""
         return self.area_weighted_mean(data.movedim(-1, 0)).movedim(0, -1)
+
+    def area_weighted_sum_dict(self, data: TensorMapping) -> TensorDict:
+        return {k: self.area_weighted_sum(v, name=k) for k, v in data.items()}
+
+    def area_weighted_mean_dict(self, data: TensorMapping) -> TensorDict:
+        return {k: self.area_weighted_mean(v, name=k) for k, v in data.items()}
+
+    def area_weighted_mean_bias(self, truth, predicted, name=None):
+        return self.area_weighted_mean(predicted - truth, name=name)
+
+    def area_weighted_mean_bias_dict(self, truth: TensorMapping,
+                                     predicted: TensorMapping) -> TensorDict:
+        return {k: self.area_weighted_mean_bias(truth[k], predicted[k], name=k)
+                for k in truth}
+
+    def area_weighted_rmse(self, truth, predicted, name=None):
+        return torch.sqrt(
+            self.area_weighted_mean((predicted - truth) ** 2, name=name)
+        )
+
+    def area_weighted_rmse_dict(self, truth: TensorMapping,
+                                predicted: TensorMapping) -> TensorDict:
+        return {k: self.area_weighted_rmse(truth[k], predicted[k], name=k)
+                for k in truth}
+
+    def area_weighted_std(self, data, name=None):
+        mean = self.area_weighted_mean(data, keepdim=True, name=name)
+        return torch.sqrt(
+            self.area_weighted_mean((data - mean) ** 2, name=name)
+        )
+
+    def area_weighted_std_dict(self, data: TensorMapping) -> TensorDict:
+        return {k: self.area_weighted_std(v, name=k) for k, v in data.items()}

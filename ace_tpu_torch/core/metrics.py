@@ -17,6 +17,17 @@ def spherical_area_weights(lats, num_lon: int) -> np.ndarray:
     return weights / np.sum(weights, axis=(-1, -2), keepdims=True)
 
 
+def weighted_sum(tensor, weights=None, dim=(), keepdim=False):
+    """Weighted sum over ``dim``; points of zero weight are excluded even
+    where the data are NaN."""
+    dim = (dim,) if isinstance(dim, int) else tuple(dim)
+    if weights is None:
+        return tensor.sum(dim=dim, keepdim=keepdim)
+    weights = torch.broadcast_to(weights, tensor.shape)
+    tensor = torch.where(weights != 0.0, tensor, 0.0)
+    return (tensor * weights).sum(dim=dim, keepdim=keepdim)
+
+
 def weighted_mean(tensor, weights=None, dim=(), keepdim=False):
     """Weighted mean over ``dim``; points of zero weight are excluded
     even where the data are NaN."""

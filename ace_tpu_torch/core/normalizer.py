@@ -1,8 +1,8 @@
 """Per-variable standard normalization of TensorDicts
-(port of ace_tpu/core/normalizer.py, explicit statistics only).
+(port of ace_tpu/core/normalizer.py).
 
-Statistics given by file path wait for the data-loading port; the
-checkpoints of the JAX package carry explicit ``means``/``stds``.
+Statistics are given explicitly (as the JAX package's checkpoints carry
+them) or as paths to stats files (netCDF/HDF5 read with h5py, or .npz).
 """
 
 import dataclasses
@@ -13,6 +13,35 @@ import numpy as np
 import torch
 
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
+
+
+def load_scalar_dict_from_file(path, names=None) -> dict[str, float]:
+    """``{variable: scalar}`` from an .npz / .npy-dict / netCDF-HDF5 stats
+    file (port of ace_tpu/core/normalizer.py:23)."""
+    path = str(path)
+    if path.endswith(".npz") or path.endswith(".npy"):
+        data = np.load(path, allow_pickle=True)
+        if hasattr(data, "files"):
+            out = {k: float(np.asarray(data[k]).item()) for k in data.files}
+        else:
+            out = {k: float(v) for k, v in data.item().items()}
+    else:
+        import h5py
+
+        out = {}
+        with h5py.File(path, "r") as f:
+            for k in f.keys():
+                v = f[k]
+                if hasattr(v, "shape") and int(np.prod(v.shape)) == 1:
+                    out[k] = float(np.asarray(v[()]).reshape(()))
+    if names is not None:
+        missing = set(names) - set(out)
+        if missing:
+            raise KeyError(
+                f"stats file {path} missing variables {sorted(missing)}"
+            )
+        out = {k: out[k] for k in names}
+    return out
 
 
 class StandardNormalizer:
@@ -27,6 +56,10 @@ class StandardNormalizer:
         self._names = set(means) & set(stds)
         self._fill_nans_on_normalize = fill_nans_on_normalize
         self._fill_nans_on_denormalize = fill_nans_on_denormalize
+
+    @property
+    def names(self) -> set[str]:
+        return self._names
 
     def normalize(self, tensors: TensorMapping) -> TensorDict:
         out = {}
@@ -54,7 +87,8 @@ class StandardNormalizer:
 
 @dataclasses.dataclass
 class NormalizationConfig:
-    """Normalization statistics (explicit values only, for now)."""
+    """Normalization statistics from files or explicit values (port of
+    ace_tpu/core/normalizer.py:134)."""
 
     global_means_path: str | pathlib.Path | None = None
     global_stds_path: str | pathlib.Path | None = None
@@ -64,15 +98,36 @@ class NormalizationConfig:
     fill_nans_on_denormalize: bool = False
 
     def __post_init__(self):
-        if self.global_means_path is not None or self.global_stds_path is not None:
-            raise NotImplementedError(
-                "normalization stats from files are not ported yet; give "
-                "explicit means/stds"
+        using_path = (
+            self.global_means_path is not None
+            and self.global_stds_path is not None
+        )
+        using_explicit = len(self.means) > 0 and len(self.stds) > 0
+        if using_path and using_explicit:
+            raise ValueError(
+                "Cannot use both stats paths and explicit means/stds."
             )
-        if not (self.means and self.stds):
-            raise ValueError("Must provide explicit means/stds.")
+        if not (using_path or using_explicit):
+            raise ValueError(
+                "Must provide either stats paths or explicit means/stds."
+            )
+
+    def load(self):
+        """Resolve file-based stats to explicit values (for serialization)."""
+        if self.global_means_path is not None:
+            self.means = load_scalar_dict_from_file(self.global_means_path)
+            self.stds = load_scalar_dict_from_file(self.global_stds_path)
+            self.global_means_path = None
+            self.global_stds_path = None
 
     def build(self, names: list[str]) -> StandardNormalizer:
+        if self.global_means_path is not None:
+            return StandardNormalizer(
+                load_scalar_dict_from_file(self.global_means_path, names),
+                load_scalar_dict_from_file(self.global_stds_path, names),
+                self.fill_nans_on_normalize,
+                self.fill_nans_on_denormalize,
+            )
         missing = set(names) - set(self.means)
         if missing:
             raise KeyError(f"means/stds missing for variables {sorted(missing)}")

@@ -5,9 +5,24 @@ tensors of shape ``[batch, ...(time)..., lat, lon]``. Packing into one
 channel-stacked tensor happens only at the network boundary.
 """
 
+import dataclasses
 from collections.abc import Mapping
 
 import torch
 
 TensorDict = dict[str, torch.Tensor]
 TensorMapping = Mapping[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class Slice:
+    """A python slice from start, stop and step (port of
+    ace_tpu/core/typing_.py:22)."""
+
+    start: int | None = None
+    stop: int | None = None
+    step: int | None = None
+
+    @property
+    def slice(self) -> slice:
+        return slice(self.start, self.stop, self.step)

@@ -31,8 +31,10 @@ def get_device(device: str | torch.device | None = None) -> torch.device:
 def cached_on_device(cache: dict, name: str, array: np.ndarray,
                      device: torch.device) -> torch.Tensor:
     """``array`` as a tensor on ``device``, made once per device and kept
-    in ``cache`` (host-side constants that device math reads each step)."""
+    in ``cache`` (host-side constants that device math reads each step).
+    The copy does not wait for the device, so a constant first needed
+    inside a loop that must not synchronize can be made there."""
     key = (name, str(device))
     if key not in cache:
-        cache[key] = torch.as_tensor(array, device=device)
+        cache[key] = torch.as_tensor(array).to(device, non_blocking=True)
     return cache[key]

@@ -67,14 +67,11 @@ def names(nz: int = NZ) -> tuple[list[str], list[str], list[str]]:
     return prognostic, diagnostics, forcings
 
 
-def build_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED, layers=LAYERS,
-                  device=None, fused_block_tail=False,
-                  checkpointing=0) -> Stepper:
-    """The flagship stepper (weights not drawn yet) on ``device``.
-    ``fused_block_tail`` sends every block's tail through the fused kernel
-    (``NoiseConditionedSFNO.use_fused_block_tail``); it is not part of the
-    model's config, as JAX checkpoints do not carry it. ``checkpointing``
-    is the model config's per-block recompute level (1 for training)."""
+def stepper_config(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED, layers=LAYERS,
+                   checkpointing=0) -> tuple[StepperConfig, DatasetInfo]:
+    """The flagship's stepper config and the dataset info of its grid
+    (what a checkpoint of it holds). ``checkpointing`` is the model
+    config's per-block recompute level (1 for training)."""
     prognostic, diagnostics, forcings = names(nz)
     in_names = prognostic + forcings
     out_names = prognostic + diagnostics
@@ -111,6 +108,19 @@ def build_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED, layers=LAYERS,
         timestep=timedelta(hours=6),
     )
     config = StepperConfig(step=StepSelector(type="single_module", config=step))
+    return config, info
+
+
+def build_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED, layers=LAYERS,
+                  device=None, fused_block_tail=False,
+                  checkpointing=0) -> Stepper:
+    """The flagship stepper (weights not drawn yet) on ``device``.
+    ``fused_block_tail`` sends every block's tail through the fused kernel
+    (``NoiseConditionedSFNO.use_fused_block_tail``); it is not part of the
+    model's config, as JAX checkpoints do not carry it. ``checkpointing``
+    is the model config's per-block recompute level (1 for training)."""
+    config, info = stepper_config(nlat, nlon, nz, embed, layers,
+                                  checkpointing)
     stepper = config.get_stepper(info, device=device)
     stepper.module.use_fused_block_tail(fused_block_tail)
     return stepper
@@ -268,3 +278,25 @@ def synthetic_inputs(stepper: Stepper, n_steps: int, batch: int = 1,
     }
     forcing["ocean_fraction"] = forcing["ocean_fraction"].abs().clamp(0, 1)
     return PrognosticState(data=ic), forcing
+
+
+def synthetic_series(stepper: Stepper, n_times: int,
+                     generator: torch.Generator | None = None,
+                     ) -> dict[str, np.ndarray]:
+    """``[n_times, nlat, nlon]`` float32 host arrays of every variable the
+    stepper reads or writes, drawn on the stepper's device as
+    ``synthetic_inputs`` draws them: a dataset to write to files."""
+    nlat, nlon = stepper.dataset_info.img_shape
+    step = stepper.step
+    data = {}
+    for k in sorted(set(step.input_names) | set(step.output_names)):
+        v = torch.randn(n_times, nlat, nlon, generator=generator,
+                        device=stepper.device)
+        if k == "PRESsfc":
+            v = v * 100 + 1.0e5
+        if k.startswith("specific_total_water"):
+            v = v.abs() * 1e-3
+        if k == "ocean_fraction":
+            v = v.abs().clamp(0, 1)
+        data[k] = v.cpu().numpy()
+    return data

@@ -2,7 +2,8 @@
 GPU.
 
     python -m ace_tpu_torch.profile_flagship [--steps N] [--out DIR]
-                                             [--fused-block-tail] [--train]
+                                             [--fused-block-tail]
+                                             [--train | --inference]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -19,12 +20,22 @@ time, the same time by family (``FAMILIES``) and the peak device memory.
 kernel K2. ``--train`` profiles the flagship pretraining step instead
 (``flagship.build_train_stepper``, a batch of 2, the same batch and noise
 each step): ``N`` untimed-apart steps (default 5 with ``--train``), then 2
-traced. Writes the Chrome trace to ``DIR/flagship_trace.json`` (or
-``flagship_train_trace.json``; default ``build/profiles``).
+traced. ``--inference`` profiles the inference loop as path I of
+``chip_smoke.py`` runs it without a writer (``run_inference`` from start
+indices [0, 1], batch 2, in windows of 5, with the default aggregators,
+over forcing in host memory; weights from ``flagship.draw_check_weights``):
+``N`` steps untraced (default 20), then 10 traced; a step is one forward
+step of the batch of 2. The untraced run also prints the device time of
+each call of the spectrum aggregator's flood fill, in order (CUDA events
+around ``SmoothFloodFill.fill_stacked``: the fill runs until the host
+knows that no variable has a NaN, and is skipped from then on). Writes the Chrome trace to
+``DIR/flagship_trace.json`` (``flagship_train_trace.json``,
+``flagship_inference_trace.json``; default ``build/profiles``).
 """
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -39,7 +50,9 @@ from ace_tpu_torch.device import get_device
 
 TRACED_STEPS = 3
 TRACED_TRAIN_STEPS = 2
+TRACED_INFERENCE_STEPS = 10
 TRAIN_BATCH = 2
+INFERENCE_STEPS_IN_MEMORY = 5
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # kernel families, by the first pattern found in a device event's name
 FAMILIES = (
@@ -112,8 +125,12 @@ def main(argv=None):
     parser.add_argument("--out", default="build/profiles")
     parser.add_argument("--fused-block-tail", action="store_true",
                         help="run each block's tail through the fused kernel")
-    parser.add_argument("--train", action="store_true",
-                        help="profile the pretraining step, not the rollout")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile the pretraining step, not the rollout")
+    mode.add_argument("--inference", action="store_true",
+                      help="profile the inference loop (batch 2, windows "
+                           "of 5, aggregators, no writer)")
     parser.add_argument("--read", metavar="TRACE",
                         help="only print the tables of this Chrome trace")
     parser.add_argument("--traced-steps", type=int, default=TRACED_TRAIN_STEPS,
@@ -136,6 +153,11 @@ def main(argv=None):
     if args.train:
         run, n = _train_runner(device, args.fused_block_tail), TRACED_TRAIN_STEPS
         name = "flagship_train_trace.json"
+    elif args.inference:
+        run = _inference_runner(device, args.fused_block_tail,
+                                max(args.steps, TRACED_INFERENCE_STEPS))
+        n = TRACED_INFERENCE_STEPS
+        name = "flagship_inference_trace.json"
     else:
         run = _rollout_runner(device, args.fused_block_tail,
                               max(args.steps, TRACED_STEPS))
@@ -147,10 +169,15 @@ def main(argv=None):
     torch.cuda.synchronize()
     print(f"first call (1 step): {time.perf_counter() - t0:.3f} s")
 
-    t0 = time.perf_counter()
-    run(args.steps)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    fills = []
+    with _fill_events(fills) if args.inference else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        run(args.steps)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    if args.inference:
+        print("flood fill, device ms per call (a call per window): "
+              f"{[round(a.elapsed_time(b), 4) for a, b in fills]}")
     print(f"{args.steps} steps untraced: {wall_s:.4f} s = "
           f"{wall_s / args.steps * 1e3:.2f} ms/step = "
           f"{args.steps / wall_s:.3f} steps/s")
@@ -172,6 +199,29 @@ def main(argv=None):
     print_tables(events, n)
 
 
+@contextlib.contextmanager
+def _fill_events(pairs: list):
+    """Appends to ``pairs`` the CUDA events recorded before and after each
+    ``SmoothFloodFill.fill_stacked`` call while the context lasts."""
+    from ace_tpu_torch.core.fill import SmoothFloodFill
+
+    fill_stacked = SmoothFloodFill.fill_stacked
+
+    def timed(self, x, names):
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        out = fill_stacked(self, x, names)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    SmoothFloodFill.fill_stacked = timed
+    try:
+        yield
+    finally:
+        SmoothFloodFill.fill_stacked = fill_stacked
+
+
 def _rollout_runner(device, fused, max_steps):
     """``run(n)``: an ``n``-step flagship rollout from the same state."""
     stepper = flagship.build_stepper(device=device, fused_block_tail=fused)
@@ -182,6 +232,45 @@ def _rollout_runner(device, fused, max_steps):
 
     def run(n):
         stepper.predict(ic, {k: v[:, : n + 1] for k, v in forcing.items()})
+
+    return run
+
+
+def _inference_runner(device, fused, max_steps):
+    """``run(n)``: the inference loop over ``n`` steps from start indices
+    [0, 1], without a writer, from forcing in host memory."""
+    from ace_tpu_torch.aggregator.inference import InferenceAggregatorConfig
+    from ace_tpu_torch.data.dataset import MemoryDataset
+    from ace_tpu_torch.data.inference import (
+        ExplicitIndices,
+        InferenceGriddedData,
+    )
+    from ace_tpu_torch.data.time import TimeCoord
+    from ace_tpu_torch.inference.loop import run_inference
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    stepper = flagship.build_stepper(device=device, fused_block_tail=fused)
+    flagship.draw_check_weights(stepper, torch.Generator(device).manual_seed(0))
+    n_times = max_steps + 2
+    dataset = MemoryDataset(
+        flagship.synthetic_series(
+            stepper, n_times, generator=torch.Generator(device).manual_seed(3)),
+        TimeCoord.from_range("2000-01-01T00:00", n_times, 21600),
+        stepper.dataset_info,
+    )
+    info = stepper.dataset_info
+
+    def run(n):
+        data = InferenceGriddedData(
+            dataset, ExplicitIndices(list=[0, 1]),
+            stepper.forcing_window_names, stepper.prognostic_names, n,
+            INFERENCE_STEPS_IN_MEMORY)
+        ic = PrognosticState(data={
+            k: torch.as_tensor(v).to(device)
+            for k, v in data.initial_condition().data.items()})
+        aggregator = InferenceAggregatorConfig().build(
+            info, n_timesteps=n, normalizer=stepper.step.normalizer)
+        run_inference(stepper, ic, data, aggregator=aggregator)
 
     return run
 

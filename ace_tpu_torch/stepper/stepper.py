@@ -9,6 +9,7 @@ busy. The caller syncs when it reads the results.
 """
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -229,3 +230,84 @@ class StepperConfig:
             step=StepSelector.from_state(state["step"]),
             input_masking=state.get("input_masking"),
         )
+
+
+@dataclasses.dataclass
+class CheckpointStepperConfig:
+    """Define the stepper by loading its configuration from a saved
+    checkpoint (port of ace_tpu/stepper/stepper.py:313). Weight
+    initialization is separate."""
+
+    checkpoint_path: str
+
+    def to_stepper_config(self) -> "StepperConfig":
+        import json
+
+        from ace_tpu_torch.stepper.checkpoint import load_msgpack
+
+        payload = load_msgpack(self.checkpoint_path)
+        return StepperConfig.from_state(
+            json.loads(payload["stepper"]["config"])
+        )
+
+    def get_stepper(self, dataset_info: DatasetInfo, device=None
+                    ) -> "Stepper":
+        return self.to_stepper_config().get_stepper(dataset_info,
+                                                    device=device)
+
+
+@dataclasses.dataclass
+class StepperOverrideConfig:
+    """Inference-time overrides of a serialized stepper's configuration
+    (port of ace_tpu/stepper/stepper.py:345). "keep" leaves the stored
+    value untouched."""
+
+    ocean: Any = "keep"
+    prescribed_prognostic_names: Any = "keep"
+    # override the serialized MultiCall configuration: None disables
+    # multi-call diagnostics at inference; a dict replaces/wraps with a
+    # new MultiCallConfig (reference: single_module.py:1868)
+    multi_call: Any = "keep"
+
+    def apply(self, stepper_config_state: dict) -> dict:
+        state = dict(stepper_config_state)
+        step = dict(state.get("step", {}))
+        step_cfg = dict(step.get("config", {}))
+        # ocean/prescribed overrides act on the inner (module) step
+        # config, which for a multi_call wrapper is the wrapped step
+        inner_cfg = step_cfg
+        if step.get("type") == "multi_call":
+            wrapped = dict(step_cfg.get("wrapped_step", {}))
+            inner_cfg = dict(wrapped.get("config", {}))
+            wrapped["config"] = inner_cfg
+            step_cfg["wrapped_step"] = wrapped
+        if self.ocean != "keep":
+            inner_cfg["ocean"] = self.ocean
+        if self.prescribed_prognostic_names != "keep":
+            inner_cfg["prescribed_prognostic_names"] = (
+                list(self.prescribed_prognostic_names)
+            )
+        if self.multi_call != "keep":
+            if step.get("type") == "multi_call":
+                if self.multi_call is None:
+                    step_cfg["config"] = None
+                    step_cfg["include_multi_call_in_loss"] = False
+                else:
+                    step_cfg["config"] = self.multi_call
+            elif self.multi_call is not None:
+                step = {
+                    "type": "multi_call",
+                    "config": {
+                        "wrapped_step": {
+                            "type": step.get("type"),
+                            "config": step_cfg,
+                        },
+                        "config": self.multi_call,
+                        "include_multi_call_in_loss": False,
+                    },
+                }
+                state["step"] = step
+                return state
+        step["config"] = step_cfg
+        state["step"] = step
+        return state

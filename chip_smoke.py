@@ -43,7 +43,22 @@
      with a bf16 first moment, clipping, EMA) on a batch of 2: one
      warm-up step, then 5 steps on the same batch and noise (K1, 1b, 1c);
    - path T-A, one step of the same recipe with the fused tail (K2 too)
-     from the same weights, batch and noise, against path T's first.
+     from the same weights, batch and noise, against path T's first;
+   - path I, the inference entry (``ace_tpu_torch.inference``): flagship
+     weights written with ``save_stepper`` and loaded back, 22 times of
+     the flagship's 47 variables, 20 steps from start indices [0, 1] in
+     windows of 5, through ``main`` on YAML configs over a netCDF file,
+     once without a writer and once with one. It prints the versions of
+     h5py, msgpack and PyYAML first; where h5py is missing it prints so and
+     holds the entry's files in host memory (``h5py_in_memory``, a
+     stand-in for ``h5py.File``); msgpack and PyYAML it needs. It checks
+     that restart.nc and the diagnostics files are finite, 160 K1
+     launches and no other kernel's, no synchronizing call in
+     ``run_inference`` without a writer before the one that stops its
+     clock, the written predictions within 1e-5 of each channel's spatial
+     std of one 20-step ``Stepper.predict`` from the same seed, and the
+     dry-air mass within 1 Pa; it prints steps/s, the ``GlobalTimer`` phases and the
+     peak memory.
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -840,6 +855,381 @@ def first_steps_agree(path0, path_a, ic, forcing):
         raise AssertionError("path A's first step disagrees with path 0's")
 
 
+class _H5Dim:
+    """A dimension of an in-memory dataset: its label and its scales."""
+
+    def __init__(self):
+        self.label, self._scales = "", []
+
+    def attach_scale(self, scale):
+        self._scales.append(scale)
+
+    def __len__(self):
+        return len(self._scales)
+
+    def __getitem__(self, i):
+        return self._scales[i]
+
+
+class _H5Dataset:
+    """An array with the part of ``h5py.Dataset`` that the port uses."""
+
+    def __init__(self, name, data=None, shape=None, dtype=None, **_):
+        import numpy as np
+
+        self.name = "/" + name
+        self.array = (np.array(data) if data is not None
+                      else np.zeros(shape, dtype))
+        self.attrs = {}
+        self.dims = [_H5Dim() for _ in self.array.shape]
+
+    @property
+    def shape(self):
+        return self.array.shape
+
+    @property
+    def dtype(self):
+        return self.array.dtype
+
+    def make_scale(self, name=""):
+        pass
+
+    def resize(self, size, axis):
+        import numpy as np
+
+        shape = list(self.array.shape)
+        n = min(size, shape[axis])
+        shape[axis] = size
+        grown = np.zeros(shape, self.array.dtype)
+        keep = (slice(None),) * axis + (slice(0, n),)
+        grown[keep] = self.array[keep]
+        self.array = grown
+
+    def __getitem__(self, key):
+        import numpy as np
+
+        return np.array(self.array[key])
+
+    def __setitem__(self, key, value):
+        self.array[key] = value
+
+
+class _H5File:
+    """``h5py.File`` kept in host memory: a file opened to write is an empty
+    file on the disk (so that directories list it) and its datasets and
+    attributes in ``files``, from which it is opened to read."""
+
+    files: dict = {}
+
+    def __init__(self, path, mode="r"):
+        import os
+
+        path = os.path.abspath(path)
+        if mode == "w":
+            open(path, "w").close()
+            self.files[path] = ({}, {})
+        elif path not in self.files:
+            raise FileNotFoundError(path)
+        self._datasets, self.attrs = self.files[path]
+
+    def create_dataset(self, name, **kwargs):
+        self._datasets[name] = _H5Dataset(name, **kwargs)
+        return self._datasets[name]
+
+    def __getitem__(self, name):
+        return self._datasets[name]
+
+    def items(self):
+        return self._datasets.items()
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+def h5py_in_memory():
+    """A context in which ``import h5py`` gives ``_H5File`` in place of the
+    package (path I where h5py is missing): the entry runs whole, and its
+    netCDF files are held in host memory instead of written."""
+    import contextlib
+    import types
+
+    @contextlib.contextmanager
+    def context():
+        module = types.ModuleType("h5py")
+        module.File = _H5File
+        saved = sys.modules.get("h5py")
+        sys.modules["h5py"] = module
+        try:
+            yield
+        finally:
+            _H5File.files.clear()
+            if saved is None:
+                del sys.modules["h5py"]
+            else:
+                sys.modules["h5py"] = saved
+
+    return context()
+
+
+def inference_packages():
+    """The versions of the packages that the inference entry's files
+    (h5py) and config (PyYAML) and the checkpoint (msgpack) need, and the
+    names of those missing."""
+    import importlib.metadata
+    import importlib.util
+
+    present, missing = {}, []
+    for module, dist in (("h5py", "h5py"), ("msgpack", "msgpack"),
+                         ("yaml", "PyYAML")):
+        if importlib.util.find_spec(module) is None:
+            missing.append(dist)
+        else:
+            present[dist] = importlib.metadata.version(dist)
+    return present, missing
+
+
+def no_sync_in_run_inference():
+    """A context in which the inference entry's call of ``run_inference``
+    raises at any synchronizing call, from its start to the one
+    ``torch.cuda.synchronize`` that stops its clock (the only exemption)."""
+    import contextlib
+
+    import torch
+
+    from ace_tpu_torch.inference import inference
+
+    run_inference, synchronize = inference.run_inference, torch.cuda.synchronize
+
+    def exempt(device=None):
+        torch.cuda.set_sync_debug_mode("default")
+        synchronize(device)
+
+    def checked(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        torch.cuda.synchronize = exempt
+        try:
+            return run_inference(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize = synchronize
+            torch.cuda.set_sync_debug_mode("default")
+
+    @contextlib.contextmanager
+    def context():
+        inference.run_inference = checked
+        try:
+            yield
+        finally:
+            inference.run_inference = run_inference
+
+    return context()
+
+
+def _timed_run(counters, fn, check_sync):
+    """``fn()`` with the launch counts set to 0 just before it, the
+    timers and the peak memory reset, and (``check_sync``) no
+    synchronizing call allowed in ``run_inference``; returns its result,
+    the counts, the timer phases and the peak memory in GB."""
+    import contextlib
+
+    import torch
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+
+    GlobalTimer.reset()
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    guard = (no_sync_in_run_inference() if check_sync
+             else contextlib.nullcontext())
+    with guard:
+        result, launches = counted(counters, fn)
+    phases = GlobalTimer.get_instance().get_durations()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    return result, launches, phases, peak
+
+
+def _write_files(tmp, series, time, info):
+    """The series as one netCDF file with the grid and the vertical
+    coordinate, as the data layer reads them."""
+    import os
+
+    import numpy as np
+
+    from ace_tpu_torch.data.store import write_h5
+
+    data_dir = os.path.join(tmp, "data")
+    os.makedirs(data_dir)
+    data = dict(series)
+    dims = {k: ("time", "lat", "lon") for k in series}
+    vc = info.vertical_coordinate
+    for i, (a, b) in enumerate(zip(vc.ak, vc.bk)):
+        data[f"ak_{i}"], data[f"bk_{i}"] = np.float32(a), np.float32(b)
+        dims[f"ak_{i}"] = dims[f"bk_{i}"] = ()
+    grid = info.horizontal_coordinates
+    write_h5(os.path.join(data_dir, "data.nc"), data, dims,
+             coords={"lat": grid.lat, "lon": grid.lon}, time=time)
+    return data_dir
+
+
+def _entry_from_files(tmp, ckpt, series, time, info, counters, device,
+                      n_steps, in_memory, check_sync):
+    """Path I through ``main`` on a YAML: netCDF forcing in, predictions,
+    restart.nc and diagnostics out. Returns the writer-off run's summary,
+    launches, phases and peak, and the written predictions."""
+    import os
+
+    import numpy as np
+    import yaml
+
+    from ace_tpu_torch.data.store import open_file_dataset
+    from ace_tpu_torch.inference.inference import main as inference_main
+
+    data_dir = _write_files(tmp, series, time, info)
+    runs = {}
+    for save in (False, True):
+        out_dir = os.path.join(tmp, f"inference_{save}")
+        config = {
+            "experiment_dir": out_dir, "checkpoint_path": ckpt,
+            "n_forward_steps": n_steps, "forward_steps_in_memory": in_memory,
+            "logging": {"log_to_screen": False, "log_to_file": True},
+            "forcing_loader": {"dataset": {"data_path": data_dir},
+                               "start_indices": {"list": [0, 1]}},
+            "data_writer": {"save_prediction_files": save},
+        }
+        path = os.path.join(tmp, f"inference_{save}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(config, f)
+        runs[save] = _timed_run(
+            counters, lambda: inference_main([path], device=device),
+            check_sync and not save)
+        names = ["restart.nc"] + [os.path.join("diagnostics", n) for n in
+                                  os.listdir(os.path.join(out_dir,
+                                                          "diagnostics"))]
+        for name in names:
+            ds = open_file_dataset(os.path.join(out_dir, name))
+            for k in ds.keys():
+                if not np.isfinite(ds[k].read(())).all():
+                    raise AssertionError(f"path I: {name} {k} not finite")
+        print(f"path I (writer {save}): {len(names)} files finite: "
+              f"{sorted(names)}")
+    ds = open_file_dataset(os.path.join(
+        tmp, "inference_True", "autoregressive_predictions.nc"))
+    written = {k: ds[k].read(()) for k in ds.keys()}
+    return runs, written
+
+
+def inference_path(counters, device="cuda", sizes=None, n_steps=N_STEPS,
+                   in_memory=5, n_times=22):
+    """Path I: the inference entry on the flagship stepper (weights drawn
+    from seed 0 by ``flagship.draw_check_weights``, written with
+    ``save_stepper`` and loaded back), over
+    ``n_times`` times of the flagship's 47 variables, ``n_steps`` steps
+    from start indices [0, 1] in windows of ``in_memory``. Runs ``main``
+    on YAML configs and netCDF files; where h5py is missing, the files are
+    held in host memory (``h5py_in_memory``). Checks that restart.nc and
+    the diagnostics files are finite, the writer-off run's launches and
+    (on the card) that its ``run_inference`` never waits for the device
+    before its clock stops, the written predictions against one
+    ``Stepper.predict`` of the same initial condition, forcing and seed,
+    and the dry-air mass. Returns the writer-off run's launches, rate, phases and peak."""
+    import contextlib
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.data.time import TimeCoord
+    from ace_tpu_torch.stepper import checkpoint
+
+    present, missing = inference_packages()
+    print(f"path I: packages {present}")
+    for dist in missing:
+        print(f"path I: missing package {dist}")
+    if "msgpack" in missing or "PyYAML" in missing:
+        raise AssertionError("path I: the entry reads its checkpoint with "
+                             "msgpack and its config with PyYAML")
+    check_sync = torch.device(device).type == "cuda"
+    config, info = flagship.stepper_config(**(sizes or {}))
+    built = config.get_stepper(info, device=device)
+    # drawn so that the outputs have spatial structure to compare
+    flagship.draw_check_weights(built, torch.Generator(device).manual_seed(0))
+    series = flagship.synthetic_series(
+        built, n_times, generator=torch.Generator(device).manual_seed(3))
+    time = TimeCoord.from_range("2000-01-01T00:00", n_times, 21600)
+    files = contextlib.nullcontext()
+    if "h5py" in missing:
+        print("path I: the entry's netCDF files are held in host memory "
+              "(h5py_in_memory), not written to the disk")
+        files = h5py_in_memory()
+    with tempfile.TemporaryDirectory() as tmp, files:
+        ckpt = os.path.join(tmp, "flagship.msgpack")
+        checkpoint.save_stepper(ckpt, built, config)
+        del built  # the entry's peak memory holds its own stepper alone
+        runs, written = _entry_from_files(
+            tmp, ckpt, series, time, info, counters, device, n_steps,
+            in_memory, check_sync)
+        stepper = checkpoint.load_stepper(ckpt, device=device)
+
+    # the same rollout as one predict call, from the same seed
+    starts = [0, 1]
+    ic = {k: torch.as_tensor(np.stack([series[k][s:s + 1] for s in starts]))
+          .to(stepper.device) for k in stepper.prognostic_names}
+    forcing = {k: torch.as_tensor(np.stack(
+        [series[k][s:s + n_steps + 1] for s in starts])).to(stepper.device)
+        for k in stepper.forcing_window_names}
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    ref, _ = stepper.predict(PrognosticState(data=ic), forcing,
+                             generator=torch.Generator(
+                                 stepper.device).manual_seed(0))
+    errs = {}
+    for k in stepper.out_names:
+        r = ref[k].float()
+        out = torch.as_tensor(written[k]).to(r.device)
+        if out.shape != r.shape:
+            raise AssertionError(f"path I: {k} written as {tuple(out.shape)}")
+        err = float((out - r).abs().max())
+        errs[k] = err / float(r.std(dim=(-2, -1)).mean()) if err else 0.0
+    worst = max(errs, key=errs.get)
+    corrector = stepper.step.corrector
+    target = corrector.init_state({k: v[:, 0] for k, v in ic.items()})
+    drift = max(
+        float((corrector.init_state({
+            k: torch.as_tensor(written[k][:, t]).to(stepper.device)
+            for k in stepper.out_names})["global_dry_air_mass"]
+            - target["global_dry_air_mass"]).abs().max())
+        for t in range(n_steps))
+    (summary, launches, phases, peak) = runs[False]
+    rate_on = runs[True][0]["total_steps_per_second"]
+    print(f"path I: written predictions vs one {n_steps}-step predict: "
+          f"largest error {errs[worst]:.3g} of the channel's spatial std "
+          f"({worst}; tol 1e-5); dry-air mass drift {drift:.4f} Pa")
+    print(f"path I (writer off): {summary['total_steps']} steps at "
+          f"{summary['total_steps_per_second']:.4f} steps/s (batch 2, "
+          f"windows of {in_memory}); phases "
+          f"{ {k: round(v, 4) for k, v in sorted(phases.items())} }; peak "
+          f"device memory {peak:.2f} GB; launches {launches}")
+    print(f"path I (writer on): {rate_on:.4f} steps/s; phases "
+          f"{ {k: round(v, 4) for k, v in sorted(runs[True][2].items())} }")
+    if not errs[worst] <= 1e-5:
+        raise AssertionError("path I: the written predictions disagree "
+                             "with Stepper.predict")
+    if not drift < 1.0:
+        raise AssertionError("path I: the dry-air mass is not conserved")
+    return launches, summary["total_steps_per_second"], phases, peak
+
+
 def main() -> int:
     import torch
 
@@ -977,9 +1367,19 @@ def main() -> int:
         raise AssertionError(f"path T-A: launches {launches_ta}")
     print(f"path T, same call: {rate_t:.4f} train steps/s, "
           f"{rate_t * TRAIN_BATCH:.4f} samples/s")
+    del path_ta, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # path I: the inference entry, K1 in each block of each step
+    print(smi)
+    launches_i, _, _, _ = inference_path(counters)
+    if launches_i != {**none, "dhconv_filter": per_step}:
+        raise AssertionError(f"path I: launches {launches_i}, want "
+                             f"{per_step} of dhconv_filter only")
 
     by_path = {"0": launches0, "A": launches_a, "B": launches_b,
-               "T": launches_t, "T-A": launches_ta}
+               "T": launches_t, "T-A": launches_ta, "I": launches_i}
     own_path = {"dhconv_filter": "0", "fused_block_tail": "A",
                 "fused_sht": "B", "dhconv_filter_dx": "T",
                 "dhconv_filter_dw": "T"}
