@@ -104,8 +104,11 @@ class AtmosphereData:
         raise KeyError(name)
 
     def _stacked(self, name) -> torch.Tensor:
-        names = get_all_level_names(self._prefix_map[name], self._data)
+        names = self.get_all_vertical_level_names(name)
         return torch.stack([self._data[n] for n in names], dim=-1)
+
+    def get_all_vertical_level_names(self, name: str) -> list[str]:
+        return get_all_level_names(self._prefix_map[name], self._data)
 
     @property
     def specific_total_water(self) -> torch.Tensor:
@@ -187,6 +190,10 @@ class AtmosphereData:
         except KeyError:
             # E3SM stores geopotential; convert with its gravity constant
             return self._get("surface_geopotential") / 9.80616
+
+    @property
+    def toa_down_sw_radiative_flux(self):
+        return self._get("toa_down_sw_radiative_flux")
 
     @property
     def net_surface_energy_flux(self):

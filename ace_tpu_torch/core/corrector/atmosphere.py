@@ -1,12 +1,12 @@
 """Atmosphere physics-constraint corrector (port of
 ace_tpu/core/corrector/atmosphere.py).
 
-Ported: force-positive clamps, global dry-air mass conservation, zero
-global-mean moisture advection and the moisture-budget closure (with the
-frozen-precipitation clip). The total-energy budget correction is not
-ported yet and raises. Corrections are applied in the JAX package's
-order; the per-sample state (the IC's global dry-air mass) is seeded from
-the initial condition before the rollout.
+Force-positive clamps, global dry-air mass conservation, zero global-mean
+moisture advection, the moisture-budget closure (with the
+frozen-precipitation clip) and the total-energy budget correction (a
+uniform air-temperature change), applied in the JAX package's order; the
+per-sample state (the IC's global dry-air mass) is seeded from the
+initial condition before the rollout.
 """
 
 import dataclasses
@@ -14,16 +14,31 @@ from typing import Literal
 
 import torch
 
-from ace_tpu_torch.core.atmosphere_data import AtmosphereData
+from ace_tpu_torch.core.atmosphere_data import (
+    AtmosphereData,
+    compute_layer_thickness,
+)
+from ace_tpu_torch.core.constants import (
+    GRAVITY,
+    SPECIFIC_HEAT_OF_DRY_AIR_CONST_VOLUME,
+)
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
 
 CorrectorState = dict
 
 
 @dataclasses.dataclass
+class EnergyBudgetConfig:
+    """Total energy budget correction (port of
+    ace_tpu/core/corrector/atmosphere.py:57)."""
+
+    method: Literal["constant_temperature"]
+    constant_unaccounted_heating: float = 0.0
+
+
+@dataclasses.dataclass
 class AtmosphereCorrectorConfig:
     """Post-step corrector configuration, with the JAX package's fields.
-    ``total_energy_budget_correction`` must be None for now;
     ``keep_gradient_through_clamps`` and ``corrector_disabled_epochs``
     concern training only."""
 
@@ -39,16 +54,12 @@ class AtmosphereCorrectorConfig:
         | None
     ) = None
     force_positive_names: list[str] = dataclasses.field(default_factory=list)
-    total_energy_budget_correction: dict | None = None
+    total_energy_budget_correction: EnergyBudgetConfig | None = None
     keep_gradient_through_clamps: bool = False
     clip_frozen_precipitation: bool = False
     corrector_disabled_epochs: int = 0
 
     def __post_init__(self):
-        if self.total_energy_budget_correction is not None:
-            raise NotImplementedError(
-                "the total energy budget correction is not ported yet"
-            )
         if self.corrector_disabled_epochs < 0:
             raise ValueError(
                 "corrector_disabled_epochs must be non-negative, got "
@@ -70,6 +81,7 @@ class AtmosphereCorrectorConfig:
             or self.zero_global_mean_moisture_advection
             or self.moisture_budget_correction is not None
             or self.force_positive_names
+            or self.total_energy_budget_correction is not None
         )
 
 
@@ -141,6 +153,13 @@ class AtmosphereCorrector:
             ))
             if cfg.clip_frozen_precipitation:
                 apply(_clip_frozen_precipitation(gen))
+        if cfg.total_energy_budget_correction is not None:
+            ec = cfg.total_energy_budget_correction
+            apply(_force_conserve_total_energy(
+                input_data, gen, forcing_data, self._awm, self._vc, self._dt,
+                method=ec.method,
+                unaccounted_heating=ec.constant_unaccounted_heating,
+            ))
         delta = {k: gen[k] - snapshot[k] for k in modified}
         return CorrectorOutput(corrected=gen, corrector_state=state, delta=delta)
 
@@ -220,3 +239,67 @@ def _force_conserve_moisture(input_data, gen_data, area_weighted_mean,
         )
         gen.set_tendency_of_total_water_path_due_to_advection(new_advection)
     return gen.modified_data
+
+
+def _force_conserve_total_energy(
+    input_data, gen_data, forcing_data, area_weighted_mean,
+    vertical_coordinate, timestep_seconds,
+    method="constant_temperature", unaccounted_heating=0.0,
+) -> TensorDict:
+    """Conserve the global total energy by one air-temperature change,
+    uniform over the globe and the column: the generated energy path's
+    global mean is set to the input's plus the net flux into the
+    atmosphere (and ``unaccounted_heating``) over the timestep."""
+    if method != "constant_temperature":
+        raise NotImplementedError(
+            f"method {method} not implemented for total energy conservation"
+        )
+    inp = AtmosphereData(input_data, vertical_coordinate)
+    forcing = AtmosphereData(forcing_data)
+    atmosphere_data = dict(gen_data)
+    atmosphere_data["DSWRFtoa"] = forcing.toa_down_sw_radiative_flux
+    atmosphere_data["HGTsfc"] = forcing.surface_height
+    gen = AtmosphereData(atmosphere_data, vertical_coordinate)
+
+    gen_energy_gm = area_weighted_mean(gen.total_energy_ace2_path,
+                                       keepdim=True)
+    input_energy_gm = area_weighted_mean(inp.total_energy_ace2_path,
+                                         keepdim=True)
+    flux_gm = area_weighted_mean(gen.net_energy_flux_into_atmosphere,
+                                 keepdim=True)
+    desired_energy_gm = (
+        input_energy_gm + (flux_gm + unaccounted_heating) * timestep_seconds
+    )
+    energy_correction = desired_energy_gm - gen_energy_gm
+    factor_gm = area_weighted_mean(
+        _energy_correction_factor(gen, vertical_coordinate), keepdim=True
+    )
+    temperature_correction = energy_correction / factor_gm
+    names = gen.get_all_vertical_level_names("air_temperature")
+    return {name: gen_data[name] + temperature_correction for name in names}
+
+
+def _energy_correction_factor(gen: AtmosphereData, vertical_coordinate):
+    """The change of the column's total energy per kelvin of a uniform
+    temperature change."""
+    interface_pressure = vertical_coordinate.interface_pressure(
+        gen.surface_pressure
+    )
+    q_times_dlogp = (
+        compute_layer_thickness(
+            interface_pressure, gen.air_temperature, gen.specific_total_water
+        )
+        * GRAVITY
+        / gen.air_temperature
+    )
+    cumulative = torch.flip(
+        torch.cumsum(torch.flip(q_times_dlogp, dims=(-1,)), dim=-1),
+        dims=(-1,),
+    )
+    total_integrand = (
+        SPECIFIC_HEAT_OF_DRY_AIR_CONST_VOLUME - 0.5 * q_times_dlogp
+        + cumulative
+    )
+    return vertical_coordinate.vertical_integral(
+        total_integrand, gen.surface_pressure
+    )

@@ -79,3 +79,10 @@ class LatLonOperations:
 
     def area_weighted_std_dict(self, data: TensorMapping) -> TensorDict:
         return {k: self.area_weighted_std(v, name=k) for k, v in data.items()}
+
+    def area_weighted_gradient_magnitude_percent_diff(self, truth, predicted,
+                                                      name=None):
+        return metrics.gradient_magnitude_percent_diff(
+            truth, predicted, self.area_weights(truth.device),
+            dim=HORIZONTAL_DIMS,
+        )

@@ -1,5 +1,5 @@
-"""Weighted statistics and physics helpers used by the step layer
-(port of the parts of ace_tpu/core/metrics.py the corrector needs)."""
+"""Weighted statistics and physics helpers (port of the parts of
+ace_tpu/core/metrics.py that the corrector and the aggregators need)."""
 
 import numpy as np
 import torch
@@ -44,3 +44,34 @@ def weighted_mean(tensor, weights=None, dim=(), keepdim=False):
 def surface_pressure_due_to_dry_air(surface_pressure, total_water_path):
     """Surface pressure due to dry-air mass only, Pa."""
     return surface_pressure - GRAVITY * total_water_path
+
+
+def weighted_nanmean(tensor, weights=None, dim=(), keepdim=False):
+    """Weighted mean over ``dim`` that leaves NaN points out."""
+    dim = (dim,) if isinstance(dim, int) else tuple(dim)
+    valid = ~torch.isnan(tensor)
+    if weights is None:
+        weights = torch.ones_like(tensor)
+    weights = torch.broadcast_to(weights, tensor.shape) * valid
+    tensor = torch.where(valid & (weights != 0.0), tensor, 0.0)
+    return (tensor * weights).sum(dim=dim, keepdim=keepdim) / weights.sum(
+        dim=dim, keepdim=keepdim
+    )
+
+
+def gradient_magnitude(tensor, dim=(-2, -1)):
+    """The magnitude of the gradient over the two spatial dims: central
+    differences inside, one-sided at the edges, unit spacing."""
+    dy, dx = torch.gradient(tensor, dim=dim)
+    return torch.sqrt(dx**2 + dy**2)
+
+
+def gradient_magnitude_percent_diff(truth, predicted, weights=None,
+                                    dim=(-2, -1)):
+    """How much larger (in percent) the prediction's mean gradient
+    magnitude is than the truth's."""
+    truth_grad = weighted_nanmean(gradient_magnitude(truth, dim), weights,
+                                  dim)
+    pred_grad = weighted_nanmean(gradient_magnitude(predicted, dim), weights,
+                                 dim)
+    return 100.0 * (pred_grad - truth_grad) / truth_grad

@@ -29,6 +29,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+
 Schedule = Callable[[int], float]
 
 
@@ -227,7 +228,8 @@ class OptimizationConfig:
             )
         if self.resume_optimizer_ckpt_path is not None:
             raise NotImplementedError(
-                "resume_optimizer_ckpt_path is not ported yet"
+                "resume_optimizer_ckpt_path is not ported yet (ROADMAP "
+                "Queue 1 item 4)"
             )
         if self.optimizer_type not in ("Adam", "AdamW", "FusedAdam"):
             raise NotImplementedError(
@@ -272,12 +274,49 @@ class Optimization:
             self.decay_before_adam = True
         self.mu_dtype = _MOMENT_DTYPES.get(config.first_moment_dtype)
         self._count = 0
+        # multiplier of the schedule that learning-rate tuning adopts
+        self.lr_scale = 1.0
         self.mu: list[torch.Tensor] | None = None
         self.nu: list[torch.Tensor] | None = None
 
     @property
     def learning_rate(self) -> float:
-        return self.schedule(self._count)
+        return self.schedule(self._count) * self.lr_scale
+
+    def scale_lr(self, factor: float):
+        """Multiply the learning rate by ``factor`` from now on."""
+        self.lr_scale *= factor
+
+    def get_state(self) -> dict:
+        """The host counters a training checkpoint keeps beside the
+        moments (the JAX package's ``Optimization.get_state``)."""
+        return {"count": self._count, "lr_scale": self.lr_scale}
+
+    def load_state(self, state: dict):
+        self._count = state.get("count", 0)
+        self.lr_scale = state.get("lr_scale", 1.0)
+
+    @property
+    def count(self) -> int:
+        """The number of updates taken."""
+        return self._count
+
+    @torch.no_grad()
+    def load_moments(self, count: int, mu: list[torch.Tensor],
+                     nu: list[torch.Tensor]):
+        """Set the update count, and copy ``mu`` and ``nu`` (in the
+        parameters' order, on any device, e.g. read from a checkpoint)
+        into the moments that :meth:`init` made, in their dtypes."""
+        if (self.mu is None or len(mu) != len(self.mu)
+                or len(nu) != len(self.nu)):
+            raise ValueError("load_moments needs init(params) first and "
+                             "one moment of each kind per parameter")
+        for dst, src in zip(self.mu + self.nu, list(mu) + list(nu)):
+            if dst.shape != src.shape:
+                raise ValueError(f"moment of shape {tuple(src.shape)} for "
+                                 f"a parameter of {tuple(dst.shape)}")
+            dst.copy_(src)
+        self._count = count
 
     def init(self, params: list[torch.Tensor]):
         """Zero moments for ``params`` (the first in ``first_moment_dtype``,
@@ -388,3 +427,10 @@ class EMATracker:
         for e, p in zip(self.ema_params, params):
             e.sub_((e - p) * one_minus)
         return self.ema_params
+
+    def get_state(self) -> dict:
+        return {"num_updates": self.num_updates, "decay": self.decay}
+
+    def load_state(self, state: dict):
+        self.num_updates = state["num_updates"]
+        self.decay = state.get("decay", self.decay)

@@ -26,3 +26,12 @@ class Slice:
     @property
     def slice(self) -> slice:
         return slice(self.start, self.stop, self.step)
+
+    def contains(self, value: int) -> bool:
+        start = self.start if self.start is not None else 0
+        step = self.step if self.step is not None else 1
+        if value < start:
+            return False
+        if self.stop is not None and value >= self.stop:
+            return False
+        return (value - start) % step == 0

@@ -3,7 +3,8 @@
 It pulls forcing windows from the host, rolls each out on the stepper's
 device, threads the prognostic state (and one noise generator) from
 window to window, computes derived variables, and feeds the writer and
-the aggregator.
+the aggregator (with the targets of the same times, when ``target_names``
+asks for them, as the trainer's inline inference does).
 
 Host and device are double-buffered, as in the JAX package: window N's
 forcing is copied to the device from pinned memory without waiting, its
@@ -66,15 +67,18 @@ def run_inference(
     forcing_deriver=None,
     n_ensemble: int = 1,
     pipeline: bool = True,
+    target_names: list[str] | None = None,
 ) -> dict:
     """Roll out over streaming forcing windows.
 
     ``initial_condition`` holds tensors on the stepper's device. The
     ``forward_prediction`` timer records only the queueing of the rollout:
     the wait for the device shows in ``data_writer`` (or at the end of the
-    loop, without a writer). The aggregator gets no reference data: the
-    pairing with targets belongs to the evaluator, not ported yet. Returns ``total_steps``, ``total_steps_per_second`` (the device
-    finished) and ``final_state``.
+    loop, without a writer). With ``target_names``, the dataset's values
+    of those variables at the predicted times (and their derived
+    variables) reach the aggregator as its targets, copied to the device
+    as the forcing is. Returns ``total_steps``,
+    ``total_steps_per_second`` (the device finished) and ``final_state``.
     """
     from ace_tpu_torch.inference.data_writer import NullDataWriter
 
@@ -98,7 +102,10 @@ def run_inference(
             forcing_data={k: v[:, 1:] for k, v in forcing.items()},
         )
 
-    def finish(outputs, host_copy, out_time, k):
+    target_windows = (forcing_data.target_windows(target_names)
+                      if target_names else None)
+
+    def finish(outputs, host_copy, target, out_time, k):
         """Host work for one window: the writer and the aggregator."""
         nonlocal n_steps_done
         if writer is not None:
@@ -108,7 +115,7 @@ def run_inference(
                 writer.append_batch(_finish_host_copy(*host_copy), out_time)
         if aggregator is not None:
             with timer.context("aggregator"):
-                aggregator.record_batch(outputs, None, time=out_time)
+                aggregator.record_batch(outputs, target, time=out_time)
         n_steps_done += out_time.values.shape[1]
         logging.info(
             f"window {k}: {n_steps_done}/{forcing_data.n_forward_steps} "
@@ -133,6 +140,15 @@ def run_inference(
                     window_time.calendar,
                 )
             forcing = BatchData(forcing_np, window_time).to_device(device).data
+            target = None
+            if target_windows is not None:
+                target_np = {k_: np.asarray(v)[:, 1:] for k_, v in
+                             next(target_windows)[0].data.items()}
+                if n_ensemble > 1:
+                    target_np = {k_: np.repeat(v, n_ensemble, axis=0)
+                                 for k_, v in target_np.items()}
+                target = BatchData(target_np, window_time).to_device(
+                    device).data
         with timer.context("forward_prediction"):
             # the rollout length is explicit: a model without forcing
             # variables cannot infer it from an empty window
@@ -141,15 +157,17 @@ def run_inference(
                 n_forward=window_time.values.shape[1] - 1,
             )
             outputs = derive(outputs, forcing)
+            if target is not None:
+                target = derive(target, forcing)
             host_copy = (_start_host_copy(outputs)
                          if pipeline and writer is not None else None)
         out_time = TimeCoord(window_time.values[:, 1:], window_time.calendar)
         if not pipeline:
-            finish(outputs, host_copy, out_time, k)
+            finish(outputs, host_copy, target, out_time, k)
             continue
         if pending is not None:
             finish(*pending)
-        pending = (outputs, host_copy, out_time, k)
+        pending = (outputs, host_copy, target, out_time, k)
     if pending is not None:
         finish(*pending)
     if device.type == "cuda":

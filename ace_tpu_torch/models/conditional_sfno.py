@@ -189,6 +189,10 @@ class ConditionalFNOBlock(nn.Module):
                 ))
         return self._tail_weights[1]
 
+    def drop_weight_cache(self):
+        """Forget :meth:`tail_weights`' copies (their memory too)."""
+        self._tail_weights = None
+
     def forward(self, x, noise):
         x_norm = self.norm0(x, noise)
         x_f, residual = self.filter(x_norm)

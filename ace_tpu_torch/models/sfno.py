@@ -79,6 +79,10 @@ class SpectralConvS2(nn.Module):
                 self._kernel_weights = (key, wl[0], wl[1])
         return self._kernel_weights[1], self._kernel_weights[2]
 
+    def drop_weight_cache(self):
+        """Forget :meth:`kernel_weights`' copy (its memory too)."""
+        self._kernel_weights = None
+
     def forward(self, x: torch.Tensor):
         in_dtype = x.dtype
         ft, it = self.forward_transform, self.inverse_transform

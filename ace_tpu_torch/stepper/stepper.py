@@ -16,6 +16,7 @@ import torch
 from ace_tpu_torch.core.dataset_info import DatasetInfo
 from ace_tpu_torch.core.step import StepArgs, StepperState, StepSelector
 from ace_tpu_torch.core.step.single_module import SingleModuleStep
+from ace_tpu_torch.core.training_history import TrainingHistory
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
 
 TIME_DIM = 1
@@ -37,6 +38,8 @@ class Stepper:
     def __init__(self, step: SingleModuleStep):
         self.step = step
         self.has_params = False
+        # the chain of training jobs behind the weights (saved with them)
+        self.training_history = TrainingHistory()
 
     @staticmethod
     def input_masker(data: TensorMapping) -> TensorDict:

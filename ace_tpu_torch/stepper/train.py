@@ -11,6 +11,7 @@ flagship recipe), and ``CheckpointConfig.after_n_forward_steps`` or
 ``remat`` as a whole-step ``torch.utils.checkpoint``.
 """
 
+import contextlib
 import dataclasses
 
 import torch
@@ -21,6 +22,7 @@ from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
 from ace_tpu_torch.core.schedule import (
     TimeLengthProbabilities,
     TimeLengthSchedule,
+    probabilities_from_time_length,
 )
 from ace_tpu_torch.core.step import StepArgs
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
@@ -96,6 +98,44 @@ def _replaying(fn, generator: torch.Generator | None):
     return wrapped
 
 
+# blocks of ``signals_deferred`` open now, and the handler calls that
+# wait for their end (Python runs signal handlers in the main thread, so
+# these need no lock)
+_deferral: dict = {"depth": 0, "pending": []}
+
+
+@contextlib.contextmanager
+def signals_deferred():
+    """A handler wrapped by :func:`deferrable` whose signal comes inside the
+    block runs at the block's end instead, so that a handler that saves a
+    restart checkpoint never sees a state that the block has changed only
+    in part. (A signal mask would not do: the process's other threads
+    take the signal, and Python runs the handler in the main thread all
+    the same.)"""
+    _deferral["depth"] += 1
+    try:
+        yield
+    finally:
+        _deferral["depth"] -= 1
+        if _deferral["depth"] == 0 and _deferral["pending"]:
+            handler, signum, frame = _deferral["pending"][0]
+            _deferral["pending"].clear()
+            handler(signum, frame)
+
+
+def deferrable(handler):
+    """``handler`` as a signal handler that waits for the end of any open
+    :func:`signals_deferred` block (the first signal of a block runs)."""
+
+    def run_or_defer(signum, frame):
+        if _deferral["depth"]:
+            _deferral["pending"].append((handler, signum, frame))
+        else:
+            handler(signum, frame)
+
+    return run_or_defer
+
+
 class TrainStepper:
     """A Stepper with a loss, an optimizer and an EMA of its weights. The
     module's parameters are updated in place."""
@@ -135,6 +175,11 @@ class TrainStepper:
             max_epochs=max_epochs, steps_per_epoch=steps_per_epoch
         )
         self.ema = ema_config.build() if ema_config is not None else None
+        self._length_sampler: TimeLengthProbabilities | None = None
+        self._sampler_epoch: int | None = None
+        # the tensors that hold the training weights while
+        # ``weights_swapped`` holds, else None
+        self._swapped: list[torch.Tensor] | None = None
 
     @property
     def module(self) -> torch.nn.Module:
@@ -142,6 +187,95 @@ class TrainStepper:
 
     def parameters(self) -> list[torch.Tensor]:
         return [p for p in self.module.parameters() if p.requires_grad]
+
+    def parameter_names(self) -> list[str]:
+        """The ``state_dict`` names of :meth:`parameters`, in their order
+        (the order of the optimizer's moments and the EMA's weights)."""
+        return [n for n, p in self.module.named_parameters()
+                if p.requires_grad]
+
+    def sample_n_forward_steps(self, epoch: int = 0) -> int:
+        """The rollout length of one batch in ``epoch``, drawn on the host
+        from the schedule's probabilities for that epoch; a constant
+        schedule returns its length without drawing."""
+        if self._sampler_epoch != epoch:
+            self._length_sampler = probabilities_from_time_length(
+                self.train_config.n_forward_steps_schedule.get_value(epoch)
+            )
+            self._sampler_epoch = epoch
+        if self._length_sampler.is_constant:
+            return self._length_sampler.max_n_forward_steps
+        return self._length_sampler.sample()
+
+    @property
+    def corrector_disabled_epochs(self) -> int:
+        """Initial epochs in which train steps skip the corrector."""
+        corrector = getattr(self.stepper.step.config, "corrector", None)
+        return int(getattr(corrector, "corrector_disabled_epochs", 0))
+
+    @property
+    def effective_loss_scaling(self) -> dict[str, float]:
+        """Each output's final loss scale: the loss normalizer's std over
+        the variable's weight."""
+        weights = self.train_config.loss.weights
+        stds = self.step_loss.loss.normalizer.stds
+        return {k: stds[k] / weights.get(k, 1.0)
+                for k in self.stepper.step.output_names}
+
+    def _exchange(self, tensors: list[torch.Tensor]):
+        """Exchange the parameters' storages with ``tensors``' and drop the
+        layers' bf16 weight copies for calls without grad (they follow an
+        exchange by their keys anyway; dropped, the other weights' copies
+        do not stay in memory)."""
+        with torch.no_grad():
+            for p, t in zip(self.parameters(), tensors):
+                p.data, t.data = t.data, p.data
+        for m in self.module.modules():
+            if hasattr(m, "drop_weight_cache"):
+                m.drop_weight_cache()
+
+    @contextlib.contextmanager
+    def weights_swapped(self, tensors: list[torch.Tensor]):
+        """Run the module with ``tensors`` (in :meth:`parameters`' order,
+        e.g. the EMA's) as its weights, without a second copy of the
+        module: the parameters and ``tensors`` exchange their storages on
+        entry and exchange them back on exit, so both come out bit for bit
+        as they went in. Inside, :meth:`training_weights` undoes the swap
+        for its own block."""
+        if len(tensors) != len(self.parameters()):
+            raise ValueError(f"{len(tensors)} tensors for "
+                             f"{len(self.parameters())} parameters")
+        if self._swapped is not None:
+            raise RuntimeError("the weights are swapped already")
+        with signals_deferred():
+            self._exchange(tensors)
+            self._swapped = tensors
+        try:
+            yield
+        finally:
+            with signals_deferred():
+                self._swapped = None
+                self._exchange(tensors)
+
+    @contextlib.contextmanager
+    def training_weights(self):
+        """The module with the training weights for the block: inside
+        :meth:`weights_swapped` the swap is undone on entry and made again
+        on exit (a restart checkpoint saved from a signal handler), and
+        both sides hold their own weights meanwhile."""
+        tensors = self._swapped
+        if tensors is None:
+            yield
+            return
+        with signals_deferred():
+            self._swapped = None
+            self._exchange(tensors)
+        try:
+            yield
+        finally:
+            with signals_deferred():
+                self._exchange(tensors)
+                self._swapped = tensors
 
     def loss_fn(self, batch: TensorMapping,
                 generator: torch.Generator | None,

@@ -1,5 +1,6 @@
-"""Parameter conversion between the JAX package's flax trees and the
-port's ``state_dict``."""
+"""Conversion between the JAX package's flax parameter trees and the
+port's ``state_dict``: parameters, gradients and the optimizer's
+moments."""
 
 import numpy as np
 import torch
@@ -52,9 +53,9 @@ def state_dict_to_flax_params(state: dict[str, torch.Tensor]) -> dict:
     a nested tree, a 2-D ``weight`` (``nn.Linear``'s ``[out, in]``)
     becomes a ``kernel`` ``[in, out]``, and the spectral filter's ``[2, l,
     in, out]`` weight flax's ``[in, out, l, 2]``. Values become numpy
-    arrays on the host, in their dtype. Also maps gradients: pass
-    ``{name: p.grad}`` to compare them with ``jax.grad`` in the flax
-    layout."""
+    arrays on the host, in their dtype (bfloat16 ones CPU tensors). Also
+    maps gradients (``{name: p.grad}``, to compare them with ``jax.grad``
+    in the flax layout) and the optimizer's moments."""
     tree: dict = {}
     for key, value in state.items():
         *path, name = key.split(".")
@@ -66,5 +67,8 @@ def state_dict_to_flax_params(state: dict[str, torch.Tensor]) -> dict:
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[name] = array.contiguous().numpy()
+        # numpy has no bfloat16: such leaves stay tensors (the checkpoint
+        # writer stores them under flax's "bfloat16" dtype name)
+        array = array.contiguous()
+        node[name] = array if array.dtype == torch.bfloat16 else array.numpy()
     return tree

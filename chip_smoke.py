@@ -24,7 +24,9 @@
    (K1) and with the fused tail (K1 and K2), and compares its outputs;
    then (phase T) the same for one train step of it: loss, every
    parameter's gradient (K1, 1b, 1c; K2 and its recomputed backward) and
-   the step's metrics.
+   the step's metrics; then (phase R) one epoch of a small bf16 copy of
+   the shipped training config through the training entry's ``main``,
+   whose train and validation losses must agree.
 5. Paths, each driven with the launch counts set to 0 just before it and
    read just after, on the ACE2-ERA5 flagship stepper (NoiseConditionedSFNO,
    embed 512, 8 layers, 180x360 Gauss grid, bf16, 32 isotropic noise
@@ -59,6 +61,23 @@
      std of one 20-step ``Stepper.predict`` from the same seed, and the
      dry-air mass within 1 Pa; it prints steps/s, the ``GlobalTimer`` phases and the
      peak memory.
+   - path R, the training entry (``ace_tpu_torch.train``):
+     ``configs/ace2-era5-train.yaml`` as shipped (the ACE2-ERA5 recipe at
+     full width, with the total-energy correction) but for the cuts of
+     ``_train_config`` (synthetic files of its 48 variables at 180x360, 9
+     training and 5 validation times; batch 2; the builder's per-block
+     recompute; one epoch; one inline-inference entry of 4 steps from 2
+     initial conditions), through ``main``, then ``main`` again with
+     ``--override max_epochs=2``, which must resume at epoch 1 from
+     ``ckpt.msgpack``. It checks finite metrics, one metrics.jsonl line
+     per epoch, the four checkpoint files, the resumed state bit for bit
+     (per-tensor checksums on the device), the launches of each phase (per
+     train step as on path T, 16 K1 per validation batch, 8 K1 per
+     inference step, no K2 or K3) and no synchronizing call inside the
+     batch loop; it prints the rate over epoch 2 beside path T's, the
+     ``GlobalTimer`` phases, each checkpoint's bytes and seconds to write
+     and read back, the free disk and host memory before the first write
+     (and fails if they cannot hold the checkpoints) and the peak memory.
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -74,6 +93,7 @@ line. Needs no network and imports nothing of JAX.
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -942,6 +962,9 @@ class _H5File:
     def items(self):
         return self._datasets.items()
 
+    def keys(self):
+        return self._datasets.keys()
+
     def flush(self):
         pass
 
@@ -1230,6 +1253,622 @@ def inference_path(counters, device="cuda", sizes=None, n_steps=N_STEPS,
     return launches, summary["total_steps_per_second"], phases, peak
 
 
+# path R: the training entry on the repo's ACE2-ERA5 training config
+TRAIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "ace2-era5-train.yaml")
+# the synthetic data of path R: 9 training times (8 windows of 2, so 4
+# batches of 2) and 5 validation times (2 batches)
+R_TRAIN_TIMES, R_VALID_TIMES, R_BATCH = 9, 5, 2
+R_INFERENCE_STEPS = 4
+# reference R: the largest relative L2 error, card against CPU, of a
+# tensor's change from the initial weights over the epoch. Read on an
+# H100 (tests/test_torch_cuda.py, reference R with planted faults):
+# 0.028 sound; 0.73 with 1c's upper modes zeroed, 1.0 without the EMA
+# update, 2.2 with half of each batch
+R_CHANGE_TOL = 0.1
+
+
+def _field_scale(name):
+    """(mean, std, positive) of the synthetic draw of a variable: values
+    near the atmosphere's, so that the corrector's energy and moisture
+    terms stay finite."""
+    prefix, _, suffix = name.rpartition("_")
+    level = int(suffix) if prefix and suffix.isdigit() else 0
+    table = {
+        "air_temperature": (210.0 + 10.0 * level, 5.0, False),
+        "specific_total_water": (0.0, 1e-3 * (level + 1), True),
+        "eastward_wind": (0.0, 10.0, False),
+        "northward_wind": (0.0, 10.0, False),
+        "PRESsfc": (1.0e5, 100.0, False),
+        "surface_temperature": (285.0, 10.0, False),
+        "h500": (5500.0, 50.0, False),
+        "DSWRFtoa": (340.0, 50.0, False),
+        "HGTsfc": (0.0, 500.0, True),
+        "LHTFLsfc": (80.0, 20.0, False),
+        "SHTFLsfc": (20.0, 10.0, False),
+        "PRATEsfc": (0.0, 3e-5, True),
+        "ULWRFsfc": (390.0, 10.0, False),
+        "ULWRFtoa": (240.0, 10.0, False),
+        "DLWRFsfc": (340.0, 10.0, False),
+        "DSWRFsfc": (180.0, 30.0, False),
+        "USWRFsfc": (20.0, 5.0, False),
+        "USWRFtoa": (100.0, 10.0, False),
+    }
+    for prefix, value in table.items():
+        if name == prefix or name.startswith(prefix + "_"):
+            return value
+    return 0.0, 1e-4, False
+
+
+def _training_files(tmp, names, nlat, nlon, generator, device):
+    """The training and validation netCDF files of ``names`` (with the
+    vertical coordinate) and the three stats files the shipped config
+    reads, drawn from ``generator`` on ``device``; returns their paths."""
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.core.coordinates import gaussian_latitudes
+    from ace_tpu_torch.data.store import write_h5
+    from ace_tpu_torch.data.time import TimeCoord
+
+    nz = 8
+    ak = np.concatenate([np.linspace(100.0, 5000.0, nz // 2),
+                         np.linspace(5000.0, 0.0, nz // 2 + 1)])
+    bk = np.linspace(0.0, 1.0, nz + 1)
+    coords = {"lat": gaussian_latitudes(nlat),
+              "lon": np.linspace(0, 360, nlon, endpoint=False)}
+    paths, series = {}, {}
+    for split, n, start in (("train", R_TRAIN_TIMES, "2000-01-01T00:00"),
+                            ("valid", R_VALID_TIMES, "2001-01-01T00:00")):
+        data = {}
+        for name in names:
+            mean, std, positive = _field_scale(name)
+            v = torch.randn(n, nlat, nlon, generator=generator,
+                            device=device)
+            if name == "ocean_fraction":
+                v = v.abs().clamp(0, 1)
+            else:
+                v = (v.abs() if positive else v) * std + mean
+            data[name] = v.cpu().numpy()
+        series[split] = dict(data)
+        dims = {k: ("time", "lat", "lon") for k in data}
+        for i, (a, b) in enumerate(zip(ak, bk)):
+            data[f"ak_{i}"], data[f"bk_{i}"] = np.float32(a), np.float32(b)
+            dims[f"ak_{i}"] = dims[f"bk_{i}"] = ()
+        paths[split] = os.path.join(tmp, split)
+        os.makedirs(paths[split])
+        write_h5(os.path.join(paths[split], "data.nc"), data, dims,
+                 coords=coords,
+                 time=TimeCoord.from_range(start, n, 21600))
+    train = series["train"]
+    stats = {
+        "centering": {k: np.float32(v.mean()) for k, v in train.items()},
+        "scaling-full-field": {k: np.float32(v.std())
+                               for k, v in train.items()},
+        "scaling-residual": {k: np.float32(np.diff(v, axis=0).std())
+                             for k, v in train.items()},
+    }
+    for label, values in stats.items():
+        paths[label] = os.path.join(tmp, f"{label}.nc")
+        write_h5(paths[label], {k: np.asarray(v) for k, v in values.items()},
+                 {k: () for k in values})
+    return paths
+
+
+def _train_config(paths, experiment_dir, embed=None, layers=None,
+                  inference=True, loss=None):
+    """The shipped training config with path R's cuts: the synthetic
+    files, batch 2, the builder's per-block recompute, one epoch, a
+    temporary experiment directory and one inline-inference entry;
+    ``embed``, ``layers`` and ``loss`` make the small copies the CPU runs."""
+    import yaml
+
+    with open(TRAIN_CONFIG) as f:
+        config = yaml.safe_load(f)
+    config["experiment_dir"] = experiment_dir
+    config["max_epochs"] = 1
+    config["logging"]["log_to_screen"] = False
+    for loader, split in (("train_loader", "train"),
+                          ("validation_loader", "valid")):
+        config[loader]["dataset"]["data_path"] = paths[split]
+        config[loader]["batch_size"] = R_BATCH
+    step = config["stepper"]["step"]["config"]
+    builder = step["builder"]["config"]
+    builder["checkpointing"] = 1
+    if embed is not None:
+        builder["embed_dim"], builder["num_layers"] = embed, layers
+    norm = step["normalization"]
+    norm["network"] = {"global_means_path": paths["centering"],
+                       "global_stds_path": paths["scaling-full-field"]}
+    norm["residual"] = {"global_means_path": paths["centering"],
+                        "global_stds_path": paths["scaling-residual"]}
+    if loss is not None:
+        config["stepper_training"]["loss"] = loss
+    if inference:
+        config["inference"] = {
+            "loader": {"dataset": {"data_path": paths["train"]},
+                       "start_indices": {"list": [0, 1]}},
+            "n_forward_steps": R_INFERENCE_STEPS,
+        }
+    return config, builder["num_layers"]
+
+
+def _write_yaml(path, config):
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def _state_checksums(trainer):
+    """Per-tensor checksums, computed on the device, of the trainer's
+    weights, Adam moments and EMA (two int64 sums of each tensor's bits,
+    one weighted by position), with the update count and the batches
+    seen."""
+    import torch
+
+    ts = trainer.train_stepper
+    opt = ts.optimization
+    tensors = {}
+    for label, group in (("param", ts.parameters()), ("mu", opt.mu),
+                         ("nu", opt.nu), ("ema", ts.ema.ema_params)):
+        for name, t in zip(ts.parameter_names(), group):
+            tensors[f"{label}/{name}"] = t
+    sums = []
+    for t in tensors.values():
+        bits = t.detach().contiguous().view(
+            torch.int16 if t.element_size() == 2 else torch.int32
+        ).reshape(-1).to(torch.int64)
+        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        sums.append(torch.stack([bits.sum(), (bits * weight).sum()]))
+    values = torch.stack(sums).cpu().tolist()
+    out = dict(zip(tensors, map(tuple, values)))
+    out["count"] = opt.count
+    out["num_batches_seen"] = trainer.num_batches_seen
+    return out
+
+
+def _record_checkpoints(records, before_first_write):
+    """A context in which the trainer's checkpoint writes and reads are
+    timed into ``records`` (kind, file, seconds, bytes);
+    ``before_first_write(stepper, kwargs)`` runs before the first write
+    with the writer's keyword arguments."""
+    import contextlib
+
+    from ace_tpu_torch.train import trainer as trainer_module
+
+    save, read = (trainer_module.save_train_checkpoint,
+                  trainer_module.read_train_checkpoint)
+
+    def timed_save(path, stepper, *args, **kwargs):
+        if not records:
+            before_first_write(stepper, kwargs)
+        t0 = time.perf_counter()
+        save(path, stepper, *args, **kwargs)
+        records.append(("write", os.path.basename(path),
+                        time.perf_counter() - t0, os.path.getsize(path)))
+
+    def timed_read(path):
+        t0 = time.perf_counter()
+        out = read(path)
+        records.append(("read", os.path.basename(path),
+                        time.perf_counter() - t0, os.path.getsize(path)))
+        return out
+
+    @contextlib.contextmanager
+    def context():
+        trainer_module.save_train_checkpoint = timed_save
+        trainer_module.read_train_checkpoint = timed_read
+        try:
+            yield
+        finally:
+            trainer_module.save_train_checkpoint = save
+            trainer_module.read_train_checkpoint = read
+
+    return context()
+
+
+def _phase_probes(counters, launches, rates, check_sync, restored):
+    """A context that wraps the trainer's phases: the launches of each
+    call of the batch loop, ``validate`` and ``inference_one_epoch`` into
+    ``launches`` (by phase), the batch loop's steps/s (host clock, ending
+    in a synchronize) into ``rates``, no synchronizing call allowed
+    inside the batch loop (``check_sync``), and the state checksums just
+    after ``restore`` into ``restored``."""
+    import contextlib
+
+    import torch
+
+    from ace_tpu_torch.train.trainer import Trainer
+
+    originals = {name: getattr(Trainer, name) for name in
+                 ("_train_batches", "validate", "inference_one_epoch",
+                  "restore")}
+
+    def counted_phase(name):
+        def wrapped(self, *args, **kwargs):
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            if name == "_train_batches" and check_sync:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                result = originals[name](self, *args, **kwargs)
+            finally:
+                if check_sync:
+                    torch.cuda.set_sync_debug_mode("default")
+            if name == "_train_batches":
+                if check_sync:
+                    torch.cuda.synchronize()
+                rates.append(result[1] / (time.perf_counter() - t0))
+            launches.setdefault(name, []).append(
+                {c.__name__: c.launches for c in counters})
+            return result
+        return wrapped
+
+    def restore(self, path):
+        originals["restore"](self, path)
+        restored.update(_state_checksums(self))
+
+    @contextlib.contextmanager
+    def context():
+        for name in ("_train_batches", "validate", "inference_one_epoch"):
+            setattr(Trainer, name, counted_phase(name))
+        Trainer.restore = restore
+        try:
+            yield
+        finally:
+            for name, fn in originals.items():
+                setattr(Trainer, name, fn)
+
+    return context()
+
+
+def _tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _check_room(tmp, ckpt_bytes, weight_bytes, cuda):
+    """Fail loudly unless the disk under ``tmp`` and the host memory can
+    hold path R's checkpoints: ``ckpt.msgpack`` (``ckpt_bytes``: the
+    weights, both Adam moments and the EMA, each in its own dtype) twice
+    while it is replaced, and the best, EMA and best-inference files
+    (``weight_bytes`` each); msgpack holds one leaf at a time, the reader
+    a whole file and its arrays. Returns the free disk space in bytes."""
+    import shutil
+
+    free = shutil.disk_usage(tmp).free
+    need_disk = 2 * ckpt_bytes + 3 * weight_bytes
+    with open("/proc/meminfo") as f:
+        meminfo = dict(line.split(":", 1) for line in f)
+    available = int(meminfo["MemAvailable"].split()[0]) * 1024
+    need_host = 3 * ckpt_bytes
+    print(f"path R: free disk {free / 1e9:.2f} GB under the experiment "
+          f"directory (needs {need_disk / 1e9:.2f}), available host memory "
+          f"{available / 1e9:.2f} GB (needs {need_host / 1e9:.2f}) before "
+          f"the first write")
+    if free < need_disk or (cuda and available < need_host):
+        raise AssertionError("path R: the disk or the host memory cannot "
+                             "hold the training checkpoints")
+    return free
+
+
+def _bare_step_rate(trainer, n_steps=4):
+    """``train_step`` alone on one batch of the trainer's loader, after a
+    warm-up step: path R's config without the loader and the loop (host
+    clock, ending in a synchronize). It trains the trainer on, so it
+    comes after every gate of the run."""
+    import torch
+
+    batch = next(iter(trainer.train_data)).data
+    ts = trainer.train_stepper
+    ts.train_step(batch, trainer.generator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        ts.train_step(batch, trainer.generator)
+    torch.cuda.synchronize()
+    return n_steps / (time.perf_counter() - t0)
+
+
+def _finite_metrics(path, n_epochs):
+    import json
+
+    with open(path) as f:
+        lines = [json.loads(line) for line in f]
+    if len(lines) != n_epochs:
+        raise AssertionError(f"path R: metrics.jsonl has {len(lines)} "
+                             f"lines after {n_epochs} epochs")
+    bad = [k for line in lines for k, v in line.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"path R: metrics not finite: {bad[:10]}")
+    keys = set(lines[-1])
+    for prefix in ("train/loss", "val/loss", "inference/inference_error"):
+        if prefix not in keys:
+            raise AssertionError(f"path R: no {prefix} in metrics.jsonl")
+    return lines
+
+
+def train_entry_path(counters, device="cuda", sizes=None, path_t_rate=None):
+    """Path R: ``python -m ace_tpu_torch.train``'s ``main`` on the shipped
+    ``configs/ace2-era5-train.yaml`` with the cuts of ``_train_config``
+    (at its full width unless ``sizes`` gives ``nlat``, ``nlon``,
+    ``embed`` and ``layers``) over synthetic files: one epoch, then
+    ``--override max_epochs=2``, which must resume at epoch 1 from
+    ``ckpt.msgpack`` with its state bit for bit. Checks finite metrics,
+    one metrics.jsonl line per epoch, the four checkpoint files, the
+    launches of each phase, and (on the card) that the batch loop never
+    waits for the device; prints the rates, phases, checkpoint bytes and
+    seconds and the peak memory. Returns the launches of both runs."""
+    import contextlib
+    import tempfile
+
+    import torch
+    import yaml
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.stepper.checkpoint import load_msgpack
+    from ace_tpu_torch.train.train import main as train_main
+
+    sizes = sizes or {}
+    nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
+    cuda = torch.device(device).type == "cuda"
+    _, missing = inference_packages()
+    files = contextlib.nullcontext()
+    if "h5py" in missing:
+        print("path R: the training files are held in host memory "
+              "(h5py_in_memory); the checkpoints go to the disk")
+        files = h5py_in_memory()
+    with tempfile.TemporaryDirectory() as tmp, files:
+        with open(TRAIN_CONFIG) as f:
+            step = yaml.safe_load(f)["stepper"]["step"]["config"]
+        names = sorted(set(step["in_names"]) | set(step["out_names"]))
+        paths = _training_files(tmp, names, nlat, nlon,
+                                torch.Generator(device).manual_seed(7),
+                                device)
+        out_dir = os.path.join(tmp, "experiment")
+        config, layers = _train_config(paths, out_dir, sizes.get("embed"),
+                                       sizes.get("layers"))
+        path = _write_yaml(os.path.join(tmp, "train.yaml"), config)
+        builder = config["stepper"]["step"]["config"]["builder"]["config"]
+        print(f"path R: {len(names)} variables at {nlat}x{nlon}, "
+              f"{R_TRAIN_TIMES} training and {R_VALID_TIMES} validation "
+              f"times; {TRAIN_CONFIG} with the cuts of _train_config "
+              f"(embed {builder['embed_dim']}, {layers} layers)")
+        launches, rates, restored, records, runs = {}, [], {}, [], []
+        room = {}
+
+        def before_first_write(stepper, kwargs):
+            # the first write is ckpt.msgpack, with the optimizer and EMA
+            opt, ema = kwargs["optimization"], kwargs["ema_state"]
+            weight_bytes = _tensor_bytes(stepper.module.parameters())
+            ckpt_bytes = (weight_bytes + _tensor_bytes(opt.mu + opt.nu)
+                          + _tensor_bytes(ema.values()))
+            room["free"] = _check_room(tmp, ckpt_bytes, weight_bytes, cuda)
+
+        for argv in ([path], [path, "--override", "max_epochs=2"]):
+            GlobalTimer.reset()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            with (_phase_probes(counters, launches, rates, cuda, restored),
+                  _record_checkpoints(records, before_first_write)):
+                trainer = train_main(argv, device=device)
+            if cuda:
+                torch.cuda.synchronize()
+            runs.append({
+                "start_epoch": trainer.start_epoch,
+                "num_batches_seen": trainer.num_batches_seen,
+                "phases": GlobalTimer.get_instance().get_durations(),
+                "peak": (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                         else 0.0),
+                "state": _state_checksums(trainer),
+            })
+            if cuda and len(runs) == 2:
+                runs[-1]["bare_rate"] = _bare_step_rate(trainer)
+            del trainer
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        ckpt_dir = os.path.join(out_dir, "training_checkpoints")
+        files_found = sorted(os.listdir(ckpt_dir))
+        read_back = {}
+        for name in files_found:
+            t0 = time.perf_counter()
+            load_msgpack(os.path.join(ckpt_dir, name))
+            read_back[name] = time.perf_counter() - t0
+        lines = _finite_metrics(os.path.join(out_dir, "metrics.jsonl"), 2)
+
+    first, second = runs
+    for label, run in (("epoch 1", first), ("resume", second)):
+        print(f"path R ({label}): phases "
+              f"{ {k: round(v, 4) for k, v in sorted(run['phases'].items())} }; "
+              f"peak device memory {run['peak']:.2f} GB")
+    for kind, name, seconds, size in records:
+        print(f"path R: {kind} {name}: {size} bytes in {seconds:.3f} s")
+    for name, seconds in read_back.items():
+        print(f"path R: read back {name} (load_msgpack): {seconds:.3f} s")
+    print(f"path R: train steps/s over the batch loop, epoch 1 (warm-up) "
+          f"{rates[0]:.4f}, epoch 2 {rates[1]:.4f} at batch {R_BATCH} (x2 "
+          f"ensemble members)" + (f"; path T in the same call: "
+                                  f"{path_t_rate:.4f}" if path_t_rate else ""))
+    if "bare_rate" in second:
+        print(f"path R: train_step alone on one batch of this config (no "
+              f"loader, no loop): {second['bare_rate']:.4f} steps/s")
+    print(f"path R: losses by epoch: train "
+          f"{[line['train/loss'] for line in lines]}, validation "
+          f"{[line['val/loss'] for line in lines]}, inline inference error "
+          f"{[line['inference/inference_error'] for line in lines]}")
+    want_files = {"ckpt.msgpack", "best_ckpt.msgpack", "ema_ckpt.msgpack",
+                  "best_inference_ckpt.msgpack"}
+    if not want_files <= set(files_found):
+        raise AssertionError(f"path R: checkpoint files {files_found}")
+    if second["start_epoch"] != 1:
+        raise AssertionError(f"path R: the second run started at epoch "
+                             f"{second['start_epoch']}, not 1")
+    per_epoch = (R_TRAIN_TIMES - 1) // R_BATCH  # windows of 2 times
+    if second["num_batches_seen"] != first["num_batches_seen"] + per_epoch:
+        raise AssertionError("path R: the resumed run did not add one "
+                             "epoch's batches")
+    differ = [k for k, v in first["state"].items() if restored.get(k) != v]
+    print(f"path R: resumed state against the first run's end: "
+          f"{len(first['state']) - len(differ)} of {len(first['state'])} "
+          f"checksums equal (count {restored.get('count')}, batches seen "
+          f"{restored.get('num_batches_seen')})")
+    if differ:
+        raise AssertionError(f"path R: the resumed state differs: "
+                             f"{differ[:5]}")
+
+    none = {c.__name__: 0 for c in counters}
+    n_valid = (R_VALID_TIMES - 1) // R_BATCH  # windows of 2 times
+    if cuda:
+        want = {
+            "_train_batches": {**none, "dhconv_filter": 2 * layers * per_epoch,
+                               "dhconv_filter_dx": layers * per_epoch,
+                               "dhconv_filter_dw": layers * per_epoch},
+            "validate": {**none, "dhconv_filter": 2 * layers * n_valid},
+            "inference_one_epoch": {
+                **none, "dhconv_filter": layers * R_INFERENCE_STEPS},
+        }
+    else:  # the plain versions
+        want = dict.fromkeys(launches, none)
+    for phase, counts in launches.items():
+        print(f"path R: launches per {phase} call {counts} (want "
+              f"{want[phase]} each: per train step 2 x {layers} K1, "
+              f"{layers} 1b, {layers} 1c; per validation batch 2 x {layers} "
+              f"K1; per inference step {layers} K1)")
+        if any(c != want[phase] for c in counts):
+            raise AssertionError(f"path R: launches in {phase}")
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates, first["peak"], room["free"]
+
+
+def reference_train_entry_phase(device="cuda", sizes=None):
+    """Reference phase R: one epoch (4 AdamW updates) of a small bf16 copy
+    of the shipped training config (embed 128, 2 layers, 16x32, MSE loss
+    in place of the ensemble loss, as reference T takes its gradients; the
+    shipped learning rate, clipping and EMA) through the entry's ``main``
+    on ``device`` and on the CPU, from the same weights
+    (``flagship.draw_check_weights``) and noise, over the same files. The
+    epoch's train and validation losses must agree within
+    ``flagship.TRAIN_LOSS_TOL``, as reference T's loss of a step, and each
+    weight's and each EMA weight's change from the initial weights within
+    ``R_CHANGE_TOL`` relative L2 per tensor (the updates themselves: the
+    1b and 1c gradients, clipping, AdamW, the EMA). Adam moves every
+    weight by about the rate whatever its gradient's size, so a gradient
+    component near zero whose sign the card and the CPU round apart moves
+    its weight the other way: the tolerance is set from readings on the
+    card, of sound runs and of planted faults
+    (``tests/test_torch_cuda.py``). Returns the relative errors
+    (``train_loss``, ``val_loss``, ``change``), the tensor of the largest
+    change error (``worst``), and the number of tensors compared
+    (``tensors``) and of those that the CPU's epoch moved (``moved``)."""
+    import contextlib
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.models.conditional_sfno import NoiseConditionedSFNO
+    from ace_tpu_torch.stepper.train import TrainStepper
+    from ace_tpu_torch.train.train import main as train_main
+
+    sizes = sizes or dict(nlat=16, nlon=32, embed=128, layers=2)
+    _, missing = inference_packages()
+    files = (h5py_in_memory() if "h5py" in missing
+             else contextlib.nullcontext())
+    weights = {}
+    init, make_noise = TrainStepper.init, NoiseConditionedSFNO.make_noise
+
+    def fixed_init(self, generator=None):
+        # the CPU run draws the weights, the card's loads the same
+        if not weights:
+            flagship.draw_check_weights(self.stepper,
+                                        torch.Generator().manual_seed(3))
+            weights.update({k: v.detach().clone() for k, v in
+                            self.module.state_dict().items()})
+        self.stepper.load_state_dict(
+            {k: v.to(self.stepper.device) for k, v in weights.items()})
+        params = self.parameters()
+        self.optimization.init(params)
+        self.ema.init(params)
+
+    def fixed_noise(self, batch, generator):
+        noise = np.random.RandomState(batch).randn(
+            batch, *self.img_shape, self.noise_embed_dim)
+        return torch.as_tensor(noise, dtype=torch.float32).to(
+            next(self.parameters()).device)
+
+    losses, changes = {}, {}
+    with tempfile.TemporaryDirectory() as tmp, files:
+        with open(TRAIN_CONFIG) as f:
+            step = yaml.safe_load(f)["stepper"]["step"]["config"]
+        names = sorted(set(step["in_names"]) | set(step["out_names"]))
+        paths = _training_files(tmp, names, sizes["nlat"], sizes["nlon"],
+                                torch.Generator().manual_seed(8), "cpu")
+        TrainStepper.init = fixed_init
+        NoiseConditionedSFNO.make_noise = fixed_noise
+        try:
+            for dev in ("cpu", device):
+                out_dir = os.path.join(tmp, f"experiment_{dev}")
+                config, _ = _train_config(
+                    paths, out_dir, sizes["embed"], sizes["layers"],
+                    inference=False, loss={"type": "MSE"})
+                path = _write_yaml(os.path.join(tmp, f"{dev}.yaml"), config)
+                trainer = train_main([path], device=dev)
+                with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                    line = json.loads(f.readline())
+                losses[dev] = (line["train/loss"], line["val/loss"])
+                ts = trainer.train_stepper
+                changes[dev] = {
+                    f"{label}/{name}": (
+                        t.detach().cpu().double() - weights[name].double())
+                    for label, group in (("param", ts.parameters()),
+                                         ("ema", ts.ema.ema_params))
+                    for name, t in zip(ts.parameter_names(), group)
+                }
+                del trainer, ts
+        finally:
+            TrainStepper.init, NoiseConditionedSFNO.make_noise = (
+                init, make_noise)
+    errs = {key: abs(a - b) / abs(b) for key, a, b in
+            zip(("train_loss", "val_loss"), losses[device], losses["cpu"])}
+    change_errs = {
+        k: float((changes[device][k] - ref).norm()
+                 / ref.norm().clamp_min(1e-30))
+        for k, ref in changes["cpu"].items()
+    }
+    worst = max(change_errs, key=change_errs.get)
+    errs["change"] = change_errs[worst]
+    errs["tensors"] = len(change_errs)
+    errs["moved"] = sum(bool(ref.norm() > 0)
+                        for ref in changes["cpu"].values())
+    if not errs["moved"]:
+        raise AssertionError("reference R: the epoch moved no weight")
+    print(f"reference R: one epoch through main, {device} / CPU: train loss "
+          f"{losses[device][0]:.6g} / {losses['cpu'][0]:.6g}, validation "
+          f"loss {losses[device][1]:.6g} / {losses['cpu'][1]:.6g}; relative "
+          f"errors {errs['train_loss']:.3g}, {errs['val_loss']:.3g} (tol "
+          f"{flagship.TRAIN_LOSS_TOL}); each tensor's change from the "
+          f"initial weights, relative L2: largest {errs['change']:.3g} "
+          f"({worst}), median "
+          f"{float(np.median(list(change_errs.values()))):.3g}, over "
+          f"{len(change_errs)} tensors, {errs['moved']} of them moved on "
+          f"the CPU (tol {R_CHANGE_TOL})")
+    if not (max(errs["train_loss"], errs["val_loss"])
+            <= flagship.TRAIN_LOSS_TOL and errs["change"] <= R_CHANGE_TOL):
+        raise AssertionError(
+            f"reference R: the epoch on the card disagrees with the CPU "
+            f"(losses {errs['train_loss']:.3g}, {errs['val_loss']:.3g}; "
+            f"change {errs['change']:.3g} in {worst})")
+    return {**errs, "worst": worst}
+
+
 def main() -> int:
     import torch
 
@@ -1378,8 +2017,15 @@ def main() -> int:
         raise AssertionError(f"path I: launches {launches_i}, want "
                              f"{per_step} of dhconv_filter only")
 
+    # reference phase R and path R: the training entry, K1 in each block's
+    # forward (and recompute), 1b and 1c in each block's backward
+    reference_train_entry_phase()
+    print(smi)
+    launches_r, _, _, _ = train_entry_path(counters, path_t_rate=rate_t)
+
     by_path = {"0": launches0, "A": launches_a, "B": launches_b,
-               "T": launches_t, "T-A": launches_ta, "I": launches_i}
+               "T": launches_t, "T-A": launches_ta, "I": launches_i,
+               "R": launches_r}
     own_path = {"dhconv_filter": "0", "fused_block_tail": "A",
                 "fused_sht": "B", "dhconv_filter_dx": "T",
                 "dhconv_filter_dw": "T"}

@@ -423,3 +423,57 @@ def test_small_fused_rollout_on_card_matches_cpu(cuda, monkeypatch):
         errs[k] = flagship.anomaly_error(out, ref, (-2, -1))
     print(f"largest error over the anomaly: {max(errs.values()):.4g}")
     assert max(errs.values()) <= flagship.CHECK_TOL, errs
+
+
+@pytest.mark.parametrize("fault", ["none", "dw_modes", "half_batch",
+                                   "no_ema"])
+def test_reference_r_holds_the_updates_and_catches_planted_faults(
+        cuda, monkeypatch, fault):
+    """``chip_smoke.py``'s reference phase R (one epoch through the
+    training entry, card against CPU, at the shipped learning rate)
+    passes as it is, and fails with a fault planted on the card side
+    only: 1c's gradient with its upper half of the modes zeroed, each
+    train step on half its batch, or no EMA update. Prints each reading
+    (run with ``-s``): they set ``chip_smoke.R_CHANGE_TOL``."""
+    import chip_smoke
+    from ace_tpu_torch.core.optimization import EMATracker
+    from ace_tpu_torch.ops import dhconv_filter as k1
+    from ace_tpu_torch.stepper.train import TrainStepper
+
+    if fault == "dw_modes":
+        dw = k1.dhconv_filter_dw
+
+        def planted(xr, xi, gr, gi):
+            out = dw(xr, xi, gr, gi)
+            if out.is_cuda:
+                out[:, out.shape[1] // 2:] = 0
+            return out
+
+        planted.launches = 0  # the wrapper counts on the module's name
+
+        monkeypatch.setattr(k1, "dhconv_filter_dw", planted)
+    elif fault == "half_batch":
+        train_step = TrainStepper.train_step
+
+        def planted(self, batch, *args, **kwargs):
+            if next(iter(batch.values())).is_cuda:
+                batch = {k: v[: v.shape[0] // 2] for k, v in batch.items()}
+            return train_step(self, batch, *args, **kwargs)
+
+        monkeypatch.setattr(TrainStepper, "train_step", planted)
+    elif fault == "no_ema":
+        update = EMATracker.__call__
+
+        def planted(self, params):
+            if params[0].is_cuda:
+                return self.ema_params
+            return update(self, params)
+
+        monkeypatch.setattr(EMATracker, "__call__", planted)
+    if fault == "none":
+        errs = chip_smoke.reference_train_entry_phase()
+        print(f"reference R reading, no fault: {errs}")
+        return
+    with pytest.raises(AssertionError, match="reference R") as info:
+        chip_smoke.reference_train_entry_phase()
+    print(f"reference R reading, fault {fault}: {info.value}")

@@ -260,8 +260,7 @@ def test_jax_checkpoint_config_parses(jax_rollout):
     {"builder": {"spectral_ratio": 0.5}},
     {"builder": {"global_layer_norm": True}},
     {"step": {"global_mean_removal": {}}},
-    {"step": {"corrector": {"total_energy_budget_correction": {
-        "method": "constant_temperature"}}}},
+    {"step": {"input_dropout": {}}},
     {"step": {"ocean": {"surface_temperature_name": "surface_temperature",
                         "ocean_fraction_name": "ocean_fraction",
                         "slab": {"mixed_layer_depth_name": "a",
