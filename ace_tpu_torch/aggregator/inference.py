@@ -1,6 +1,8 @@
 """Streaming inference aggregators (port of ace_tpu/aggregator/inference.py:
 time-mean maps, per-step mean series, ensemble spread and skill, global
-mean series, zonal means, spherical power spectra, annual means).
+mean series, zonal means, spherical power spectra, and the multiplexer
+that adds the histograms, annual means, ENSO index, seasonal means,
+near-zero fractions, videos and trends of the modules beside it).
 
 Aggregators take paired (prediction, target) windows and keep running
 reductions on the device of the data. ``record_batch`` never waits for the
@@ -8,10 +10,10 @@ device: it queues eager torch operations on running sums (where the JAX
 package dispatches one jitted program per window), and nothing leaves the
 device until ``get_logs`` or ``get_diagnostics``, which fetch what they
 report in few transfers. So the windowed inference loop can queue window
-N+1's rollout behind window N's reductions.
-
-The aggregators of histograms, the ENSO index, seasonal means, videos and
-trends are not ported yet: the flags that need them raise.
+N+1's rollout behind window N's reductions. Two exceptions: the histograms
+fill on the host one window behind, from copies that do not block
+(``histogram.py``), and the video's partials are drained by bytes
+(``video.py``).
 """
 
 import dataclasses
@@ -21,13 +23,22 @@ from typing import Any
 import numpy as np
 import torch
 
+from ace_tpu_torch.aggregator.enso import EnsoIndexAggregator
+from ace_tpu_torch.aggregator.histogram import (
+    GlobalMeanAnnualAggregator,
+    HistogramAggregator,
+)
+from ace_tpu_torch.aggregator.seasonal import (
+    NearZeroFractionAggregator,
+    SeasonalAggregator,
+)
+from ace_tpu_torch.aggregator.trend import TrendAggregator
+from ace_tpu_torch.aggregator.video import VideoAggregator
 from ace_tpu_torch.core.gridded_ops import LatLonOperations
 from ace_tpu_torch.core.loss import get_crps
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
-from ace_tpu_torch.data.time import TimeCoord
 from ace_tpu_torch.ops.sht import RealSHT
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 5)"
 _COORD_NAMES = ("lat", "lon", "latitude", "longitude", "time", "valid_time",
                 "counts", "init_time")
 
@@ -477,135 +488,10 @@ class SpectrumAggregator:
         return out
 
 
-class GlobalMeanAnnualAggregator:
-    """Area-weighted global means by calendar year (port of
-    ace_tpu/aggregator/histogram.py:168). Years with fewer than ~350 days
-    of samples are left out of the logged means; paired targets give an
-    annual RMSE, and a monthly reference an R2."""
-
-    MIN_COMPLETE_YEAR_DAYS = 350.0
-
-    def __init__(self, ops: LatLonOperations,
-                 timestep_seconds: float | None = None,
-                 monthly_reference: "dict[str, dict[int, float]] | None"
-                 = None):
-        self._ops = ops
-        self._timestep_seconds = timestep_seconds
-        self._sums: dict[str, dict[int, float]] = {}
-        self._counts: dict[str, dict[int, int]] = {}
-        self._target_sums: dict[str, dict[int, float]] = {}
-        # per window: the years (host) and the [batch, time] global means
-        # (device), bucketed by year when read
-        self._pending: list = []
-        self._reference = monthly_reference or {}
-
-    def record_batch(self, gen: TensorMapping, time: TimeCoord, target=None):
-        years = time.components()["year"]  # [batch, n_time]
-        if self._timestep_seconds is None and time.values.shape[-1] > 1:
-            self._timestep_seconds = float(
-                (time.values[..., 1] - time.values[..., 0]).ravel()[0] / 1e6)
-        self._pending.append({
-            "years": np.asarray(years),
-            "gen": {k: self._ops.area_weighted_mean(v, name=k)
-                    for k, v in gen.items()},
-            "target": {k: self._ops.area_weighted_mean(v, name=k)
-                       for k, v in (target or {}).items() if k in gen},
-        })
-
-    def _drain(self):
-        for window in self._pending:
-            years = window["years"]
-            for name, gm in window["gen"].items():
-                gm = _numpy(gm)
-                sums = self._sums.setdefault(name, {})
-                counts = self._counts.setdefault(name, {})
-                for year in np.unique(years):
-                    mask = years == year
-                    sums[int(year)] = sums.get(int(year), 0.0) + float(
-                        gm[mask].sum())
-                    counts[int(year)] = counts.get(int(year), 0) + int(
-                        mask.sum())
-            for name, gm in window["target"].items():
-                gm = _numpy(gm)
-                tsums = self._target_sums.setdefault(name, {})
-                for year in np.unique(years):
-                    mask = years == year
-                    tsums[int(year)] = tsums.get(int(year), 0.0) + float(
-                        gm[mask].sum())
-        self._pending = []
-
-    def _complete_years(self, name: str) -> list[int]:
-        min_samples = (0.0 if not self._timestep_seconds else
-                       self.MIN_COMPLETE_YEAR_DAYS * 86400.0
-                       / self._timestep_seconds)
-        return sorted(y for y, c in self._counts[name].items()
-                      if c > min_samples)
-
-    def get_diagnostics(self) -> dict[str, np.ndarray]:
-        self._drain()
-        out = {}
-        for name, sums in self._sums.items():
-            years = sorted(sums)
-            out[f"annual_mean-{name}"] = np.asarray(
-                [sums[y] / self._counts[name][y] for y in years])
-            out[f"annual_mean_years-{name}"] = np.asarray(years)
-            if name in self._target_sums:
-                tsums = self._target_sums[name]
-                out[f"annual_mean_target-{name}"] = np.asarray([
-                    tsums.get(y, np.nan) / self._counts[name][y]
-                    for y in years])
-        return out
-
-    def get_logs(self, label: str = "annual") -> dict[str, float]:
-        self._drain()
-        logs = {}
-        for name, sums in self._sums.items():
-            years = self._complete_years(name)
-            if not years:
-                continue
-            counts = self._counts[name]
-            logs[f"{label}/mean/{name}"] = float(
-                np.mean([sums[y] / counts[y] for y in years]))
-            tsums = self._target_sums.get(name)
-            if tsums:
-                paired = [y for y in years if y in tsums]
-                if paired:
-                    diffs = [(sums[y] - tsums[y]) / counts[y] for y in paired]
-                    logs[f"{label}/rmse/{name}"] = float(
-                        np.sqrt(np.mean(np.square(diffs))))
-            ref = self._reference.get(name)
-            if ref:
-                r2 = _get_r2({y: sums[y] / counts[y] for y in years}, ref)
-                if r2 is not None:
-                    logs[f"{label}/r2/{name}_gen"] = r2
-                if tsums:
-                    r2_t = _get_r2({y: tsums[y] / counts[y] for y in years
-                                    if y in tsums}, ref)
-                    if r2_t is not None:
-                        logs[f"{label}/r2/{name}_target"] = r2_t
-        return logs
-
-
-def _get_r2(series: dict[int, float],
-            reference: dict[int, float]) -> float | None:
-    """R2 of an annual series against the reference over shared years."""
-    years = sorted(set(series) & set(reference))
-    if len(years) < 2:
-        return None
-    pred = np.asarray([series[y] for y in years], dtype=np.float64)
-    ref = np.asarray([reference[y] for y in years], dtype=np.float64)
-    ss_ref = np.sum((ref - ref.mean()) ** 2)
-    if ss_ref == 0.0:
-        return None
-    return float(1.0 - np.sum((ref - pred) ** 2) / ss_ref)
-
-
 @dataclasses.dataclass
 class InferenceAggregatorConfig:
     """Which aggregators an inference run keeps (port of
-    ace_tpu/aggregator/inference.py:705). Histograms, the ENSO index,
-    seasonal means and near-zero fractions, videos and trends are not
-    ported yet: their flags must stay false."""
+    ace_tpu/aggregator/inference.py:705)."""
 
     log_global_mean_time_series: bool = True
     log_zonal_mean_images: bool = True
@@ -625,19 +511,6 @@ class InferenceAggregatorConfig:
     log_video: bool = False
     log_extended_video: bool = False
     log_trends: bool = False
-
-    def __post_init__(self):
-        for flag, what in (
-            ("log_histograms", "the histogram aggregator"),
-            ("log_enso_index", "the ENSO index aggregator"),
-            ("log_seasonal_means", "the seasonal aggregator"),
-            ("log_near_zero_fraction", "the near-zero-fraction aggregator"),
-            ("log_video", "the video aggregator"),
-            ("log_extended_video", "the video aggregator"),
-            ("log_trends", "the trend aggregator"),
-        ):
-            if getattr(self, flag):
-                raise NotImplementedError(f"{flag}: {what} {_NOT_PORTED}")
 
     def build(self, dataset_info, n_timesteps: int,
               normalizer=None, n_ensemble_per_ic: int = 1,
@@ -659,6 +532,7 @@ class InferenceEvaluatorAggregator:
                  normalizer=None, n_ensemble_per_ic: int = 1):
         config = config or InferenceAggregatorConfig()
         ops = dataset_info.gridded_operations
+        is_latlon = len(dataset_info.img_shape) == 2
         time_mean_ref = (
             load_time_mean_reference(config.time_mean_reference_data)
             if config.time_mean_reference_data is not None else None
@@ -681,11 +555,26 @@ class InferenceEvaluatorAggregator:
                 and normalizer is not None and n_timesteps):
             self._mean_norm = StepMeanSeriesAggregator(
                 ops, n_timesteps, entries=[], normalizer=normalizer)
-        if config.log_zonal_mean_images:
+        if config.log_zonal_mean_images and is_latlon:
             self._aggregators["zonal_mean"] = ZonalMeanAggregator()
         if config.log_spectra:
             self._aggregators["spectrum"] = (
                 SpectrumAggregator.for_dataset_info(dataset_info))
+        if config.log_histograms:
+            self._aggregators["histogram"] = HistogramAggregator()
+        if config.log_enso_index:
+            self._aggregators["enso"] = EnsoIndexAggregator(
+                dataset_info.horizontal_coordinates,
+                sst_name=config.enso_sst_name)
+        if config.log_near_zero_fraction:
+            self._aggregators["near_zero_fraction"] = (
+                NearZeroFractionAggregator())
+        self._trend = TrendAggregator() if config.log_trends else None
+        self._seasonal = (SeasonalAggregator() if config.log_seasonal_means
+                          else None)
+        if (config.log_video or config.log_extended_video) and n_timesteps:
+            self._aggregators["video"] = VideoAggregator(
+                n_timesteps, enable_extended_videos=config.log_extended_video)
         self._annual = None
         if config.log_annual_means:
             monthly_ref = (
@@ -700,10 +589,16 @@ class InferenceEvaluatorAggregator:
                      target: TensorMapping | None = None, time=None):
         n_time = next(iter(gen.values())).shape[1]
         self._n_steps += n_time
-        for agg in self._aggregators.values():
-            agg.record_batch(gen, target)
-        if self._annual is not None and time is not None:
-            self._annual.record_batch(gen, time, target)
+        for name, agg in self._aggregators.items():
+            if name == "enso":
+                # the index takes its monthly climatology by the times
+                agg.record_batch(gen, target, time=time)
+            else:
+                agg.record_batch(gen, target)
+        if time is not None:
+            for agg in (self._annual, self._seasonal, self._trend):
+                if agg is not None:
+                    agg.record_batch(gen, time, target)
         i_start = self._n_steps - n_time
         if self._step_mean is not None:
             self._step_mean.record_batch(gen, target, i_start)
@@ -715,16 +610,28 @@ class InferenceEvaluatorAggregator:
         for label, agg in self._aggregators.items():
             if hasattr(agg, "get_logs"):
                 logs.update(agg.get_logs(label))
-        if self._annual is not None:
-            logs.update(self._annual.get_logs("annual"))
+        for label, agg in (("annual", self._annual),
+                           ("seasonal", self._seasonal),
+                           ("trend", self._trend)):
+            if agg is not None:
+                logs.update(agg.get_logs(label))
         if self._step_mean is not None:
             logs.update(self._step_mean.get_logs())
         return logs
 
+    @property
+    def histogram_host_seconds(self) -> float:
+        """The host's seconds filling the histograms (0 without them)."""
+        hist = self._aggregators.get("histogram")
+        return hist.host_seconds if hist is not None else 0.0
+
     def _with_diagnostics(self, extra: bool) -> dict[str, Any]:
         items = dict(self._aggregators)
-        if self._annual is not None:
-            items["annual"] = self._annual
+        for label, agg in (("annual", self._annual),
+                           ("trend", self._trend),
+                           ("seasonal", self._seasonal)):
+            if agg is not None:
+                items[label] = agg
         if extra:
             if self._step_mean is not None:
                 items["mean_step"] = self._step_mean
@@ -758,9 +665,10 @@ class InferenceEvaluatorAggregator:
             )
 
     def flush_images(self, output_dir: str):
-        """Render the diagnostic maps to PNG files (port of
-        ace_tpu/aggregator/inference.py:906, without the Weights & Biases
-        mirror). A map that fails to render is logged and skipped."""
+        """Render the diagnostic maps to PNG files and the videos to GIF
+        files (port of ace_tpu/aggregator/inference.py:906, without the
+        Weights & Biases mirror). A map that fails to render is logged and
+        skipped."""
         import os
 
         from ace_tpu_torch.aggregator import plotting
@@ -773,7 +681,12 @@ class InferenceEvaluatorAggregator:
                 diverging = any(
                     t in key for t in ("bias", "err", "anomaly", "trend"))
                 try:
-                    if arr.ndim == 2 or (arr.ndim == 3 and arr.shape[0] == 12):
+                    if key.startswith("video-"):
+                        plotting.save_video_gif(
+                            os.path.join(output_dir, safe + ".gif"), arr,
+                            diverging=diverging)
+                    elif arr.ndim == 2 or (arr.ndim == 3
+                                           and arr.shape[0] == 12):
                         vmin, vmax = plotting.get_cmap_limits(arr, diverging)
                         # the lon roll is for maps only: Hovmoller and
                         # series arrays have time on the last axis

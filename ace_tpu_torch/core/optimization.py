@@ -19,6 +19,15 @@ Adam and AdamW are written out in PyTorch with optax's arithmetic
 
 Schedules are functions of the update count (a host integer), so the
 learning rate is a host float and an update needs no device sync.
+
+``gradient_accumulation_steps = k > 1`` is ``optax.MultiSteps``: each call
+of :meth:`Optimization.step` folds its gradients into a running mean
+(``acc + (g - acc) / (n + 1)``), and every k-th call clips and applies that
+mean and clears it; the learning-rate schedule and Adam's bias correction
+count only those updates. Frozen parameters (``set_frozen``) keep their
+weights: their gradients still count in the clipping norm and their
+moments still update, as the JAX package's ``optax.masked(set_to_zero())``
+after the chain leaves them.
 """
 
 import dataclasses
@@ -200,8 +209,9 @@ _MOMENT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 class OptimizationConfig:
     """Optimizer config (the JAX package's fields).
     ``enable_automatic_mixed_precision`` is accepted and ignored: bf16
-    compute is the model's dtype. Gradient accumulation and resuming the
-    optimizer from another checkpoint are not ported yet."""
+    compute is the model's dtype. ``resume_optimizer_ckpt_path`` is read
+    by the trainer: Adam's moments and count come from that checkpoint, the
+    learning-rate schedule starts afresh."""
 
     optimizer_type: str = "Adam"  # "Adam" | "AdamW" | "FusedAdam"
     lr: float = 0.001
@@ -222,15 +232,6 @@ class OptimizationConfig:
     first_moment_dtype: str | None = None
 
     def __post_init__(self):
-        if self.gradient_accumulation_steps > 1:
-            raise NotImplementedError(
-                "gradient_accumulation_steps > 1 is not ported yet"
-            )
-        if self.resume_optimizer_ckpt_path is not None:
-            raise NotImplementedError(
-                "resume_optimizer_ckpt_path is not ported yet (ROADMAP "
-                "Queue 1 item 4)"
-            )
         if self.optimizer_type not in ("Adam", "AdamW", "FusedAdam"):
             raise NotImplementedError(
                 f"optimizer type {self.optimizer_type!r}"
@@ -273,15 +274,36 @@ class Optimization:
             self.weight_decay = weight_decay or 0.0
             self.decay_before_adam = True
         self.mu_dtype = _MOMENT_DTYPES.get(config.first_moment_dtype)
+        self.every_k = config.gradient_accumulation_steps
+        # calls of step(): the batches trained, as ace_tpu's trainer counts
         self._count = 0
+        # Adam's count (its bias correction) and the schedule's clock: the
+        # updates applied (a transferred optimizer state brings its own
+        # Adam count, the schedule starts at 0)
+        self.adam_count = 0
+        self.schedule_count = 0
+        # gradient accumulation: calls folded into ``acc`` since the last
+        # update
+        self.mini_step = 0
+        self.acc: list[torch.Tensor] | None = None
         # multiplier of the schedule that learning-rate tuning adopts
         self.lr_scale = 1.0
         self.mu: list[torch.Tensor] | None = None
         self.nu: list[torch.Tensor] | None = None
+        # per parameter, True where its update is zeroed
+        self.frozen: list[bool] | None = None
 
     @property
     def learning_rate(self) -> float:
+        """The schedule at the batch count (the rate ace_tpu logs; with
+        gradient accumulation the updates use the schedule at their own
+        count)."""
         return self.schedule(self._count) * self.lr_scale
+
+    def set_frozen(self, frozen: list[bool] | None):
+        """Zero the updates of the parameters marked True (in the order of
+        the parameters :meth:`step` gets)."""
+        self.frozen = frozen
 
     def scale_lr(self, factor: float):
         """Multiply the learning rate by ``factor`` from now on."""
@@ -298,53 +320,92 @@ class Optimization:
 
     @property
     def count(self) -> int:
-        """The number of updates taken."""
-        return self._count
+        """Adam's update count."""
+        return self.adam_count
+
+    @staticmethod
+    def _copy_into(dst: list[torch.Tensor], src: list[torch.Tensor]):
+        for d, s in zip(dst, src):
+            if d.shape != s.shape:
+                raise ValueError(f"state of shape {tuple(s.shape)} for "
+                                 f"a parameter of {tuple(d.shape)}")
+            d.copy_(s)
 
     @torch.no_grad()
     def load_moments(self, count: int, mu: list[torch.Tensor],
-                     nu: list[torch.Tensor]):
-        """Set the update count, and copy ``mu`` and ``nu`` (in the
-        parameters' order, on any device, e.g. read from a checkpoint)
-        into the moments that :meth:`init` made, in their dtypes."""
+                     nu: list[torch.Tensor], schedule_count: int | None = None):
+        """Set Adam's count and the schedule's (``schedule_count``, by
+        default ``count``), and copy ``mu`` and ``nu`` (in the parameters'
+        order, on any device, e.g. read from a checkpoint) into the moments
+        that :meth:`init` made, in their dtypes. The batch count is
+        :meth:`load_state`'s."""
         if (self.mu is None or len(mu) != len(self.mu)
                 or len(nu) != len(self.nu)):
             raise ValueError("load_moments needs init(params) first and "
                              "one moment of each kind per parameter")
-        for dst, src in zip(self.mu + self.nu, list(mu) + list(nu)):
-            if dst.shape != src.shape:
-                raise ValueError(f"moment of shape {tuple(src.shape)} for "
-                                 f"a parameter of {tuple(dst.shape)}")
-            dst.copy_(src)
-        self._count = count
+        self._copy_into(self.mu + self.nu, list(mu) + list(nu))
+        self.adam_count = count
+        self.schedule_count = count if schedule_count is None else schedule_count
+
+    @torch.no_grad()
+    def load_accumulation(self, mini_step: int, acc: list[torch.Tensor]):
+        """The accumulation state of a checkpoint: the calls folded in since
+        the last update, and their running mean."""
+        self.mini_step = mini_step
+        self._copy_into(self.acc, acc)
 
     def init(self, params: list[torch.Tensor]):
         """Zero moments for ``params`` (the first in ``first_moment_dtype``,
-        else in each parameter's dtype)."""
+        else in each parameter's dtype), and with gradient accumulation a
+        zero running mean of their gradients."""
         with torch.no_grad():
             self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                        for p in params]
             self.nu = [torch.zeros_like(p) for p in params]
-        self._count = 0
+            self.acc = ([torch.zeros_like(p) for p in params]
+                        if self.every_k > 1 else None)
+        self._count = self.adam_count = self.schedule_count = 0
+        self.mini_step = 0
 
     @torch.no_grad()
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor]):
-        """One update of ``params`` in place from ``grads``: clip, Adam or
-        AdamW, learning rate. Returns the global norm of ``grads`` before
-        clipping, a tensor on the device."""
+        """One call per batch: with gradient accumulation, fold ``grads``
+        into the running mean and update only at every k-th call; else
+        update from ``grads``. An update changes ``params`` in place: clip,
+        Adam or AdamW, learning rate, frozen parameters left as they are.
+        Returns the global norm of ``grads`` before clipping, a tensor on
+        the device."""
         if self.mu is None:
             self.init(params)
         norm = global_norm(grads)
+        self._count += 1
+        if self.every_k > 1:
+            n = self.mini_step
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (n + 1))
+            self.mini_step = (n + 1) % self.every_k
+            if self.mini_step:
+                return norm
+            self._update(params, self.acc, global_norm(self.acc))
+            for a in self.acc:
+                a.zero_()
+        else:
+            self._update(params, grads, norm)
+        return norm
+
+    def _update(self, params, grads, norm):
         max_norm = self.config.max_grad_norm
         if max_norm is not None:
             trigger = norm < max_norm
         b1, b2 = self.b1, self.b2
-        count = self._count + 1
+        count = self.adam_count + 1
         # 1 - b ** count in float32, as optax's bias_correction
         c1 = float(1 - np.float32(b1) ** np.float32(count))
         c2 = float(1 - np.float32(b2) ** np.float32(count))
-        lr = self.learning_rate
-        for p, g, mu, nu in zip(params, grads, self.mu, self.nu):
+        lr = self.schedule(self.schedule_count) * self.lr_scale
+        frozen = self.frozen or [False] * len(params)
+        for p, g, mu, nu, fixed in zip(params, grads, self.mu, self.nu,
+                                       frozen):
             if max_norm is not None:
                 g = torch.where(trigger, g, (g / norm) * max_norm)
             if self.decay_before_adam and self.weight_decay:
@@ -354,13 +415,14 @@ class Optimization:
             b1_mu = float(torch.tensor(b1, dtype=mu.dtype))
             m = g * (1 - b1) + mu * b1_mu
             nu.mul_(b2).add_(g * g * (1 - b2))
-            u = (m / c1) / (torch.sqrt(nu / c2) + self.eps)
-            if not self.decay_before_adam and self.weight_decay:
-                u = u + self.weight_decay * p
-            p.add_(u * -lr)
+            if not fixed:
+                u = (m / c1) / (torch.sqrt(nu / c2) + self.eps)
+                if not self.decay_before_adam and self.weight_decay:
+                    u = u + self.weight_decay * p
+                p.add_(u * -lr)
             mu.copy_(m)
-        self._count = count
-        return norm
+        self.adam_count = count
+        self.schedule_count += 1
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:

@@ -35,7 +35,8 @@ from ace_tpu_torch.data.dataset import (
 from ace_tpu_torch.data.requirements import DataRequirements
 from ace_tpu_torch.data.time import TimeCoord
 
-_NO_MESH = "mesh placement is not ported yet (ROADMAP Queue 1 item 12)"
+_NO_MESH = ('mesh placement is not ported yet (ROADMAP Queue 1, '
+            '"Multi-GPU")')
 
 
 @dataclasses.dataclass

@@ -122,7 +122,7 @@ class InferenceConfig:
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device inference is not ported yet (ROADMAP "
-                "Queue 1 item 12)"
+                'Queue 1, "Multi-GPU")'
             )
         self.data_writer.validate_time_coarsen(
             self.n_forward_steps, self.forward_steps_in_memory

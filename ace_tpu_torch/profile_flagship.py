@@ -3,7 +3,8 @@ GPU.
 
     python -m ace_tpu_torch.profile_flagship [--steps N] [--out DIR]
                                              [--fused-block-tail]
-                                             [--train | --inference]
+                                             [--train | --inference |
+                                              --evaluator]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -28,9 +29,17 @@ over forcing in host memory; weights from ``flagship.draw_check_weights``):
 step of the batch of 2. The untraced run also prints the device time of
 each call of the spectrum aggregator's flood fill, in order (CUDA events
 around ``SmoothFloodFill.fill_stacked``: the fill runs until the host
-knows that no variable has a NaN, and is skipped from then on). Writes the Chrome trace to
+knows that no variable has a NaN, and is skipped from then on).
+``--evaluator`` profiles the loop as path E of ``chip_smoke.py`` runs it:
+one initial condition, windows of 50, the outputs' dataset values as
+targets and the aggregator flags of
+``configs/baselines/era5/ace-evaluator-config.yaml`` (zonal means and
+histograms on, the rest at their defaults): ``N`` steps untraced (default
+100), then 100 traced, two windows, so that the histograms' host work of
+the first overlaps the second's rollout. Writes the Chrome trace to
 ``DIR/flagship_trace.json`` (``flagship_train_trace.json``,
-``flagship_inference_trace.json``; default ``build/profiles``).
+``flagship_inference_trace.json``, ``flagship_evaluator_trace.json``;
+default ``build/profiles``).
 """
 
 import argparse
@@ -51,8 +60,14 @@ from ace_tpu_torch.device import get_device
 TRACED_STEPS = 3
 TRACED_TRAIN_STEPS = 2
 TRACED_INFERENCE_STEPS = 10
+TRACED_EVALUATOR_STEPS = 100
 TRAIN_BATCH = 2
 INFERENCE_STEPS_IN_MEMORY = 5
+EVALUATOR_STEPS_IN_MEMORY = 50
+# the aggregator flags of the evaluator baseline
+# (configs/baselines/era5/ace-evaluator-config.yaml)
+EVALUATOR_AGGREGATOR = {"log_zonal_mean_images": True,
+                        "log_histograms": True}
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # kernel families, by the first pattern found in a device event's name
 FAMILIES = (
@@ -131,6 +146,10 @@ def main(argv=None):
     mode.add_argument("--inference", action="store_true",
                       help="profile the inference loop (batch 2, windows "
                            "of 5, aggregators, no writer)")
+    mode.add_argument("--evaluator", action="store_true",
+                      help="profile the evaluator's loop (batch 1, windows "
+                           "of 50, targets, the evaluator baseline's "
+                           "aggregators)")
     parser.add_argument("--read", metavar="TRACE",
                         help="only print the tables of this Chrome trace")
     parser.add_argument("--traced-steps", type=int, default=TRACED_TRAIN_STEPS,
@@ -140,7 +159,7 @@ def main(argv=None):
         print_tables(device_events(args.read), args.traced_steps)
         return
     if args.steps is None:
-        args.steps = 5 if args.train else 20
+        args.steps = 5 if args.train else 100 if args.evaluator else 20
 
     device = get_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -158,6 +177,12 @@ def main(argv=None):
                                 max(args.steps, TRACED_INFERENCE_STEPS))
         n = TRACED_INFERENCE_STEPS
         name = "flagship_inference_trace.json"
+    elif args.evaluator:
+        run = _inference_runner(device, args.fused_block_tail,
+                                max(args.steps, TRACED_EVALUATOR_STEPS),
+                                evaluator=True)
+        n = TRACED_EVALUATOR_STEPS
+        name = "flagship_evaluator_trace.json"
     else:
         run = _rollout_runner(device, args.fused_block_tail,
                               max(args.steps, TRACED_STEPS))
@@ -236,9 +261,11 @@ def _rollout_runner(device, fused, max_steps):
     return run
 
 
-def _inference_runner(device, fused, max_steps):
+def _inference_runner(device, fused, max_steps, evaluator=False):
     """``run(n)``: the inference loop over ``n`` steps from start indices
-    [0, 1], without a writer, from forcing in host memory."""
+    [0, 1], without a writer, from forcing in host memory; with
+    ``evaluator``, from start index 0 in windows of 50, with the outputs'
+    dataset values as targets and the evaluator baseline's aggregators."""
     from ace_tpu_torch.aggregator.inference import InferenceAggregatorConfig
     from ace_tpu_torch.data.dataset import MemoryDataset
     from ace_tpu_torch.data.inference import (
@@ -260,17 +287,24 @@ def _inference_runner(device, fused, max_steps):
     )
     info = stepper.dataset_info
 
+    starts, in_memory, flags = (
+        ([0], EVALUATOR_STEPS_IN_MEMORY, EVALUATOR_AGGREGATOR) if evaluator
+        else ([0, 1], INFERENCE_STEPS_IN_MEMORY, {}))
+
     def run(n):
         data = InferenceGriddedData(
-            dataset, ExplicitIndices(list=[0, 1]),
+            dataset, ExplicitIndices(list=starts),
             stepper.forcing_window_names, stepper.prognostic_names, n,
-            INFERENCE_STEPS_IN_MEMORY)
+            in_memory)
         ic = PrognosticState(data={
             k: torch.as_tensor(v).to(device)
             for k, v in data.initial_condition().data.items()})
-        aggregator = InferenceAggregatorConfig().build(
+        aggregator = InferenceAggregatorConfig(**flags).build(
             info, n_timesteps=n, normalizer=stepper.step.normalizer)
-        run_inference(stepper, ic, data, aggregator=aggregator)
+        run_inference(stepper, ic, data, aggregator=aggregator,
+                      target_names=stepper.out_names if evaluator else None)
+        if evaluator:
+            aggregator.get_logs()
 
     return run
 

@@ -234,14 +234,18 @@ def _optax_state(optimization, names: list[str]) -> dict:
     schedule) as nested ``"0"``, ``"1"``, ... entries, the stateless links
     empty, and Adam's ``{count, mu, nu}``, the moments in flax's parameter
     tree (``names`` are the parameters' ``state_dict`` names, in the
-    moments' order); both counts are the update count as int32."""
+    moments' order); the counts as int32. With gradient accumulation the
+    chain is the ``inner_opt_state`` of ``optax.MultiSteps``'s state (its
+    step counts and the running mean ``acc_grads``); with frozen
+    parameters it is followed by ``optax.masked``'s empty state."""
     config = optimization.config
-    count = np.asarray(optimization.count, np.int32)
-    adam = {"count": count}
-    for key, moments in (("mu", optimization.mu), ("nu", optimization.nu)):
-        adam[key] = {"params": state_dict_to_flax_params(
-            dict(zip(names, moments)))}
-    schedule = {"count": count}
+
+    def tree(tensors):
+        return {"params": state_dict_to_flax_params(dict(zip(names, tensors)))}
+
+    adam = {"count": np.asarray(optimization.adam_count, np.int32),
+            "mu": tree(optimization.mu), "nu": tree(optimization.nu)}
+    schedule = {"count": np.asarray(optimization.schedule_count, np.int32)}
     if config.optimizer_type == "AdamW":
         # chain(scale_by_adam, add_decayed_weights, scale_by_learning_rate)
         state = {"0": adam, "1": {}, "2": schedule}
@@ -251,29 +255,56 @@ def _optax_state(optimization, names: list[str]) -> dict:
             state = {"0": {}, "1": state}
     if config.max_grad_norm is not None:
         state = {"0": {}, "1": state}
+    if optimization.every_k > 1:
+        state = {
+            "mini_step": np.asarray(optimization.mini_step, np.int32),
+            "gradient_step": np.asarray(optimization.schedule_count,
+                                        np.int32),
+            "inner_opt_state": state,
+            "acc_grads": tree(optimization.acc),
+            "skip_state": {},
+        }
+    if optimization.frozen is not None:
+        state = {"0": state, "1": {"inner_state": {}}}
     return state
 
 
-def _find_adam_state(node):
+def _find(node, keys: set):
+    """The first dict in ``node`` (depth first) that holds ``keys``, and
+    its parent."""
     if isinstance(node, dict):
-        if {"mu", "nu", "count"} <= set(node):
-            return node
+        if keys <= set(node):
+            return node, None
         for value in node.values():
-            found = _find_adam_state(value)
+            found, parent = _find(value, keys)
             if found is not None:
-                return found
-    return None
+                return found, parent if parent is not None else node
+    return None, None
 
 
 def _adam_state(tree: dict) -> dict:
-    """Adam's ``count`` (an int) and moments ``mu`` and ``nu`` (``state_dict``s
-    on the host) from the optax state of either package's file."""
-    adam = _find_adam_state(tree)
+    """From the optax state of either package's file: Adam's ``count`` (an
+    int) and moments ``mu`` and ``nu`` (``state_dict``s on the host), the
+    schedule's ``schedule_count``, and under ``optax.MultiSteps`` its
+    ``mini_step`` and running mean ``acc`` (else None)."""
+    adam, chain = _find(tree, {"mu", "nu", "count"})
     if adam is None:
         raise ValueError("no Adam state {count, mu, nu} in the tree")
-    return {"count": int(np.asarray(adam["count"])),
-            "mu": flax_params_to_state_dict(adam["mu"]),
-            "nu": flax_params_to_state_dict(adam["nu"])}
+    count = int(np.asarray(adam["count"]))
+    # the schedule's state is the chain's link that holds a count alone
+    schedule = [v for v in (chain or {}).values()
+                if isinstance(v, dict) and set(v) == {"count"}]
+    out = {"count": count,
+           "schedule_count": (int(np.asarray(schedule[0]["count"]))
+                              if schedule else count),
+           "mu": flax_params_to_state_dict(adam["mu"]),
+           "nu": flax_params_to_state_dict(adam["nu"]),
+           "mini_step": None, "acc": None}
+    multi, _ = _find(tree, {"mini_step", "acc_grads"})
+    if multi is not None:
+        out["mini_step"] = int(np.asarray(multi["mini_step"]))
+        out["acc"] = flax_params_to_state_dict(multi["acc_grads"])
+    return out
 
 
 def save_train_checkpoint(path: str, stepper: Stepper, config: StepperConfig,

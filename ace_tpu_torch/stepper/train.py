@@ -8,7 +8,16 @@ steps (the ensemble folded into the batch), ``train_step`` calls
 it waits for the device: the metrics it returns are tensors on the device.
 Activation checkpointing: the model's own per-block ``checkpointing`` (the
 flagship recipe), and ``CheckpointConfig.after_n_forward_steps`` or
-``remat`` as a whole-step ``torch.utils.checkpoint``.
+``remat`` as a whole-step ``torch.utils.checkpoint``. With
+``optimize_last_step_only`` every step but the last runs under
+``torch.no_grad()`` (the JAX package stops the gradient there), so a
+20-step sample holds one step's saved activations, not twenty.
+
+Fine-tuning (``parameter_init``): ``init`` loads the base checkpoint's
+weights, frozen parameters keep theirs (the optimizer zeroes their
+updates), the L2-SP term joins the loss with the base weights held on the
+device as constants, and ``copy_weights`` (set by the trainer) resets a
+subset of weights after each optimizer step, before the EMA.
 """
 
 import contextlib
@@ -27,7 +36,10 @@ from ace_tpu_torch.core.schedule import (
 from ace_tpu_torch.core.step import StepArgs
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
 from ace_tpu_torch.ops.sht import RealSHT
-from ace_tpu_torch.stepper.parameter_init import ParameterInitializationConfig
+from ace_tpu_torch.stepper.parameter_init import (
+    ParameterInitializationConfig,
+    read_base_weights,
+)
 from ace_tpu_torch.stepper.stepper import Stepper
 
 
@@ -41,8 +53,8 @@ class StepperTrainConfig:
         EnsembleLoss, else 1).
     remat: recompute every rollout step in the backward pass.
     optimize_last_step_only: only the last step's loss is optimized; the
-        earlier steps run and their state is detached.
-    parameter_init: fine-tuning options (only the defaults are ported).
+        earlier steps run without gradient.
+    parameter_init: fine-tuning options.
     """
 
     loss: StepLossConfig = dataclasses.field(default_factory=StepLossConfig)
@@ -174,7 +186,17 @@ class TrainStepper:
         self.optimization = optimization_config.build(
             max_epochs=max_epochs, steps_per_epoch=steps_per_epoch
         )
+        frozen = train_config.parameter_init.frozen_parameters
+        if frozen is not None:
+            mask = frozen.frozen_mask(self.module.state_dict())
+            self.optimization.set_frozen(
+                [mask[n] for n in self.parameter_names()])
         self.ema = ema_config.build() if ema_config is not None else None
+        # the base weights of the L2-SP term, on the device (read when
+        # first needed: a resumed run does not call init)
+        self._base: dict[str, torch.Tensor] | None = None
+        # set by the trainer: resets a subset of weights after each update
+        self.copy_weights = None
         self._length_sampler: TimeLengthProbabilities | None = None
         self._sampler_epoch: int | None = None
         # the tensors that hold the training weights while
@@ -222,6 +244,11 @@ class TrainStepper:
         return {k: stds[k] / weights.get(k, 1.0)
                 for k in self.stepper.step.output_names}
 
+    def _drop_weight_caches(self):
+        for m in self.module.modules():
+            if hasattr(m, "drop_weight_cache"):
+                m.drop_weight_cache()
+
     def _exchange(self, tensors: list[torch.Tensor]):
         """Exchange the parameters' storages with ``tensors``' and drop the
         layers' bf16 weight copies for calls without grad (they follow an
@@ -230,9 +257,7 @@ class TrainStepper:
         with torch.no_grad():
             for p, t in zip(self.parameters(), tensors):
                 p.data, t.data = t.data, p.data
-        for m in self.module.modules():
-            if hasattr(m, "drop_weight_cache"):
-                m.drop_weight_cache()
+        self._drop_weight_caches()
 
     @contextlib.contextmanager
     def weights_swapped(self, tensors: list[torch.Tensor]):
@@ -342,22 +367,33 @@ class TrainStepper:
             split = n_steps if after >= n_steps else max(int(after), 0)
         per_step = []
         for t in range(n_steps):
-            if t >= split and torch.is_grad_enabled():
-                step_loss, state, stepper_state = (
-                    torch.utils.checkpoint.checkpoint(
-                        _replaying(body, generator), t, state, stepper_state,
-                        use_reentrant=False, preserve_rng_state=False,
+            # only the last step's call sees gradient: the earlier ones keep
+            # no graph (their losses are metrics)
+            no_grad = cfg.optimize_last_step_only and t < n_steps - 1
+            with torch.no_grad() if no_grad else contextlib.nullcontext():
+                if t >= split and torch.is_grad_enabled():
+                    step_loss, state, stepper_state = (
+                        torch.utils.checkpoint.checkpoint(
+                            _replaying(body, generator), t, state,
+                            stepper_state, use_reentrant=False,
+                            preserve_rng_state=False,
+                        )
                     )
-                )
-            else:
-                step_loss, state, stepper_state = body(t, state,
-                                                       stepper_state)
-            if cfg.optimize_last_step_only:
-                # only the last step's call sees gradient
-                state = {k: v.detach() for k, v in state.items()}
-                stepper_state = _detach(stepper_state)
+                else:
+                    step_loss, state, stepper_state = body(t, state,
+                                                           stepper_state)
+            if no_grad and t == n_steps - 2 and torch.is_grad_enabled():
+                # the last step casts the weights in its graph and does not
+                # read the bf16 copies the calls without grad cached;
+                # dropped, they do not add to its peak
+                self._drop_weight_caches()
             per_step.append(step_loss)
         total = per_step[-1] if cfg.optimize_last_step_only else sum(per_step)
+        pinit = cfg.parameter_init
+        if pinit.regularized:
+            total = total + pinit.regularizer_loss(
+                dict(zip(self.parameter_names(), self.parameters())),
+                self.base_weights())
         metrics = {"loss": total}
         for i, loss in enumerate(per_step):
             metrics[f"loss_step_{i}"] = loss
@@ -384,6 +420,8 @@ class TrainStepper:
         del grads
         for p in params:
             p.grad = None
+        if self.copy_weights is not None:
+            self.copy_weights.apply(self.module.state_dict())
         if self.ema is not None:
             if self.ema.ema_params is None:
                 self.ema.init(params)
@@ -399,19 +437,28 @@ class TrainStepper:
                                       deterministic=True)
         return metrics
 
+    def base_weights(self) -> dict[str, torch.Tensor] | None:
+        """The base checkpoint's weights on the device (None without a
+        base), read on first use."""
+        path = self.train_config.parameter_init.weights_path
+        if self._base is None and path is not None:
+            base, _ = read_base_weights(path)
+            self._base = {k: v.to(self.stepper.device)
+                          for k, v in base.items()}
+        return self._base
+
     def init(self, generator: torch.Generator | None = None):
-        """Draw the weights with ``generator`` and start the optimizer
-        state and the EMA from them."""
+        """Draw the weights with ``generator``, load the base checkpoint's
+        over them when fine-tuning, and start the optimizer state and the
+        EMA from them."""
         self.stepper.init_params(generator)
+        pinit = self.train_config.parameter_init
+        base = pinit.apply_weights(self.stepper)
+        if base is not None and pinit.regularized:
+            self._base = {k: v.to(self.stepper.device)
+                          for k, v in base.items()}
         params = self.parameters()
         self.optimization.init(params)
         if self.ema is not None:
             self.ema.init(params)
 
-
-def _detach(tree):
-    if isinstance(tree, dict):
-        return {k: _detach(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach()
-    return tree

@@ -38,6 +38,7 @@ from ace_tpu_torch.stepper.checkpoint import (
     read_train_checkpoint,
     save_train_checkpoint,
 )
+from ace_tpu_torch.stepper.parameter_init import CopyWeightsConfig
 from ace_tpu_torch.stepper.stepper import (
     CheckpointStepperConfig,
     PrognosticState,
@@ -141,8 +142,7 @@ class CheckpointPaths:
 @dataclasses.dataclass
 class TrainConfig:
     """Top-level training config (port of ace_tpu/train/trainer.py:139,
-    the same fields). The port runs on one device and has no fine-tuning
-    options yet: ``mesh`` and ``copy_weights_after_batch`` must stay
+    the same fields). The port runs on one device: ``mesh`` must stay
     None."""
 
     train_loader: DataLoaderConfig
@@ -173,7 +173,9 @@ class TrainConfig:
     # after each epoch, the loss (no updates, validation weights) of this
     # many batches of an independent shuffle of the training data
     train_evaluation_batches: int = 0
-    copy_weights_after_batch: dict | None = None
+    # after each optimizer step, reset a wildcard-selected subset of the
+    # weights to their values at the start of the run
+    copy_weights_after_batch: CopyWeightsConfig | None = None
     lr_tuning: LRTuningConfig = dataclasses.field(
         default_factory=LRTuningConfig
     )
@@ -184,12 +186,7 @@ class TrainConfig:
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device training is not ported yet (ROADMAP "
-                "Queue 1 item 12)"
-            )
-        if self.copy_weights_after_batch is not None:
-            raise NotImplementedError(
-                "copy_weights_after_batch is not ported yet (ROADMAP Queue "
-                "1 item 4)"
+                'Queue 1, "Multi-GPU")'
             )
         if self.lr_tuning.enabled and self.optimization.has_lr_schedule:
             raise ValueError(
@@ -372,8 +369,16 @@ class Trainer:
                 self.restore(self.paths.latest_checkpoint_path)
             else:
                 self.train_stepper.init(self.generator)
+                resume = self.config.optimization.resume_optimizer_ckpt_path
+                if resume is not None:
+                    self._load_optimizer_running_state(resume)
             self._initialized = True
         self.stepper.training_history.append(TrainingJob.from_env())
+        copy = self.config.copy_weights_after_batch
+        # the subset is pinned to its values at the start of this run
+        self.train_stepper.copy_weights = (
+            copy.build(self.stepper.module.state_dict())
+            if copy is not None else None)
         self._install_signal_handlers()
         try:
             self._train_epochs()
@@ -531,7 +536,8 @@ class Trainer:
             if batch.labels is not None or batch.data_mask is not None:
                 raise NotImplementedError(
                     "dataset labels and missing-variable masks in training "
-                    "are not ported yet (ROADMAP Queue 1 item 4)"
+                    "are not ported yet (ROADMAP Queue 1, \"The rest of the "
+                    "slice-1 modules\")"
                 )
             with signals_deferred():
                 metrics = self.train_stepper.train_step(
@@ -670,6 +676,29 @@ class Trainer:
                 and self.config.checkpoint_save_epochs.contains(epoch)):
             self._save(self.paths.epoch_checkpoint_path(epoch), extra)
 
+    def _load_optimizer_running_state(self, path: str):
+        """Fine-tuning: Adam's moments and count from another run's
+        training checkpoint (whatever accumulation or frozen parameters
+        either run has), this config's hyperparameters and a fresh
+        learning-rate schedule (port of ace_tpu/train/trainer.py:813)."""
+        logging.info(f"Loading optimizer running state from {path}")
+        out = read_train_checkpoint(path)
+        if "optimizer" not in out:
+            raise ValueError(
+                f"checkpoint {path} has no optimizer state to resume from")
+        adam = out["optimizer"]
+        names = self.train_stepper.parameter_names()
+        if set(adam["mu"]) != set(names):
+            raise ValueError(
+                "optimizer state in resume_optimizer_ckpt_path does not "
+                "match this run's parameters: "
+                f"{sorted(set(adam['mu']) ^ set(names))}")
+        optimization = self.train_stepper.optimization
+        optimization.load_moments(
+            adam["count"], [adam["mu"][n] for n in names],
+            [adam["nu"][n] for n in names],
+            schedule_count=optimization.schedule_count)
+
     def restore(self, path: str):
         """Resume from a training checkpoint of either package: weights,
         optimizer moments and count, EMA, counters, and (from the port's
@@ -689,7 +718,14 @@ class Trainer:
                         f"{sorted(set(adam[key]) ^ set(names))}")
             ts.optimization.load_moments(
                 adam["count"], [adam["mu"][n] for n in names],
-                [adam["nu"][n] for n in names])
+                [adam["nu"][n] for n in names],
+                schedule_count=adam["schedule_count"])
+            if (adam["acc"] is None) != (ts.optimization.acc is None):
+                raise ValueError("the checkpoint's gradient accumulation "
+                                 "differs from the config's")
+            if adam["acc"] is not None:
+                ts.optimization.load_accumulation(
+                    adam["mini_step"], [adam["acc"][n] for n in names])
         if ts.ema is not None:
             if "ema_state" in out:
                 ts.ema.ema_params = [

@@ -72,3 +72,27 @@ def state_dict_to_flax_params(state: dict[str, torch.Tensor]) -> dict:
         array = array.contiguous()
         node[name] = array if array.dtype == torch.bfloat16 else array.numpy()
     return tree
+
+
+def flax_name(key: str, value: torch.Tensor) -> str:
+    """The "/"-joined name ``ace_tpu`` gives the leaf that the port's
+    ``state_dict`` entry ``key`` holds (``params/block_0/filter/weight``;
+    a 2-D ``weight`` is flax's ``kernel``): the names that fine-tuning's
+    wildcard rules are written against."""
+    *path, name = key.split(".")
+    if name == "weight" and value.dim() == 2:
+        name = "kernel"
+    return "/".join(["params", *path, name])
+
+
+def flax_view(key: str, value: torch.Tensor) -> torch.Tensor:
+    """``value`` (the ``state_dict`` entry ``key``) as a view in flax's
+    layout: a 2-D weight transposed, the spectral filter's ``[2, l, in,
+    out]`` as ``[in, out, l, 2]``; writing into the view writes into
+    ``value``."""
+    path = key.split(".")
+    if path[-1] == "weight" and value.dim() == 2:
+        return value.t()
+    if _is_spectral_filter(path, value):
+        return value.permute(2, 3, 1, 0)
+    return value

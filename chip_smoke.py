@@ -94,8 +94,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 N_STEPS = 20
@@ -1020,38 +1022,54 @@ def inference_packages():
     return present, missing
 
 
-def no_sync_in_run_inference():
-    """A context in which the inference entry's call of ``run_inference``
-    raises at any synchronizing call, from its start to the one
-    ``torch.cuda.synchronize`` that stops its clock (the only exemption)."""
+def no_sync_in_run_inference(module=None, event_waits=None):
+    """A context in which the entry's call of ``run_inference`` (the
+    inference entry's, or ``module``'s) raises at any synchronizing call,
+    from its start to the one ``torch.cuda.synchronize`` that stops its
+    clock (the only exemption). With a list ``event_waits``, each wait on
+    a CUDA event (the histograms' wait on the pinned copies of the window
+    before) is allowed too, and recorded in the list."""
     import contextlib
 
     import torch
 
-    from ace_tpu_torch.inference import inference
+    if module is None:
+        from ace_tpu_torch.inference import inference as module
 
-    run_inference, synchronize = inference.run_inference, torch.cuda.synchronize
+    run_inference, synchronize = module.run_inference, torch.cuda.synchronize
+    event_sync = torch.cuda.Event.synchronize
 
     def exempt(device=None):
         torch.cuda.set_sync_debug_mode("default")
         synchronize(device)
 
+    def event_wait(self):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            event_sync(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+        event_waits.append(time.perf_counter())
+
     def checked(*args, **kwargs):
         torch.cuda.set_sync_debug_mode("error")
         torch.cuda.synchronize = exempt
+        if event_waits is not None:
+            torch.cuda.Event.synchronize = event_wait
         try:
             return run_inference(*args, **kwargs)
         finally:
             torch.cuda.synchronize = synchronize
+            torch.cuda.Event.synchronize = event_sync
             torch.cuda.set_sync_debug_mode("default")
 
     @contextlib.contextmanager
     def context():
-        inference.run_inference = checked
+        module.run_inference = checked
         try:
             yield
         finally:
-            inference.run_inference = run_inference
+            module.run_inference = run_inference
 
     return context()
 
@@ -1151,7 +1169,7 @@ def _entry_from_files(tmp, ckpt, series, time, info, counters, device,
 
 
 def inference_path(counters, device="cuda", sizes=None, n_steps=N_STEPS,
-                   in_memory=5, n_times=22):
+                   in_memory=5, n_times=22, keep_checkpoint=None):
     """Path I: the inference entry on the flagship stepper (weights drawn
     from seed 0 by ``flagship.draw_check_weights``, written with
     ``save_stepper`` and loaded back), over
@@ -1163,7 +1181,9 @@ def inference_path(counters, device="cuda", sizes=None, n_steps=N_STEPS,
     (on the card) that its ``run_inference`` never waits for the device
     before its clock stops, the written predictions against one
     ``Stepper.predict`` of the same initial condition, forcing and seed,
-    and the dry-air mass. Returns the writer-off run's launches, rate, phases and peak."""
+    and the dry-air mass. ``keep_checkpoint`` (a path) keeps a copy of the
+    checkpoint for path E. Returns the writer-off run's launches, rate,
+    phases and peak."""
     import contextlib
     import os
     import tempfile
@@ -1198,6 +1218,8 @@ def inference_path(counters, device="cuda", sizes=None, n_steps=N_STEPS,
     with tempfile.TemporaryDirectory() as tmp, files:
         ckpt = os.path.join(tmp, "flagship.msgpack")
         checkpoint.save_stepper(ckpt, built, config)
+        if keep_checkpoint is not None:
+            checkpoint.save_stepper(keep_checkpoint, built, config)
         del built  # the entry's peak memory holds its own stepper alone
         runs, written = _entry_from_files(
             tmp, ckpt, series, time, info, counters, device, n_steps,
@@ -1300,10 +1322,17 @@ def _field_scale(name):
     return 0.0, 1e-4, False
 
 
-def _training_files(tmp, names, nlat, nlon, generator, device):
-    """The training and validation netCDF files of ``names`` (with the
-    vertical coordinate) and the three stats files the shipped config
-    reads, drawn from ``generator`` on ``device``; returns their paths."""
+R_SPLITS = (("train", R_TRAIN_TIMES, "2000-01-01T00:00"),
+            ("valid", R_VALID_TIMES, "2001-01-01T00:00"))
+
+
+def _training_files(tmp, names, nlat, nlon, generator, device,
+                    splits=R_SPLITS):
+    """The netCDF files of ``names`` (with the vertical coordinate), one
+    directory per split of ``splits`` (name, number of 6-hourly times,
+    first time), and the three stats files the shipped config reads
+    (from the first split), drawn from ``generator`` on ``device``;
+    returns their paths."""
     import numpy as np
     import torch
 
@@ -1318,8 +1347,7 @@ def _training_files(tmp, names, nlat, nlon, generator, device):
     coords = {"lat": gaussian_latitudes(nlat),
               "lon": np.linspace(0, 360, nlon, endpoint=False)}
     paths, series = {}, {}
-    for split, n, start in (("train", R_TRAIN_TIMES, "2000-01-01T00:00"),
-                            ("valid", R_VALID_TIMES, "2001-01-01T00:00")):
+    for split, n, start in splits:
         data = {}
         for name in names:
             mean, std, positive = _field_scale(name)
@@ -1340,7 +1368,7 @@ def _training_files(tmp, names, nlat, nlon, generator, device):
         write_h5(os.path.join(paths[split], "data.nc"), data, dims,
                  coords=coords,
                  time=TimeCoord.from_range(start, n, 21600))
-    train = series["train"]
+    train = series[splits[0][0]]
     stats = {
         "centering": {k: np.float32(v.mean()) for k, v in train.items()},
         "scaling-full-field": {k: np.float32(v.std())
@@ -1591,7 +1619,8 @@ def _finite_metrics(path, n_epochs):
     return lines
 
 
-def train_entry_path(counters, device="cuda", sizes=None, path_t_rate=None):
+def train_entry_path(counters, device="cuda", sizes=None, path_t_rate=None,
+                     then=None):
     """Path R: ``python -m ace_tpu_torch.train``'s ``main`` on the shipped
     ``configs/ace2-era5-train.yaml`` with the cuts of ``_train_config``
     (at its full width unless ``sizes`` gives ``nlat``, ``nlon``,
@@ -1601,7 +1630,11 @@ def train_entry_path(counters, device="cuda", sizes=None, path_t_rate=None):
     one metrics.jsonl line per epoch, the four checkpoint files, the
     launches of each phase, and (on the card) that the batch loop never
     waits for the device; prints the rates, phases, checkpoint bytes and
-    seconds and the peak memory. Returns the launches of both runs."""
+    seconds and the peak memory. ``then(paths, best_checkpoint)`` runs
+    after the gates, inside the context that holds the run's files (its
+    stats files are named in the checkpoint's config), with every
+    checkpoint file but ``best_ckpt.msgpack`` deleted. Returns the
+    launches of both runs."""
     import contextlib
     import tempfile
 
@@ -1679,7 +1712,23 @@ def train_entry_path(counters, device="cuda", sizes=None, path_t_rate=None):
             load_msgpack(os.path.join(ckpt_dir, name))
             read_back[name] = time.perf_counter() - t0
         lines = _finite_metrics(os.path.join(out_dir, "metrics.jsonl"), 2)
+        _check_train_entry(runs, restored, records, read_back, files_found,
+                           lines, rates, launches, counters, layers, cuda,
+                           path_t_rate)
+        if then is not None:
+            for name in files_found:
+                if name != "best_ckpt.msgpack":
+                    os.remove(os.path.join(ckpt_dir, name))
+            then(paths, os.path.join(ckpt_dir, "best_ckpt.msgpack"))
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates, runs[0]["peak"], room["free"]
 
+
+def _check_train_entry(runs, restored, records, read_back, files_found,
+                       lines, rates, launches, counters, layers, cuda,
+                       path_t_rate):
+    """Path R's prints and gates."""
     first, second = runs
     for label, run in (("epoch 1", first), ("resume", second)):
         print(f"path R ({label}): phases "
@@ -1740,9 +1789,6 @@ def train_entry_path(counters, device="cuda", sizes=None, path_t_rate=None):
               f"K1; per inference step {layers} K1)")
         if any(c != want[phase] for c in counts):
             raise AssertionError(f"path R: launches in {phase}")
-    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
-                             for n in calls) for c in counters}
-    return total, rates, first["peak"], room["free"]
 
 
 def reference_train_entry_phase(device="cuda", sizes=None):
@@ -1867,6 +1913,726 @@ def reference_train_entry_phase(device="cuda", sizes=None):
             f"(losses {errs['train_loss']:.3g}, {errs['val_loss']:.3g}; "
             f"change {errs['change']:.3g} in {worst})")
     return {**errs, "worst": worst}
+
+
+# path E: the evaluator entry on the repo's ERA5 evaluator baseline
+EVAL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "baselines", "era5",
+                           "ace-evaluator-config.yaml")
+# its first initial condition, which the synthetic file must hold
+E_START = "1940-01-01T12:00"
+E_STEPS = 100
+# phase E-agg: windows of this many steps (the videos keep float64 host
+# arrays of every step, variable and grid point, on each side)
+E_AGG_WINDOW = 10
+# phase E-agg: card against CPU, the same port code; float32 sums in
+# another order round at the size of the values summed (a variable's
+# values; their squares for a variance; for a trend, the values over the
+# spread of the times in years, since the slope divides by it), so each
+# output is held within 1e-5 of the larger of its own largest value and
+# that size: an output that is a difference of such sums (a variance, a
+# trend, an anomaly, a bias) keeps their rounding whatever its own size
+E_AGG_TOL = 1e-5
+
+
+def _yaml(path):
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def _finite_files(directory, label):
+    """Every array of every netCDF file under ``directory`` is finite;
+    returns the file names."""
+    import numpy as np
+
+    from ace_tpu_torch.data.store import open_file_dataset
+
+    names = sorted(os.listdir(directory))
+    for name in names:
+        ds = open_file_dataset(os.path.join(directory, name))
+        for k in ds.keys():
+            values = np.asarray(ds[k].read(()))
+            if values.dtype.kind == "f" and not np.isfinite(values).all():
+                raise AssertionError(f"{label}: {name} {k} not finite")
+    return names
+
+
+def evaluator_path(counters, ckpt, device="cuda", n_steps=E_STEPS,
+                   in_memory=None):
+    """Path E: ``python -m ace_tpu_torch.evaluator``'s ``main`` on
+    ``configs/baselines/era5/ace-evaluator-config.yaml`` over the flagship
+    checkpoint ``ckpt`` (path I's), with path I's kind of cuts: the data
+    a synthetic netCDF file from the YAML's first initial condition on
+    (``engine: netcdf4``, held in host memory where h5py is missing),
+    ``n_steps`` steps in the YAML's windows (or ``in_memory``), no Weights
+    & Biases; the aggregator flags are the YAML's. Checks the launches,
+    no synchronizing call in ``run_inference`` but the histograms' wait on
+    the window before, finite logs and diagnostics files. Returns the
+    launches, the summary, the timer phases and the peak memory."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.data.time import TimeCoord
+    from ace_tpu_torch.inference import evaluator
+    from ace_tpu_torch.stepper.checkpoint import load_stepper
+
+    cuda = torch.device(device).type == "cuda"
+    config = _yaml(EVAL_CONFIG)
+    in_memory = in_memory or config["forward_steps_in_memory"]
+    stepper = load_stepper(ckpt, device=device)
+    info = stepper.dataset_info
+    series = flagship.synthetic_series(
+        stepper, n_steps + 1, generator=torch.Generator(device).manual_seed(4))
+    del stepper
+    time_coord = TimeCoord.from_range(E_START, n_steps + 1, 21600)
+    _, missing = inference_packages()
+    files = (h5py_in_memory() if "h5py" in missing
+             else contextlib.nullcontext())
+    waits = []
+    with tempfile.TemporaryDirectory() as tmp, files:
+        data_dir = _write_files(tmp, series, time_coord, info)
+        out_dir = os.path.join(tmp, "evaluator")
+        config.update({
+            "experiment_dir": out_dir, "checkpoint_path": ckpt,
+            "n_forward_steps": n_steps, "forward_steps_in_memory": in_memory,
+        })
+        config["logging"].update(log_to_wandb=False, log_to_screen=False)
+        config["loader"]["dataset"] = {"data_path": data_dir,
+                                       "file_pattern": "*.nc",
+                                       "engine": "netcdf4"}
+        path = _write_yaml(os.path.join(tmp, "evaluator.yaml"), config)
+        GlobalTimer.reset()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        guard = (no_sync_in_run_inference(evaluator, event_waits=waits)
+                 if cuda else contextlib.nullcontext())
+        with guard:
+            summary, launches = counted(
+                counters, lambda: evaluator.main([path], device=device))
+        phases = GlobalTimer.get_instance().get_durations()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+        diagnostics = _finite_files(os.path.join(out_dir, "diagnostics"),
+                                    "path E")
+    logs = summary["logs"]
+    bad = [k for k, v in logs.items() if not np.isfinite(v)]
+    n_windows = -(-n_steps // in_memory)
+    print(f"path E: {EVAL_CONFIG} at {info.img_shape}, {n_steps} steps in "
+          f"windows of {in_memory} from {E_START}; aggregator "
+          f"{config['aggregator']}; {len(logs)} logs, diagnostics "
+          f"{diagnostics}")
+    print(f"path E: {summary['total_steps']} steps at "
+          f"{summary['total_steps_per_second']:.4f} steps/s (batch 1); "
+          f"histograms filled in {summary['histogram_host_seconds']:.3f} s "
+          f"of host time; phases "
+          f"{ {k: round(v, 4) for k, v in sorted(phases.items())} }; peak "
+          f"device memory {peak:.2f} GB; waits on the window before "
+          f"{len(waits)}; launches {launches}")
+    if bad:
+        raise AssertionError(f"path E: logs not finite: {bad[:10]}")
+    for name in ("histogram", "zonal_mean", "time_mean", "annual"):
+        if f"{name}_diagnostics.nc" not in diagnostics:
+            raise AssertionError(f"path E: no {name} diagnostics")
+    if cuda and len(waits) != n_windows - 1:
+        raise AssertionError(f"path E: {len(waits)} waits on a CUDA event "
+                             f"in the window loop, want {n_windows - 1}")
+    return launches, summary, phases, peak
+
+
+def _tensor_scale(values):
+    import numpy as np
+
+    return float(np.max(np.abs(values))) if np.size(values) else 0.0
+
+
+def _summed_scale(key, scales, sst_name, sigma_t):
+    """The size of the values summed into the output ``key`` (``label
+    name``): its variable's largest value (named last in the key), squared
+    for a variance, over ``sigma_t`` (the times' spread in years) for a
+    trend; the SST's for the ENSO index; 0 for normalized series."""
+    if key.startswith("mean_norm "):
+        return 0.0
+    if "index" in key:
+        return scales.get(sst_name, 0.0)
+    name = max((n for n in scales if key.endswith(n)), key=len,
+               default=None)
+    if name is None:
+        return 0.0
+    if "gen_var" in key:
+        return scales[name] ** 2
+    return scales[name] / sigma_t if "trend" in key else scales[name]
+
+
+def aggregator_phase(ckpt, device="cuda", window=E_AGG_WINDOW):
+    """Phase E-agg: every aggregator of ``InferenceAggregatorConfig`` on
+    (histograms, ENSO, seasonal, near-zero, video and extended video,
+    trends, annual and step means) on the card and on the CPU, fed the
+    same two windows of ``window`` steps of path E's stepper's outputs
+    (from ``ckpt``, at its full grid) and targets. Histogram counts and
+    edges must be equal; every other log and diagnostic within
+    ``E_AGG_TOL`` of the size of the values summed into it. Returns the
+    largest error so measured, its key and the seconds each side took."""
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.aggregator.inference import InferenceAggregatorConfig
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.data.time import TimeCoord
+    from ace_tpu_torch.stepper.checkpoint import load_stepper
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    stepper = load_stepper(ckpt, device=device)
+    n = 2 * window
+    series = flagship.synthetic_series(
+        stepper, n + 1, generator=torch.Generator(device).manual_seed(5))
+    times = TimeCoord.from_range(E_START, n + 1, 21600).values
+    flags = {"log_histograms": True, "log_enso_index": True,
+             "log_seasonal_means": True, "log_near_zero_fraction": True,
+             "log_video": True, "log_extended_video": True,
+             "log_trends": True, "log_annual_means": True,
+             "log_step_means": [{"step": window}]}
+    config = from_dict(InferenceAggregatorConfig, flags)
+    years = times[1:] / 1e6 / (365.25 * 86400)
+    sigma_t = float(np.std(years - years.mean()))
+    sides = {side: config.build(stepper.dataset_info, n_timesteps=n,
+                                normalizer=stepper.step.normalizer)
+             for side in ("card", "cpu")}
+    seconds = {"card": 0.0, "cpu": 0.0}
+    state = stepper.get_initial_state(PrognosticState(data={
+        k: torch.as_tensor(series[k][None, :1]).to(stepper.device)
+        for k in stepper.prognostic_names}))
+    generator = torch.Generator(stepper.device).manual_seed(0)
+    scales: dict[str, float] = {}
+    for w in range(2):
+        sl = slice(w * window, (w + 1) * window + 1)
+        forcing = {k: torch.as_tensor(series[k][None, sl]).to(stepper.device)
+                   for k in stepper.forcing_window_names}
+        with torch.inference_mode():
+            outputs, state = stepper.predict(state, forcing,
+                                             generator=generator,
+                                             n_forward=window)
+        target = {k: torch.as_tensor(series[k][None, sl][:, 1:]).to(
+            stepper.device) for k in outputs}
+        window_time = TimeCoord(times[None, sl][:, 1:])
+        host = {k: v.cpu() for k, v in outputs.items()}
+        host_target = {k: v.cpu() for k, v in target.items()}
+        for k in outputs:
+            scales[k] = max(scales.get(k, 0.0),
+                            _tensor_scale(host[k].numpy()),
+                            _tensor_scale(host_target[k].numpy()))
+        for side, (gen, tgt) in (("card", (outputs, target)),
+                                 ("cpu", (host, host_target))):
+            t0 = time.perf_counter()
+            sides[side].record_batch(gen, tgt, time=window_time)
+            if gen is outputs and stepper.device.type == "cuda":
+                torch.cuda.synchronize()
+            seconds[side] += time.perf_counter() - t0
+    results = {}
+    for side, agg in sides.items():
+        t0 = time.perf_counter()
+        results[side] = (agg.get_logs(), agg.get_diagnostics())
+        seconds[side] += time.perf_counter() - t0
+    (logs, diags), (ref_logs, ref_diags) = results["card"], results["cpu"]
+    sst = config.enso_sst_name
+    if set(logs) != set(ref_logs) or set(diags) != set(ref_diags):
+        raise AssertionError("phase E-agg: the card's and the CPU's "
+                             "aggregators give other keys")
+    errs, n_hist = {}, 0
+    arrays = {f"log {k}": (logs[k], v) for k, v in ref_logs.items()}
+    for label, ref in ref_diags.items():
+        if set(diags[label]) != set(ref):
+            raise AssertionError(f"phase E-agg: {label} keys differ")
+        for k, v in ref.items():
+            if label == "histogram":
+                n_hist += 1
+                if not np.array_equal(diags[label][k], v):
+                    raise AssertionError(f"phase E-agg: histogram {k} "
+                                         "differs from the CPU's")
+            else:
+                arrays[f"{label} {k}"] = (diags[label][k], v)
+    for key, (out, ref) in arrays.items():
+        out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+        if out.shape != ref.shape:
+            raise AssertionError(f"phase E-agg: {key} shape {out.shape}")
+        if not np.array_equal(np.isnan(out), np.isnan(ref)):
+            raise AssertionError(f"phase E-agg: {key} NaN where the CPU's "
+                                 "is not")
+        finite = ~np.isnan(ref)
+        size = max(_tensor_scale(ref[finite]),
+                   _summed_scale(key, scales, sst, sigma_t))
+        diff = _tensor_scale(out[finite] - ref[finite])
+        errs[key] = diff / size if size else diff
+    worst = max(errs, key=errs.get)
+    largest = sorted(errs, key=errs.get)[-5:]
+    print("phase E-agg: the five largest errors "
+          f"{ {k: float(f'{errs[k]:.3g}') for k in largest} }")
+    card = sides["card"]._aggregators
+    print(f"phase E-agg: every aggregator, card and CPU, on two windows of "
+          f"{window} steps of path E's stepper at "
+          f"{stepper.dataset_info.img_shape} ({len(scales)} variables): "
+          f"{n_hist} histogram arrays equal; {len(errs)} other logs and "
+          f"diagnostics, largest error {errs[worst]:.3g} of the values "
+          f"summed ({worst}; tol {E_AGG_TOL}); seconds card "
+          f"{seconds['card']:.3f}, CPU {seconds['cpu']:.3f}; on the card "
+          f"the histograms' host fill {card['histogram'].host_seconds:.3f} "
+          f"s, the video's drains {card['video'].drain_seconds:.3f} s "
+          f"({card['video'].forced_drains} forced by "
+          f"{card['video'].DRAIN_BYTES} bytes)")
+    if n_hist == 0 or errs[worst] > E_AGG_TOL:
+        raise AssertionError("phase E-agg: the card's aggregators disagree "
+                             "with the CPU's")
+    return errs[worst], worst, seconds
+
+
+# path F: the fine-tuning entry on the repo's ERA5 multi-step baseline
+FINETUNE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "baselines", "era5",
+                               "ace-train-config-multi-step-finetuning.yaml")
+# 22 six-hourly times a file: two windows of the longest sampled rollout
+# (20 steps), so each of the concat's three subsets gives 2 samples
+F_TIMES = 22
+F_SPLITS = (("subset_0", F_TIMES, "1995-12-20T00:00"),
+            ("subset_1", F_TIMES, "2015-06-01T00:00"),
+            ("subset_2", F_TIMES, "2021-03-01T00:00"),
+            ("valid", F_TIMES, "1996-06-01T00:00"))
+F_INFERENCE_STEPS = 4
+
+
+def _time_mean_reference(tmp, paths, names):
+    """A synthetic time-mean reference: each variable's map at its
+    centering value."""
+    import numpy as np
+
+    from ace_tpu_torch.core.normalizer import load_scalar_dict_from_file
+    from ace_tpu_torch.data.store import write_h5
+
+    means = load_scalar_dict_from_file(paths["centering"])
+    grid = _data_grid(paths)
+    data = {k: np.full(grid, means[k], np.float32) for k in names}
+    path = os.path.join(tmp, "time-mean.nc")
+    write_h5(path, data, {k: ("lat", "lon") for k in data})
+    return path
+
+
+def _data_grid(paths):
+    from ace_tpu_torch.data.store import open_file_dataset
+
+    ds = open_file_dataset(os.path.join(paths["valid"], "data.nc"))
+    return (len(ds["lat"].read(())), len(ds["lon"].read(())))
+
+
+def _finetune_config(paths, base, experiment_dir, tmp, names):
+    """The shipped fine-tuning config with path F's cuts: each subset of
+    the training ``concat`` reads its own synthetic file (times inside
+    the subset), batch 2 for both loaders, one epoch, one inline
+    inference entry of ``F_INFERENCE_STEPS`` steps with the YAML's
+    aggregator flags and a synthetic time-mean reference, the base
+    weights and the stepper from ``base``, no Weights & Biases."""
+    config = _yaml(FINETUNE_CONFIG)
+    config["experiment_dir"] = experiment_dir
+    config["max_epochs"] = 1
+    config["logging"].update(log_to_wandb=False, log_to_screen=False)
+    for i, entry in enumerate(config["train_loader"]["dataset"]["concat"]):
+        entry.update(data_path=paths[f"subset_{i}"], file_pattern="*.nc",
+                     engine="netcdf4")
+    config["validation_loader"]["dataset"].update(
+        data_path=paths["valid"], file_pattern="*.nc", engine="netcdf4")
+    for loader in ("train_loader", "validation_loader"):
+        config[loader]["batch_size"] = R_BATCH
+    (entry,) = config["inference"]
+    entry.update(n_forward_steps=F_INFERENCE_STEPS,
+                 forward_steps_in_memory=F_INFERENCE_STEPS)
+    entry["loader"]["dataset"] = {"data_path": paths["valid"],
+                                  "file_pattern": "*.nc",
+                                  "engine": "netcdf4"}
+    entry["loader"]["start_indices"] = {"list": [0, 1]}
+    entry["aggregator"]["time_mean_reference_data"] = _time_mean_reference(
+        tmp, paths, names)
+    config["stepper_training"]["parameter_init"]["weights_path"] = base
+    config["stepper"]["checkpoint_path"] = base
+    return config
+
+
+def _module_checksums(state):
+    """Per-tensor checksums of a ``state_dict``, on its device."""
+    import torch
+
+    out = {}
+    for name, t in state.items():
+        bits = t.detach().contiguous().view(
+            torch.int16 if t.element_size() == 2 else torch.int32
+        ).reshape(-1).to(torch.int64)
+        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out[name] = torch.stack([bits.sum(), (bits * weight).sum()])
+    values = torch.stack(list(out.values())).cpu().tolist()
+    return dict(zip(out, map(tuple, values)))
+
+
+def _train_step_probe(counters, steps):
+    """A context that records, for each ``TrainStepper.train_step`` call,
+    its rollout length and the launches it made (the counts' growth over
+    the call: the phase probes count on)."""
+    import contextlib
+
+    from ace_tpu_torch.stepper.train import TrainStepper
+
+    train_step = TrainStepper.train_step
+
+    def probed(self, batch, generator, n_steps=None, **kwargs):
+        before = {c.__name__: c.launches for c in counters}
+        out = train_step(self, batch, generator, n_steps, **kwargs)
+        steps.append((n_steps, {c.__name__: c.launches - before[c.__name__]
+                                for c in counters}))
+        return out
+
+    @contextlib.contextmanager
+    def context():
+        TrainStepper.train_step = probed
+        try:
+            yield
+        finally:
+            TrainStepper.train_step = train_step
+
+    return context()
+
+
+def finetune_entry_path(counters, paths, base, device="cuda", sizes=None):
+    """Path F: ``python -m ace_tpu_torch.train``'s ``main`` on
+    ``configs/baselines/era5/ace-train-config-multi-step-finetuning.yaml``
+    with the cuts of ``_finetune_config``, from path R's
+    ``best_ckpt.msgpack`` (``base``; ``paths`` are path R's files, whose
+    stats files its config names). Checks that the start weights equal
+    the base's (checksums), finite metrics, the four checkpoint files, no
+    synchronizing call in the batch loop, and the launches of each train
+    step of n sampled steps (8n + 8 K1: a step's forward, and the last
+    step's per-block recompute; 8 of 1b and 8 of 1c); then times one
+    ``train_step`` at 20 steps against one at 1 step and checks their
+    peaks. Returns the launches, the peaks and the 20-step seconds."""
+    import tempfile
+
+    import torch
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.stepper.parameter_init import read_base_weights
+    from ace_tpu_torch.stepper.train import TrainStepper
+    from ace_tpu_torch.train.train import main as train_main
+
+    sizes = sizes or {}
+    nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
+    cuda = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        names = sorted(set(_yaml(TRAIN_CONFIG)["stepper"]["step"]["config"]
+                           ["in_names"])
+                       | set(_yaml(TRAIN_CONFIG)["stepper"]["step"]["config"]
+                             ["out_names"]))
+        files = _training_files(tmp, names, nlat, nlon,
+                                torch.Generator(device).manual_seed(9),
+                                device, splits=F_SPLITS)
+        files.update({k: paths[k] for k in ("centering", "scaling-full-field",
+                                             "scaling-residual")})
+        out_dir = os.path.join(tmp, "experiment")
+        config = _finetune_config(files, base, out_dir, tmp, names)
+        path = _write_yaml(os.path.join(tmp, "finetune.yaml"), config)
+        start = {}
+        init = TrainStepper.init
+
+        def checked_init(self, generator=None):
+            init(self, generator)
+            start.update(_module_checksums(self.module.state_dict()))
+
+        base_state, _ = read_base_weights(base)
+        want_start = _module_checksums(base_state)
+        del base_state
+        steps, launches, rates, restored = [], {}, [], {}
+        TrainStepper.init = checked_init
+        try:
+            GlobalTimer.reset()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            with (_train_step_probe(counters, steps),
+                  _phase_probes(counters, launches, rates, cuda, restored)):
+                trainer = train_main([path], device=device)
+        finally:
+            TrainStepper.init = init
+        peak_run = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+        phases = GlobalTimer.get_instance().get_durations()
+        files_found = sorted(os.listdir(os.path.join(
+            out_dir, "training_checkpoints")))
+        lines = _finite_metrics(os.path.join(out_dir, "metrics.jsonl"), 1)
+        # the worst case: one train step of the longest sampled rollout
+        ts = trainer.train_stepper
+        batch = next(iter(trainer.train_data)).data
+        peaks, seconds = {}, {}
+        for n in (1, ts.train_config.max_n_forward_steps):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ts.train_step(batch, trainer.generator, n)
+            if cuda:
+                torch.cuda.synchronize()
+            seconds[n] = time.perf_counter() - t0
+            peaks[n] = (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                        else 0.0)
+        del trainer, ts, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    layers = _yaml(TRAIN_CONFIG)["stepper"]["step"]["config"]["builder"][
+        "config"]["num_layers"] if not sizes else sizes["layers"]
+    differ = [k for k, v in want_start.items() if start.get(k) != v]
+    longest = max(seconds)
+    print(f"path F: {FINETUNE_CONFIG} from path R's best_ckpt.msgpack at "
+          f"{nlat}x{nlon}: start weights against the base's "
+          f"{len(want_start) - len(differ)} of {len(want_start)} checksums "
+          f"equal; sampled rollout lengths {[n for n, _ in steps]}; "
+          f"files {files_found}; peak device memory {peak_run:.2f} GB")
+    print(f"path F: metrics train/loss {lines[0]['train/loss']:.6g}, "
+          f"val/loss {lines[0]['val/loss']:.6g}, inference error "
+          f"{lines[0]['inference/inference_error']:.6g}; batch loop "
+          f"{rates[0]:.4f} train steps/s; phases "
+          f"{ {k: round(v, 4) for k, v in sorted(phases.items())} }")
+    print(f"path F: one train_step of {longest} steps (batch {R_BATCH} x 2 "
+          f"members) {seconds[longest]:.3f} s, peak {peaks[longest]:.3f} "
+          f"GB; of 1 step {seconds[1]:.3f} s, peak {peaks[1]:.3f} GB; the "
+          f"longest's peak {1e3 * (peaks[longest] - peaks[1]):.1f} MB above "
+          f"(gate 3 GB)")
+    if differ or not start:
+        raise AssertionError(f"path F: the start weights differ from the "
+                             f"base's: {differ[:5]}")
+    want_files = {"ckpt.msgpack", "best_ckpt.msgpack", "ema_ckpt.msgpack",
+                  "best_inference_ckpt.msgpack"}
+    if not want_files <= set(files_found):
+        raise AssertionError(f"path F: checkpoint files {files_found}")
+    none = {c.__name__: 0 for c in counters}
+    for n, counts in steps:
+        want = (none if not cuda else
+                {**none, "dhconv_filter": layers * n + layers,
+                 "dhconv_filter_dx": layers, "dhconv_filter_dw": layers})
+        print(f"path F: train step of {n} steps: launches {counts} (want "
+              f"{want})")
+        if counts != want:
+            raise AssertionError(f"path F: launches of a {n}-step train step")
+    # per validation batch: the loss of the longest rollout and the
+    # one-step prediction; per inference step: one forward
+    want = {"validate": {**none, "dhconv_filter": layers * (longest + 1)
+                         * ((F_TIMES - longest) // R_BATCH)},
+            "inference_one_epoch": {
+                **none, "dhconv_filter": layers * F_INFERENCE_STEPS}}
+    for phase in want:
+        print(f"path F: launches per {phase} call {launches[phase]} (want "
+              f"{want[phase] if cuda else none})")
+        if any(c != (want[phase] if cuda else none)
+               for c in launches[phase]):
+            raise AssertionError(f"path F: launches in {phase}")
+    if peaks[longest] - peaks[1] > 3.0:
+        raise AssertionError("path F: the longest train step's peak exceeds "
+                             "the 1-step peak by more than 3 GB")
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, peaks, seconds[longest]
+
+
+def reference_finetune_phase(device="cuda", sizes=None):
+    """Reference phase F: one epoch of a small bf16 copy of path F's config
+    (embed 128, 2 layers, 16x32, MSE loss, as reference R) through the
+    training entry's ``main`` on ``device`` and on the CPU, with every
+    fine-tuning option on: the base weights of a one-epoch CPU run of
+    reference R's config with the encoder excluded (both sides start it
+    from the same draw), frozen filters, L2-SP (``alpha`` and ``beta``),
+    the decoder copied back after each update, gradient accumulation over
+    2 batches, and Adam's state from the base run's ``ckpt.msgpack``; the
+    same noise on both. The frozen and copied weights must be bit-equal to
+    the base's on both devices, the losses agree within
+    ``flagship.TRAIN_LOSS_TOL`` and each other weight's and EMA weight's
+    change from the start within ``R_CHANGE_TOL``. Returns the errors."""
+    import contextlib
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.models.conditional_sfno import NoiseConditionedSFNO
+    from ace_tpu_torch.stepper.parameter_init import read_base_weights
+    from ace_tpu_torch.stepper.stepper import Stepper
+    from ace_tpu_torch.train.train import main as train_main
+
+    sizes = sizes or dict(nlat=16, nlon=32, embed=128, layers=2)
+    _, missing = inference_packages()
+    files = (h5py_in_memory() if "h5py" in missing
+             else contextlib.nullcontext())
+    drawn = {}
+    init_params, make_noise = Stepper.init_params, (
+        NoiseConditionedSFNO.make_noise)
+
+    def fixed_init(self, generator=None):
+        # the CPU run draws the weights, the card's loads the same
+        if not drawn:
+            Stepper.init_params = init_params
+            try:
+                flagship.draw_check_weights(self,
+                                            torch.Generator().manual_seed(3))
+            finally:
+                Stepper.init_params = fixed_init
+            drawn.update({k: v.detach().cpu().clone() for k, v in
+                          self.module.state_dict().items()})
+        self.load_state_dict({k: v.to(self.device)
+                              for k, v in drawn.items()})
+
+    def fixed_noise(self, batch, generator):
+        noise = np.random.RandomState(batch).randn(
+            batch, *self.img_shape, self.noise_embed_dim)
+        return torch.as_tensor(noise, dtype=torch.float32).to(
+            next(self.parameters()).device)
+
+    frozen, copied = ["*filter*"], ["*decoder*"]
+    losses, changes, held = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp, files:
+        step = _yaml(TRAIN_CONFIG)["stepper"]["step"]["config"]
+        names = sorted(set(step["in_names"]) | set(step["out_names"]))
+        paths = _training_files(tmp, names, sizes["nlat"], sizes["nlon"],
+                                torch.Generator().manual_seed(8), "cpu",
+                                splits=F_SPLITS)
+        base_dir = os.path.join(tmp, "base")
+        config, _ = _train_config(
+            {**paths, "train": paths["subset_0"]}, base_dir, sizes["embed"],
+            sizes["layers"], inference=False, loss={"type": "MSE"})
+        train_main([_write_yaml(os.path.join(tmp, "base.yaml"), config)],
+                   device="cpu")
+        ckpts = os.path.join(base_dir, "training_checkpoints")
+        base = os.path.join(ckpts, "best_ckpt.msgpack")
+        base_state, _ = read_base_weights(base)
+        Stepper.init_params = fixed_init
+        NoiseConditionedSFNO.make_noise = fixed_noise
+        try:
+            for dev in ("cpu", device):
+                out_dir = os.path.join(tmp, f"finetune_{dev}")
+                config = _finetune_config(paths, base, out_dir, tmp, names)
+                del config["inference"]
+                config["stepper_training"]["loss"] = {"type": "MSE"}
+                config["stepper_training"]["parameter_init"].update(
+                    exclude_parameters=["*encoder*"],
+                    frozen_parameters={"include": frozen},
+                    alpha=0.05, beta=0.01)
+                config["copy_weights_after_batch"] = {"include": copied}
+                config["optimization"].update(
+                    gradient_accumulation_steps=2,
+                    resume_optimizer_ckpt_path=os.path.join(
+                        ckpts, "ckpt.msgpack"))
+                path = _write_yaml(os.path.join(tmp, f"ft_{dev}.yaml"),
+                                   config)
+                trainer = train_main([path], device=dev)
+                with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                    line = json.loads(f.readline())
+                losses[dev] = (line["train/loss"], line["val/loss"])
+                ts = trainer.train_stepper
+                names_p = ts.parameter_names()
+                start = {k: (drawn[k] if "encoder" in k else base_state[k])
+                         for k in names_p}
+                state = {k: v.detach().cpu() for k, v in
+                         trainer.stepper.module.state_dict().items()}
+                held[dev] = [k for k in names_p
+                             if ("filter" in k or "decoder" in k)
+                             and not torch.equal(state[k], base_state[k])]
+                changes[dev] = {
+                    f"{label}/{name}": (t.detach().cpu().double()
+                                        - start[name].double())
+                    for label, group in (("param", ts.parameters()),
+                                         ("ema", ts.ema.ema_params))
+                    for name, t in zip(names_p, group)
+                    if not ("filter" in name or "decoder" in name)
+                }
+                opt = ts.optimization
+                counts = (opt._count, opt.adam_count, opt.schedule_count)
+                del trainer, ts
+        finally:
+            Stepper.init_params, NoiseConditionedSFNO.make_noise = (
+                init_params, make_noise)
+    n_held = sum(("filter" in k or "decoder" in k) for k in base_state)
+    errs = {key: abs(a - b) / abs(b) for key, a, b in
+            zip(("train_loss", "val_loss"), losses[device], losses["cpu"])}
+    change_errs = {
+        k: float((changes[device][k] - ref).norm()
+                 / ref.norm().clamp_min(1e-30))
+        for k, ref in changes["cpu"].items()
+    }
+    worst = max(change_errs, key=change_errs.get)
+    errs["change"] = change_errs[worst]
+    errs["moved"] = sum(bool(ref.norm() > 0)
+                        for ref in changes["cpu"].values())
+    print(f"reference F: one fine-tuning epoch through main, {device} / CPU "
+          f"(counts: batches, Adam's, the schedule's {counts}): train loss "
+          f"{losses[device][0]:.6g} / {losses['cpu'][0]:.6g}, validation "
+          f"loss {losses[device][1]:.6g} / {losses['cpu'][1]:.6g}; relative "
+          f"errors {errs['train_loss']:.3g}, {errs['val_loss']:.3g} (tol "
+          f"{flagship.TRAIN_LOSS_TOL}); {n_held} frozen or copied tensors, "
+          f"those off the base: card {held[device]}, CPU {held['cpu']}; "
+          f"each other tensor's change, relative L2: largest "
+          f"{errs['change']:.3g} ({worst}) over {len(change_errs)} tensors, "
+          f"{errs['moved']} moved on the CPU (tol {R_CHANGE_TOL})")
+    if not n_held or held[device] or held["cpu"]:
+        raise AssertionError("reference F: a frozen or copied weight left "
+                             "the base's")
+    if not errs["moved"]:
+        raise AssertionError("reference F: the epoch moved no weight")
+    if not (max(errs["train_loss"], errs["val_loss"])
+            <= flagship.TRAIN_LOSS_TOL and errs["change"] <= R_CHANGE_TOL):
+        raise AssertionError(
+            f"reference F: the epoch on the card disagrees with the CPU "
+            f"(losses {errs['train_loss']:.3g}, {errs['val_loss']:.3g}; "
+            f"change {errs['change']:.3g} in {worst})")
+    return {**errs, "worst": worst, "counts": counts}
+
+
+def _entry_paths(counters, keep, none, smi, rate_t):
+    """Paths I, E (with phase E-agg), R and F (with reference phases R
+    and F): the launches of each."""
+    from ace_tpu_torch import flagship
+
+    # path I: the inference entry, K1 in each block of each step
+    print(smi)
+    ckpt = os.path.join(keep, "flagship.msgpack")
+    launches_i, _, _, _ = inference_path(counters, keep_checkpoint=ckpt)
+    per_step = flagship.LAYERS * N_STEPS
+    if launches_i != {**none, "dhconv_filter": per_step}:
+        raise AssertionError(f"path I: launches {launches_i}, want "
+                             f"{per_step} of dhconv_filter only")
+
+    # path E: the evaluator entry over path I's checkpoint, K1 in each
+    # block of each step; then every aggregator, card against CPU
+    print(smi)
+    launches_e, _, _, _ = evaluator_path(counters, ckpt)
+    want_e = {**none, "dhconv_filter": flagship.LAYERS * E_STEPS}
+    if launches_e != want_e:
+        raise AssertionError(f"path E: launches {launches_e}, want {want_e}")
+    aggregator_phase(ckpt)
+    gc.collect()
+
+    # reference phases R and F, path R and, from its best checkpoint,
+    # path F: the training entries, K1 in each block's forward (and
+    # recompute), 1b and 1c in each block's backward
+    reference_train_entry_phase()
+    reference_finetune_phase()
+    print(smi)
+    launches_f = {}
+
+    def then(paths, best):
+        print(smi)
+        launches_f.update(finetune_entry_path(counters, paths, best)[0])
+
+    launches_r, _, _, _ = train_entry_path(counters, path_t_rate=rate_t,
+                                           then=then)
+    return {"I": launches_i, "E": launches_e, "R": launches_r,
+            "F": launches_f}
 
 
 def main() -> int:
@@ -2010,22 +2776,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # path I: the inference entry, K1 in each block of each step
-    print(smi)
-    launches_i, _, _, _ = inference_path(counters)
-    if launches_i != {**none, "dhconv_filter": per_step}:
-        raise AssertionError(f"path I: launches {launches_i}, want "
-                             f"{per_step} of dhconv_filter only")
+    # the flagship checkpoint of path I, for path E
+    keep = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        by_path = {"0": launches0, "A": launches_a, "B": launches_b,
+                   "T": launches_t, "T-A": launches_ta}
+        by_path.update(_entry_paths(counters, keep, none, smi, rate_t))
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
 
-    # reference phase R and path R: the training entry, K1 in each block's
-    # forward (and recompute), 1b and 1c in each block's backward
-    reference_train_entry_phase()
-    print(smi)
-    launches_r, _, _, _ = train_entry_path(counters, path_t_rate=rate_t)
-
-    by_path = {"0": launches0, "A": launches_a, "B": launches_b,
-               "T": launches_t, "T-A": launches_ta, "I": launches_i,
-               "R": launches_r}
     own_path = {"dhconv_filter": "0", "fused_block_tail": "A",
                 "fused_sht": "B", "dhconv_filter_dx": "T",
                 "dhconv_filter_dw": "T"}

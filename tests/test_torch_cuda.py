@@ -477,3 +477,92 @@ def test_reference_r_holds_the_updates_and_catches_planted_faults(
     with pytest.raises(AssertionError, match="reference R") as info:
         chip_smoke.reference_train_entry_phase()
     print(f"reference R reading, fault {fault}: {info.value}")
+
+
+def test_histograms_on_the_card_equal_the_cpu(cuda):
+    """``HistogramAggregator`` fed card tensors (pinned copies closed by an
+    event, filled one window behind) gives the counts and edges of one fed
+    the same values on the CPU."""
+    from ace_tpu_torch.aggregator.histogram import HistogramAggregator
+
+    gen = torch.Generator(cuda).manual_seed(0)
+    card, host = HistogramAggregator(), HistogramAggregator()
+    for w in range(3):
+        gen_w = {"a": torch.randn(2, 5, 18, 36, generator=gen, device=cuda)
+                 * (1 + w),
+                 "b": torch.randn(2, 5, 18, 36, generator=gen, device=cuda)}
+        tgt_w = {"a": torch.randn(2, 5, 18, 36, generator=gen, device=cuda)}
+        card.record_batch(gen_w, tgt_w)
+        host.record_batch({k: v.cpu() for k, v in gen_w.items()},
+                          {k: v.cpu() for k, v in tgt_w.items()})
+    out, ref = card.get_diagnostics(), host.get_diagnostics()
+    assert set(out) == set(ref) and len(ref) == 6
+    for k, v in ref.items():
+        assert (out[k] == v).all(), k
+    assert card.get_logs() == host.get_logs()
+
+
+def test_accumulation_and_frozen_updates_on_the_card(cuda):
+    """``Optimization.step`` with gradient accumulation and a frozen
+    parameter on the card against the CPU: the frozen weight stays, the
+    others, the moments and the running mean within 1e-6 relative."""
+    from ace_tpu_torch.core.optimization import OptimizationConfig
+
+    config = OptimizationConfig(optimizer_type="AdamW", lr=1e-2,
+                                max_grad_norm=0.5,
+                                gradient_accumulation_steps=2)
+    gen = torch.Generator().manual_seed(0)
+    start = [torch.randn(7, 5, generator=gen), torch.randn(11, generator=gen)]
+    grads = [[torch.randn_like(p) for p in start] for _ in range(5)]
+    out = []
+    for device in ("cpu", cuda):
+        opt = config.build(max_epochs=1)
+        opt.set_frozen([True, False])
+        params = [p.clone().to(device) for p in start]
+        opt.init(params)
+        for g in grads:
+            opt.step(params, [x.to(device) for x in g])
+        out.append(([p.cpu() for p in params],
+                    [t.cpu() for t in opt.mu + opt.nu + opt.acc],
+                    (opt._count, opt.adam_count, opt.schedule_count,
+                     opt.mini_step)))
+    (p_cpu, s_cpu, c_cpu), (p_card, s_card, c_card) = out
+    assert c_card == c_cpu == (5, 2, 2, 1)
+    assert torch.equal(p_card[0], start[0]) and torch.equal(p_cpu[0],
+                                                            start[0])
+    for a, b in zip(p_card + s_card, p_cpu + s_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("keep_graphs", [False, True])
+def test_last_step_only_holds_one_step_of_activations(cuda, keep_graphs):
+    """Path F's memory gate on the flagship train step (embed 512, 8
+    layers, 180x360, per-block recompute, batch 1 x 2 members): at 6
+    rollout steps with ``optimize_last_step_only`` the peak stays within
+    3 GB of the 1-step step's; with every step's graph kept (the loss
+    summed over the steps: the memory the loss held before the earlier
+    steps ran without grad) it passes that by far, so the gate sees the
+    fault. Prints the readings (with ``-s``)."""
+    import dataclasses
+
+    from ace_tpu_torch import flagship
+
+    ts = flagship.build_train_stepper(device=cuda)
+    ts.train_config = dataclasses.replace(
+        ts.train_config, n_forward_steps=6,
+        optimize_last_step_only=not keep_graphs)
+    ts.init(torch.Generator(cuda).manual_seed(0))
+    batch = flagship.synthetic_batch(
+        ts.stepper, 1, 6, generator=torch.Generator(cuda).manual_seed(1))
+    peaks = {}
+    for n in (1, 6):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts.train_step(batch, torch.Generator(cuda).manual_seed(2), n)
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated() / 1e9
+    extra = peaks[6] - peaks[1]
+    print(f"\nflagship train step, batch 1 x 2, keep_graphs {keep_graphs}: "
+          f"peak 1 step {peaks[1]:.3f} GB, 6 steps {peaks[6]:.3f} GB, "
+          f"{extra:.3f} GB above (gate 3 GB)")
+    assert (extra > 3.0) == keep_graphs, extra

@@ -391,12 +391,7 @@ def test_entry_needs_cuda_unless_cpu_is_asked(setup, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, match", [
-    ({"mesh": {"data": 2}}, "Queue 1 item 12"),
-    ({"aggregator": {"log_histograms": True}}, "Queue 1 item 5"),
-    ({"aggregator": {"log_enso_index": True}}, "Queue 1 item 5"),
-    ({"aggregator": {"log_trends": True}}, "Queue 1 item 5"),
-    ({"aggregator": {"log_video": True}}, "Queue 1 item 5"),
-    ({"aggregator": {"log_seasonal_means": True}}, "Queue 1 item 5"),
+    ({"mesh": {"data": 2}}, "Multi-GPU"),
 ])
 def test_entry_refuses_what_is_not_ported(setup, tmp_path, extra, match):
     _, data, ckpt = setup

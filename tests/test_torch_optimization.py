@@ -138,8 +138,6 @@ def test_ema_matches_ace_tpu():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        to.OptimizationConfig(gradient_accumulation_steps=2)
     with pytest.raises(NotImplementedError):
         to.OptimizationConfig(optimizer_type="SGD")
     with pytest.raises(NotImplementedError):

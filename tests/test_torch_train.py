@@ -44,7 +44,6 @@ from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
 from ace_tpu_torch.core.step import StepSelector
 from ace_tpu_torch.models.conditional_sfno import NoiseConditionedSFNO
 from ace_tpu_torch.ops import dhconv_filter as filter_ops
-from ace_tpu_torch.stepper.parameter_init import ParameterInitializationConfig
 from ace_tpu_torch.stepper.stepper import StepperConfig
 from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
 from ace_tpu_torch.utils.convert import (
@@ -528,9 +527,5 @@ def test_schedule_is_a_copy_of_ace_tpu():
 
 
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="fine-tuning"):
-        ParameterInitializationConfig(weights_path="base.msgpack")
-    with pytest.raises(NotImplementedError, match="fine-tuning"):
-        ParameterInitializationConfig(alpha=0.1)
     with pytest.raises(ValueError, match="n_ensemble"):
         StepperTrainConfig(loss=from_dict(StepLossConfig, LOSS), n_ensemble=1)
