@@ -20,8 +20,9 @@ StepperState = dict
 class StepArgs:
     """Arguments to ``step``. ``generator`` draws the model's noise; with
     None the noise is zero (the JAX model without a "noise" rng).
-    ``deterministic`` turns off dropout-like randomness (the ported models
-    have none; the noise is drawn either way, as in the JAX package);
+    ``deterministic`` turns off dropout and drop-path (the SFNO's random
+    layers, which draw from ``generator``; the noise is drawn either way,
+    as in the JAX package);
     ``corrector_disabled`` skips the post-step corrector (the train loop
     sets it during the first ``corrector_disabled_epochs``)."""
 

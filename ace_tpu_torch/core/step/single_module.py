@@ -240,7 +240,8 @@ class SingleModuleStep:
         def network_call(input_norm, generator):
             packed = self.in_packer.pack(input_norm)
             return self.out_packer.unpack(
-                self.module(packed, generator=generator)
+                self.module(packed, generator=generator,
+                            deterministic=args.deterministic)
             )
 
         return step_with_adjustments(

@@ -33,8 +33,11 @@ def cached_on_device(cache: dict, name: str, array: np.ndarray,
     """``array`` as a tensor on ``device``, made once per device and kept
     in ``cache`` (host-side constants that device math reads each step).
     The copy does not wait for the device, so a constant first needed
-    inside a loop that must not synchronize can be made there."""
+    inside a loop that must not synchronize can be made there. It is made
+    outside inference mode even when first needed inside it (a rollout
+    before any train step), so that autograd can save it later."""
     key = (name, str(device))
     if key not in cache:
-        cache[key] = torch.as_tensor(array).to(device, non_blocking=True)
+        with torch.inference_mode(False):
+            cache[key] = torch.as_tensor(array).to(device, non_blocking=True)
     return cache[key]

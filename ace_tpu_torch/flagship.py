@@ -191,8 +191,9 @@ def draw_check_weights(stepper: Stepper, generator: torch.Generator):
             if "w_scale_2d" in name or "w_bias_2d" in name:
                 p.normal_(std=0.1, generator=generator)
             elif name.endswith("filter.weight"):
-                # [2, L, I, O]: the fan-in is I
-                p.normal_(std=p.shape[2] ** -0.5, generator=generator)
+                # [2, L, I, O] (dhconv) or [2, L, M, I, O] (diagonal):
+                # the fan-in is I
+                p.normal_(std=p.shape[-2] ** -0.5, generator=generator)
 
 
 def fixed_noise(stepper: Stepper, noise: torch.Tensor):

@@ -212,7 +212,7 @@ class ConditionalFNOBlock(nn.Module):
 class NoiseConditionedSFNO(nn.Module):
     """Stochastic SFNO (port of ace_tpu/models/conditional_sfno.py:366).
 
-    ``forward(x, noise=None, generator=None)`` maps ``[B, nlat, nlon,
+    ``forward(x, noise=None, generator=None, deterministic=True)`` maps ``[B, nlat, nlon,
     in_chans]`` float32 to ``[B, nlat, nlon, out_chans]`` float32. The
     conditioning field is ``noise`` when given; otherwise it is drawn with
     ``generator`` (on the model's device); with neither it is zero, as the
@@ -325,7 +325,8 @@ class NoiseConditionedSFNO(nn.Module):
         scale = math.sqrt(4.0 * math.pi) / lmax
         return self.itrans_up.inverse_pair(real * scale, imag * scale)
 
-    def forward(self, x, noise=None, generator=None):
+    def forward(self, x, noise=None, generator=None, deterministic=True):
+        # the model has no dropout: ``deterministic`` changes nothing
         if noise is None:
             noise = self.make_noise(x.shape[0], generator)
         if any(block.fused_tail for block in self._blocks()):

@@ -42,6 +42,11 @@ class Linear(nn.Linear):
         with torch.no_grad():
             if self.init == "zeros":
                 self.weight.zero_()
+            elif self.init == "lecun_normal":
+                # flax Dense's default: truncated normal of variance
+                # 1/fan_in (std corrected for the truncation at ±2)
+                std = (1.0 / self.in_features) ** 0.5 / 0.87962566103423978
+                trunc_normal_init(self.weight, std=std, generator=generator)
             else:
                 trunc_normal_init(self.weight, generator=generator)
             if self.bias is not None:
@@ -53,20 +58,153 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: zero each element with probability ``rate``
+    and divide the kept ones by ``1 - rate``; the identity when
+    ``deterministic`` or ``rate`` is 0. The mask is drawn from
+    ``generator``, which a random layer needs (as the JAX layer needs its
+    "dropout" rng)."""
+    if rate == 0.0 or deterministic:
+        return x
+    return _drop(x, rate, x.shape, generator)
+
+
+def _drop(x, rate, mask_shape, generator):
+    """``x / (1 - rate)`` where a mask of ``mask_shape`` drawn from
+    ``generator`` keeps it (probability ``1 - rate``), 0 elsewhere."""
+    if generator is None:
+        raise ValueError("a random layer that is not deterministic needs a "
+                         "generator")
+    keep = 1.0 - rate
+    mask = torch.rand(mask_shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def replaying(fn, generator: torch.Generator | None):
+    """``fn`` such that a second call (the recompute of a checkpoint) draws
+    the same numbers from ``generator`` as the first, and leaves the
+    generator where it was: ``torch.utils.checkpoint``'s
+    ``preserve_rng_state`` covers the default generators only."""
+    if generator is None:
+        return fn
+    start = generator.get_state()
+    calls = [0]
+
+    def wrapped(*args):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*args)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*args)
+        finally:
+            generator.set_state(resume)
+
+    return wrapped
+
+
 class MLP(nn.Module):
-    """Per-point two-layer MLP ``fc2(act(fc1(x)))``."""
+    """Per-point two-layer MLP ``fc2(act(fc1(x)))``, with dropout at
+    ``drop_rate`` after each layer (port of ace_tpu/models/layers.py:99)."""
 
     def __init__(self, in_features, hidden_features, out_features,
-                 act=exact_gelu, dtype=torch.float32, device=None):
+                 act=exact_gelu, drop_rate=0.0, dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features, dtype=dtype,
                           device=device)
         self.fc2 = Linear(hidden_features, out_features, dtype=dtype,
                           device=device)
         self.act = act
+        self.drop_rate = drop_rate
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self.act(self.fc1(x))
+        x = dropout(x, self.drop_rate, deterministic, generator)
+        return dropout(self.fc2(x), self.drop_rate, deterministic, generator)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (port of ace_tpu/models/layers.py:136):
+    each sample of the batch is kept with probability ``1 - rate`` and
+    divided by it, or zeroed."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.rate == 0.0 or deterministic:
+            return x
+        return _drop(x, self.rate, (x.shape[0],) + (1,) * (x.dim() - 1),
+                     generator)
+
+
+class InstanceNorm(nn.Module):
+    """Instance normalization over the spatial axes of ``[..., H, W, C]``
+    with per-channel ``scale`` and ``bias`` (port of
+    ace_tpu/models/layers.py:39, eps 1e-6). bfloat16 input keeps the JAX
+    package's mixed path: f32 statistics, the mean cast to bf16 before the
+    subtraction, the variance of the bf16 difference in f32, and the
+    ``rsqrt`` cast to bf16."""
+
+    eps = 1e-6
+
+    def __init__(self, n_channels, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(n_channels, device=device))
+        self.bias = nn.Parameter(torch.empty(n_channels, device=device))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+        dt = x.dtype
+        dims = (-3, -2)
+        if dt == torch.float32:
+            mean = x.mean(dims, keepdim=True)
+            var = (x - mean).square().mean(dims, keepdim=True)
+            out = (x - mean) * torch.rsqrt(var + self.eps)
+        else:
+            mean = x.mean(dims, keepdim=True, dtype=torch.float32)
+            xc = x - mean.to(dt)
+            var = xc.square().mean(dims, keepdim=True, dtype=torch.float32)
+            out = xc * torch.rsqrt(var + self.eps).to(dt)
+        return (out * self.scale.to(out.dtype)
+                + self.bias.to(out.dtype)).to(dt)
+
+
+class LayerNorm2d(nn.Module):
+    """Layer norm over the ``(H, W)`` axes per channel, in float32, with
+    ``[H, W, 1]`` ``scale`` and ``bias`` (port of
+    ace_tpu/models/layers.py:76, eps 1e-6)."""
+
+    eps = 1e-6
+
+    def __init__(self, spatial_shape, device=None):
+        super().__init__()
+        shape = (*spatial_shape, 1)
+        self.scale = nn.Parameter(torch.empty(shape, device=device))
+        self.bias = nn.Parameter(torch.empty(shape, device=device))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean((-3, -2), keepdim=True)
+        var = (x32 - mean).square().mean((-3, -2), keepdim=True)
+        out = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return (out * self.scale + self.bias).to(x.dtype)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator | None = None):

@@ -1,8 +1,10 @@
 """Module (architecture) registry (port of ace_tpu/models/registry.py).
 
 A registered builder turns channel counts and dataset info into an
-``nn.Module`` with the contract ``module(x, noise=None, generator=None)``
-on ``[batch, nlat, nlon, n_in] -> [batch, nlat, nlon, n_out]``. Each
+``nn.Module`` with the contract ``module(x, noise=None, generator=None,
+deterministic=True)`` on ``[batch, nlat, nlon, n_in] -> [batch, nlat,
+nlon, n_out]`` (``deterministic`` False turns on dropout, drawn from
+``generator``). Each
 builder keeps the JAX package's field surface, so a config dict (or the
 config embedded in an ``ace_tpu`` checkpoint) builds both packages;
 options the port does not implement yet raise ``NotImplementedError``.
@@ -17,6 +19,7 @@ from torch import nn
 
 from ace_tpu_torch.core.dataset_info import DatasetInfo
 from ace_tpu_torch.core.registry import Registry, Selector
+from ace_tpu_torch.models.layers import Linear
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -71,6 +74,214 @@ class ModuleSelector(Selector):
         return self.instance.build(
             n_in_channels, n_out_channels, dataset_info, device=device
         )
+
+
+@ModuleSelector.register("SphericalFourierNeuralOperatorNet")
+@dataclasses.dataclass
+class SphericalFourierNeuralOperatorBuilder(ModuleConfig):
+    """SFNO builder with the JAX package's fields and defaults (port of
+    ace_tpu/models/registry.py:97). As there, ``factorization``, ``rank``
+    and the makani fields are accepted and not passed to the network."""
+
+    spectral_transform: str = "sht"
+    filter_type: str = "linear"
+    operator_type: str = "diagonal"
+    scale_factor: int = 1
+    residual_filter_factor: int = 1
+    embed_dim: int = 256
+    num_layers: int = 12
+    hard_thresholding_fraction: float = 1.0
+    normalization_layer: str = "instance_norm"
+    use_mlp: bool = True
+    mlp_ratio: float = 2.0
+    activation_function: str = "gelu"
+    encoder_layers: int = 1
+    pos_embed: bool = True
+    big_skip: bool = True
+    rank: float = 1.0
+    factorization: str | None = None
+    separable: bool = False
+    complex_network: bool = True
+    complex_activation: str = "real"
+    spectral_layers: int = 1
+    checkpointing: int = 0
+    drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
+    data_grid: str = "legendre-gauss"
+    # "default" | "high" | "highest": accepted; the port computes float32
+    # (see SphericalFourierNeuralOperatorNet)
+    spectral_precision: str = "high"
+    compute_dtype: str = "float32"
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        from ace_tpu_torch.models.sfno import SphericalFourierNeuralOperatorNet
+
+        if self.filter_type != "linear":
+            raise NotImplementedError("only filter_type='linear' is supported")
+        return SphericalFourierNeuralOperatorNet(
+            img_shape=dataset_info.img_shape,
+            in_chans=n_in_channels,
+            out_chans=n_out_channels,
+            spectral_transform=self.spectral_transform,
+            spectral_precision=self.spectral_precision,
+            embed_dim=self.embed_dim,
+            num_layers=self.num_layers,
+            operator_type=self.operator_type,
+            scale_factor=self.scale_factor,
+            residual_filter_factor=self.residual_filter_factor,
+            hard_thresholding_fraction=self.hard_thresholding_fraction,
+            normalization_layer=self.normalization_layer,
+            use_mlp=self.use_mlp,
+            mlp_ratio=self.mlp_ratio,
+            activation_function=self.activation_function,
+            encoder_layers=self.encoder_layers,
+            pos_embed=self.pos_embed,
+            big_skip=self.big_skip,
+            separable=self.separable,
+            drop_rate=self.drop_rate,
+            drop_path_rate=self.drop_path_rate,
+            data_grid=self.data_grid,
+            checkpointing=self.checkpointing,
+            dtype=compute_dtype(self.compute_dtype),
+            device=device,
+        )
+
+
+@ModuleSelector.register("SFNO-v0.1.0")
+@dataclasses.dataclass
+class SFNO_V0_1_0(ModuleConfig):
+    """SFNO at the makani-0.1.0 config surface, with the JAX package's
+    fields and defaults (port of ace_tpu/models/registry.py:164)."""
+
+    spectral_transform: str = "sht"
+    filter_type: str = "linear"
+    operator_type: str = "dhconv"
+    scale_factor: int = 16
+    embed_dim: int = 256
+    num_layers: int = 12
+    repeat_layers: int = 1
+    hard_thresholding_fraction: float = 1.0
+    normalization_layer: str = "instance_norm"
+    use_mlp: bool = True
+    mlp_ratio: float = 2.0
+    activation_function: str = "gelu"
+    encoder_layers: int = 1
+    pos_embed: str = "direct"
+    big_skip: bool = True
+    rank: float = 1.0
+    factorization: str | None = None
+    separable: bool = False
+    complex_activation: str = "real"
+    spectral_layers: int = 1
+    checkpointing: int = 0
+    data_grid: str = "legendre-gauss"
+    compute_dtype: str = "float32"
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        from ace_tpu_torch.models.sfno import SphericalFourierNeuralOperatorNet
+
+        return SphericalFourierNeuralOperatorNet(
+            img_shape=dataset_info.img_shape,
+            in_chans=n_in_channels,
+            out_chans=n_out_channels,
+            spectral_transform=self.spectral_transform,
+            embed_dim=self.embed_dim,
+            num_layers=self.num_layers,
+            operator_type=self.operator_type,
+            scale_factor=self.scale_factor,
+            hard_thresholding_fraction=self.hard_thresholding_fraction,
+            normalization_layer=self.normalization_layer,
+            use_mlp=self.use_mlp,
+            mlp_ratio=self.mlp_ratio,
+            activation_function=self.activation_function,
+            encoder_layers=self.encoder_layers,
+            pos_embed=self.pos_embed,
+            repeat_layers=self.repeat_layers,
+            big_skip=self.big_skip,
+            separable=self.separable,
+            factorization=self.factorization,
+            rank=self.rank,
+            data_grid=self.data_grid,
+            checkpointing=self.checkpointing,
+            dtype=compute_dtype(self.compute_dtype),
+            device=device,
+        )
+
+
+_PREBUILT: dict[str, nn.Module] = {}
+
+
+def register_prebuilt_module(key: str, module: nn.Module):
+    """Make ``module`` (built outside the registry, with the registry's
+    module contract) the one that ``{type: prebuilt, config: {module_key:
+    key}}`` selects."""
+    _PREBUILT[key] = module
+
+
+@ModuleSelector.register("prebuilt")
+@dataclasses.dataclass
+class PreBuiltBuilder(ModuleConfig):
+    """A module registered with :func:`register_prebuilt_module` (port of
+    ace_tpu/models/registry.py:238), moved to ``device``."""
+
+    module_key: str = "default"
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        return _PREBUILT[self.module_key].to(device)
+
+
+class LinearModule(nn.Module):
+    """Per-point linear net (port of ace_tpu/models/registry.py:255):
+    flax's ``Dense`` named ``linear``, default-initialized."""
+
+    def __init__(self, in_channels, out_channels, device=None):
+        super().__init__()
+        self.linear = Linear(in_channels, out_channels, device=device,
+                             init="lecun_normal")
+
+    def forward(self, x, noise=None, generator=None, deterministic=True):
+        return self.linear(x)
+
+
+class MLPModule(nn.Module):
+    """Small per-point MLP (port of ace_tpu/models/registry.py:266):
+    ``hidden_{i}`` denses with the erf GELU, then ``out``."""
+
+    def __init__(self, in_channels, hidden_channels, out_channels,
+                 num_hidden_layers=1, device=None):
+        super().__init__()
+        self.num_hidden_layers = num_hidden_layers
+        width = in_channels
+        for i in range(num_hidden_layers):
+            self.add_module(f"hidden_{i}", Linear(
+                width, hidden_channels, device=device, init="lecun_normal"))
+            width = hidden_channels
+        self.out = Linear(width, out_channels, device=device,
+                          init="lecun_normal")
+
+    def forward(self, x, noise=None, generator=None, deterministic=True):
+        for i in range(self.num_hidden_layers):
+            x = torch.nn.functional.gelu(getattr(self, f"hidden_{i}")(x))
+        return self.out(x)
+
+
+@ModuleSelector.register("MLP")
+@dataclasses.dataclass
+class MLPBuilder(ModuleConfig):
+    hidden_channels: int = 32
+    num_hidden_layers: int = 1
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        return MLPModule(n_in_channels, self.hidden_channels, n_out_channels,
+                         num_hidden_layers=self.num_hidden_layers,
+                         device=device)
+
+
+@ModuleSelector.register("Linear")
+@dataclasses.dataclass
+class LinearBuilder(ModuleConfig):
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        return LinearModule(n_in_channels, n_out_channels, device=device)
 
 
 @ModuleSelector.register("NoiseConditionedSFNO")

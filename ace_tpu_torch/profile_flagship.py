@@ -4,7 +4,7 @@ GPU.
     python -m ace_tpu_torch.profile_flagship [--steps N] [--out DIR]
                                              [--fused-block-tail]
                                              [--train | --inference |
-                                              --evaluator]
+                                              --evaluator | --shield]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -36,7 +36,14 @@ targets and the aggregator flags of
 ``configs/baselines/era5/ace-evaluator-config.yaml`` (zonal means and
 histograms on, the rest at their defaults): ``N`` steps untraced (default
 100), then 100 traced, two windows, so that the histograms' host work of
-the first overlaps the second's rollout. Writes the Chrome trace to
+the first overlaps the second's rollout. ``--shield`` profiles path S of
+``chip_smoke.py``, the ACE2-SHiELD AMIP recipe
+(``configs/baselines/amip-c96-shield/train-ace2.yaml``:
+SphericalFourierNeuralOperatorNet, embed 384, 8 layers, float32): its
+train step at batch 2 (``N`` steps untraced, default 5, then 2 traced),
+then its rollout at batch 1 (20 untraced, 3 traced), each with its tables
+and peak (``shield_train_trace.json``, ``shield_rollout_trace.json``).
+Writes the Chrome trace to
 ``DIR/flagship_trace.json`` (``flagship_train_trace.json``,
 ``flagship_inference_trace.json``, ``flagship_evaluator_trace.json``;
 default ``build/profiles``).
@@ -150,6 +157,9 @@ def main(argv=None):
                       help="profile the evaluator's loop (batch 1, windows "
                            "of 50, targets, the evaluator baseline's "
                            "aggregators)")
+    mode.add_argument("--shield", action="store_true",
+                      help="profile path S: the ACE2-SHiELD AMIP recipe's "
+                           "train step (batch 2), then its rollout (batch 1)")
     parser.add_argument("--read", metavar="TRACE",
                         help="only print the tables of this Chrome trace")
     parser.add_argument("--traced-steps", type=int, default=TRACED_TRAIN_STEPS,
@@ -159,7 +169,8 @@ def main(argv=None):
         print_tables(device_events(args.read), args.traced_steps)
         return
     if args.steps is None:
-        args.steps = 5 if args.train else 100 if args.evaluator else 20
+        args.steps = (5 if args.train or args.shield else 100
+                      if args.evaluator else 20)
 
     device = get_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -169,6 +180,15 @@ def main(argv=None):
         capture_output=True, text=True, check=True,
     ).stdout.strip())
 
+    if args.shield:
+        train, rollout = _shield_runners(device)
+        print("path S train step (batch 2, 2 forward steps, f32):")
+        _profile(train, args.steps, TRACED_TRAIN_STEPS,
+                 os.path.join(args.out, "shield_train_trace.json"))
+        print("path S rollout (batch 1, f32):")
+        _profile(rollout, 20, TRACED_STEPS,
+                 os.path.join(args.out, "shield_rollout_trace.json"))
+        return
     if args.train:
         run, n = _train_runner(device, args.fused_block_tail), TRACED_TRAIN_STEPS
         name = "flagship_train_trace.json"
@@ -188,32 +208,39 @@ def main(argv=None):
                               max(args.steps, TRACED_STEPS))
         n = TRACED_STEPS
         name = "flagship_trace.json"
+    fills = []
+    _profile(run, args.steps, n, os.path.join(args.out, name),
+             (lambda: _fill_events(fills)) if args.inference
+             else contextlib.nullcontext)
+    if args.inference:
+        print("flood fill, device ms per call (a call per window): "
+              f"{[round(a.elapsed_time(b), 4) for a, b in fills]}")
+
+
+def _profile(run, steps, n, trace_path, untraced=contextlib.nullcontext):
+    """Time ``run(1)`` (the first call), then ``run(steps)`` untraced (in
+    the context ``untraced()``), then trace ``run(n)`` into
+    ``trace_path`` and print its tables."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run(1)
     torch.cuda.synchronize()
     print(f"first call (1 step): {time.perf_counter() - t0:.3f} s")
-
-    fills = []
-    with _fill_events(fills) if args.inference else contextlib.nullcontext():
+    with untraced():
         t0 = time.perf_counter()
-        run(args.steps)
+        run(steps)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    if args.inference:
-        print("flood fill, device ms per call (a call per window): "
-              f"{[round(a.elapsed_time(b), 4) for a, b in fills]}")
-    print(f"{args.steps} steps untraced: {wall_s:.4f} s = "
-          f"{wall_s / args.steps * 1e3:.2f} ms/step = "
-          f"{args.steps / wall_s:.3f} steps/s")
+    print(f"{steps} steps untraced: {wall_s:.4f} s = "
+          f"{wall_s / steps * 1e3:.2f} ms/step = "
+          f"{steps / wall_s:.3f} steps/s")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(n)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    os.makedirs(args.out, exist_ok=True)
-    trace_path = os.path.join(args.out, name)
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
     prof.export_chrome_trace(trace_path)
     events = device_events(trace_path)
     busy_s = busy_us(events) / 1e6
@@ -307,6 +334,69 @@ def _inference_runner(device, fused, max_steps, evaluator=False):
             aggregator.get_logs()
 
     return run
+
+
+SHIELD_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "configs", "baselines", "amip-c96-shield", "train-ace2.yaml")
+
+
+def _shield_runners(device, nlat=180, nlon=360, embed=None, layers=None):
+    """``(train, rollout)``: ``train(n)`` runs ``n`` train steps (returns
+    their metrics) of the
+    ACE2-SHiELD AMIP recipe (``SHIELD_CONFIG``: its network, step,
+    corrector, loss, optimizer and EMA; statistics of unit scale but for
+    the surface pressure's and the water's, in place of its files) on one
+    batch of 2 at ``nlat`` x ``nlon``; ``rollout(n)`` an ``n``-step
+    rollout at batch 1 (returns its outputs). Weights from a seed. ``embed`` and ``layers``
+    make a small copy."""
+    import yaml
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.loss import StepLossConfig
+    from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
+    from ace_tpu_torch.core.step import StepSelector
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+    from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
+
+    with open(SHIELD_CONFIG) as f:
+        config = yaml.safe_load(f)
+    step = config["stepper"]["step"]["config"]
+    names = sorted(set(step["in_names"]) | set(step["out_names"]))
+    stds = {n: 1e-3 if n.startswith("specific_total_water") else 1.0
+            for n in names}
+    stats = {"means": {n: 1.0e5 if n == "PRESsfc" else 0.0 for n in names},
+             "stds": {**stds, "PRESsfc": 100.0}}
+    step["normalization"] = {"network": stats, "residual": stats}
+    if embed is not None:
+        step["builder"]["config"].update(embed_dim=embed, num_layers=layers)
+    _, info = flagship.stepper_config(nlat, nlon)
+    stepper = StepperConfig(step=StepSelector(
+        type="single_module", config=step)).get_stepper(info, device=device)
+    training = config["stepper_training"]
+    ts = TrainStepper(
+        stepper,
+        StepperTrainConfig(
+            n_forward_steps=training["n_forward_steps"],
+            loss=from_dict(StepLossConfig, training["loss"])),
+        from_dict(OptimizationConfig, config["optimization"]),
+        from_dict(EMAConfig, config["ema"]))
+    ts.init(torch.Generator(device).manual_seed(0))
+    batch = flagship.synthetic_batch(
+        stepper, TRAIN_BATCH, n_forward_steps=training["n_forward_steps"],
+        generator=torch.Generator(device).manual_seed(1))
+    ic, forcing = flagship.synthetic_inputs(
+        stepper, 20, generator=torch.Generator(device).manual_seed(2))
+
+    def train(n):
+        return [ts.train_step(batch, torch.Generator(device).manual_seed(3))
+                for _ in range(n)]
+
+    def rollout(n):
+        return stepper.predict(ic, {k: v[:, : n + 1]
+                                    for k, v in forcing.items()})[0]
+
+    return train, rollout
 
 
 def _train_runner(device, fused):

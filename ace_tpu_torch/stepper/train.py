@@ -35,6 +35,7 @@ from ace_tpu_torch.core.schedule import (
 )
 from ace_tpu_torch.core.step import StepArgs
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
+from ace_tpu_torch.models.layers import replaying
 from ace_tpu_torch.ops.sht import RealSHT
 from ace_tpu_torch.stepper.parameter_init import (
     ParameterInitializationConfig,
@@ -85,29 +86,6 @@ class StepperTrainConfig:
     @property
     def max_n_forward_steps(self) -> int:
         return self.n_forward_steps_schedule.max_n_forward_steps
-
-
-def _replaying(fn, generator: torch.Generator | None):
-    """``fn`` such that a second call (the recompute of a checkpoint) draws
-    the same numbers from ``generator`` as the first, and leaves the
-    generator where it was."""
-    if generator is None:
-        return fn
-    start = generator.get_state()
-    calls = [0]
-
-    def wrapped(*args):
-        calls[0] += 1
-        if calls[0] == 1:
-            return fn(*args)
-        resume = generator.get_state()
-        generator.set_state(start)
-        try:
-            return fn(*args)
-        finally:
-            generator.set_state(resume)
-
-    return wrapped
 
 
 # blocks of ``signals_deferred`` open now, and the handler calls that
@@ -374,7 +352,7 @@ class TrainStepper:
                 if t >= split and torch.is_grad_enabled():
                     step_loss, state, stepper_state = (
                         torch.utils.checkpoint.checkpoint(
-                            _replaying(body, generator), t, state,
+                            replaying(body, generator), t, state,
                             stepper_state, use_reentrant=False,
                             preserve_rng_state=False,
                         )

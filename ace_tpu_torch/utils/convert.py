@@ -15,10 +15,25 @@ def _flatten(tree, prefix=()):
             yield path, value
 
 
+# a spectral filter's ``filter/weight`` by its number of axes: the
+# permutation from flax's layout to the port's. 4-D: the dhconv weight
+# [in, out, l, 2] -> [2, l, in, out] (and a separable diagonal weight
+# [in, l, m, 2] -> [2, m, in, l]); 5-D: the diagonal weight [in, out, l,
+# m, 2] -> [2, l, m, in, out]. A separable dhconv weight (3-D) keeps
+# flax's layout, as every other leaf does (convolution kernels, CP
+# factors, LayerNorm2d's [H, W, 1], position embeddings).
+_FILTER_TO_PORT = {4: (3, 2, 0, 1), 5: (4, 2, 3, 0, 1)}
+_FILTER_TO_FLAX = {
+    n: tuple(perm.index(i) for i in range(n))
+    for n, perm in _FILTER_TO_PORT.items()
+}
+
+
 def _is_spectral_filter(path, value) -> bool:
-    """The dhconv filter's weight: ``filter/weight`` of a block, 4-D
-    (other 4-D leaves, such as convolution kernels, keep their layout)."""
-    return tuple(path[-2:]) == ("filter", "weight") and value.dim() == 4
+    """A spectral filter's weight in another layout than flax's:
+    ``filter/weight`` of a block, 4-D or 5-D."""
+    return (tuple(path[-2:]) == ("filter", "weight")
+            and value.dim() in _FILTER_TO_PORT)
 
 
 def flax_params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
@@ -28,9 +43,10 @@ def flax_params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
 
     Tree paths become dotted keys. A 2-D ``kernel`` (flax ``Dense``,
     ``[in, out]``) becomes ``weight`` transposed to ``nn.Linear``'s
-    ``[out, in]``; the spectral filter's ``weight`` (flax ``[in, out, l,
-    2]``) becomes the port's ``[2, l, in, out]``; every other leaf keeps
-    its name and layout. Values keep their dtype.
+    ``[out, in]``; a spectral filter's 4-D or 5-D ``weight`` (flax ``[in,
+    out, l, 2]``, ``[in, out, l, m, 2]``) becomes the port's ``[2, l, in,
+    out]``, ``[2, l, m, in, out]`` (``_FILTER_TO_PORT``); every other leaf
+    keeps its name and layout. Values keep their dtype.
     """
     if set(params) == {"params"}:
         params = params["params"]
@@ -43,7 +59,7 @@ def flax_params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
         if name == "kernel" and value.dim() == 2:
             name, value = "weight", value.t().contiguous()
         elif _is_spectral_filter(path, value):
-            value = value.permute(3, 2, 0, 1).contiguous()
+            value = value.permute(_FILTER_TO_PORT[value.dim()]).contiguous()
         state[".".join(path[:-1] + (name,))] = value
     return state
 
@@ -51,8 +67,8 @@ def flax_params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
 def state_dict_to_flax_params(state: dict[str, torch.Tensor]) -> dict:
     """The inverse of :func:`flax_params_to_state_dict`: dotted keys become
     a nested tree, a 2-D ``weight`` (``nn.Linear``'s ``[out, in]``)
-    becomes a ``kernel`` ``[in, out]``, and the spectral filter's ``[2, l,
-    in, out]`` weight flax's ``[in, out, l, 2]``. Values become numpy
+    becomes a ``kernel`` ``[in, out]``, and a spectral filter's weight
+    flax's layout. Values become numpy
     arrays on the host, in their dtype (bfloat16 ones CPU tensors). Also
     maps gradients (``{name: p.grad}``, to compare them with ``jax.grad``
     in the flax layout) and the optimizer's moments."""
@@ -63,7 +79,7 @@ def state_dict_to_flax_params(state: dict[str, torch.Tensor]) -> dict:
         if name == "weight" and array.dim() == 2:
             name, array = "kernel", array.t()
         elif _is_spectral_filter(path + [name], array):
-            array = array.permute(2, 3, 1, 0)
+            array = array.permute(_FILTER_TO_FLAX[array.dim()])
         node = tree
         for part in path:
             node = node.setdefault(part, {})
@@ -87,12 +103,12 @@ def flax_name(key: str, value: torch.Tensor) -> str:
 
 def flax_view(key: str, value: torch.Tensor) -> torch.Tensor:
     """``value`` (the ``state_dict`` entry ``key``) as a view in flax's
-    layout: a 2-D weight transposed, the spectral filter's ``[2, l, in,
-    out]`` as ``[in, out, l, 2]``; writing into the view writes into
+    layout: a 2-D weight transposed, a spectral filter's weight permuted
+    back to flax's axes; writing into the view writes into
     ``value``."""
     path = key.split(".")
     if path[-1] == "weight" and value.dim() == 2:
         return value.t()
     if _is_spectral_filter(path, value):
-        return value.permute(2, 3, 1, 0)
+        return value.permute(_FILTER_TO_FLAX[value.dim()])
     return value

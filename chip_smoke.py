@@ -12,7 +12,8 @@
    and 1c dhconv_filter_dw) against its plain PyTorch version on the card,
    at the main paths' shapes (K1 and K2 also as paths T and T-A call them:
    4 samples, float32 weights that require grad, through their autograd
-   Functions) and at a ragged shape, and times the kernel,
+   Functions; K1, 1b and 1c also at width 384, path S-bf16's) and at a
+   ragged shape, and times the kernel,
    the plain version and what the port runs in its place (one PyTorch
    library call for K1, 1b and 1c, the unfused tail for K2,
    ``RealSHT.forward_pair`` and one three-operand einsum for K3), beside
@@ -78,6 +79,24 @@
      ``GlobalTimer`` phases, each checkpoint's bytes and seconds to write
      and read back, the free disk and host memory before the first write
      (and fails if they cannot hold the checkpoints) and the peak memory.
+   - path S, the ACE2-SHiELD AMIP recipe
+     (``configs/baselines/amip-c96-shield/train-ace2.yaml``:
+     SphericalFourierNeuralOperatorNet, embed 384, 8 layers, float32, 56
+     variables at 180x360), after reference phase S (a small SFNO of its
+     shape, card against CPU: float32 with the dhconv and diagonal
+     operators and the FFT transform, and bfloat16 through K1, 1b and
+     1c): S-R, the training entry over synthetic files with the cuts of
+     ``_shield_config`` (batch 2, 4 training batches, 1 validation
+     batch, one epoch, an inline entry of 4 steps from 2 initial
+     conditions with the YAML's histograms and synthetic time-mean and
+     monthly references): finite metrics, the checkpoint files, no kernel
+     launch (float32 filters are einsums, as in JAX) and no sync in the
+     batch loop; S-I, the inference entry over S-R's best checkpoint (20
+     steps at batch 1 in windows of 5: no launch, no sync in
+     ``run_inference``, within 1e-5 of ``Stepper.predict``, dry air
+     within 1 Pa); S-bf16, S-R's config with ``compute_dtype: bfloat16``
+     (3 train steps at batch 1 after a warm-up: 16 K1, 16 1b, 16 1c each,
+     the loss falling; a 20-step rollout: 8 K1 a step).
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -109,6 +128,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the width of path S's network (configs/baselines/amip-c96-shield/
+# train-ace2.yaml: embed_dim 384)
+SFNO_EMBED = 384
 BF16_TOL = 8e-3  # of the largest output: the final bf16 rounding
 # K2: four bf16 rounding points between the products, the JAX package's
 # fused-versus-module limit (tests/test_pallas_block.py)
@@ -192,17 +214,46 @@ def dhconv_phase(gen):
     from ace_tpu_torch import flagship
 
     b, l, m = 1, flagship.NLAT, flagship.NLON // 2 + 1
-    i = o = flagship.EMBED
-    args = inputs(b, l, m, i, o)
-    err, scale = check(args)
-    tol = BF16_TOL * scale
-    print(f"dhconv_filter flagship [1,180,181,512]x[180,512,512]: max_abs_err "
-          f"{err:.3e} (tol {tol:.3e})")
-    if not err <= tol:
-        raise AssertionError("dhconv_filter disagrees with its plain version "
-                             "at the flagship shape")
-    xr, xi, wr, wi = args
     train_err, train_tol = dhconv_train_check(gen)
+    rows = {}
+    for label, width in (("flagship", flagship.EMBED),
+                         ("sfno", SFNO_EMBED)):
+        args = inputs(b, l, m, width, width)
+        err, scale = check(args)
+        tol = BF16_TOL * scale
+        print(f"dhconv_filter {label} [1,180,181,{width}]x[180,{width},"
+              f"{width}]: max_abs_err {err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError("dhconv_filter disagrees with its plain "
+                                 f"version at the {label} shape")
+        rows[label] = {"max_abs_err": err, "tol": tol,
+                       **_dhconv_times(label, args)}
+    train_err_s, train_tol_s = dhconv_train_check(gen, SFNO_EMBED, 1)
+    rows["sfno"].update(train_max_abs_err=train_err_s,
+                        train_tol=train_tol_s)
+    return {
+        "name": "dhconv_filter", "route": "cuda",
+        "source": "ace_tpu_torch/csrc/dhconv_filter.cu",
+        "replaces": "ace_tpu/ops/pallas_filter.py:69",
+        "launches": None, **rows["flagship"],
+        "train_max_abs_err": train_err, "train_tol": train_tol,
+        "at_width_384": rows["sfno"],
+    }
+
+
+def _dhconv_times(label, args):
+    """K1's time at ``args``' shape beside its plain version, one bf16
+    library matmul of the same function and its bound."""
+    import torch
+
+    from ace_tpu_torch.ops.dhconv_filter import (
+        dhconv_filter,
+        dhconv_filter_plain,
+    )
+
+    xr, xi, wr, wi = args
+    b, l, m, i = xr.shape
+    o = wr.shape[-1]
     # the same function as one bf16 library matmul on the stacked real
     # form [x_r | x_i] @ [[w_r, w_i], [-w_i, w_r]] (timed only, never used)
     a = torch.cat([xr, xi], dim=-1).to(torch.bfloat16)
@@ -215,24 +266,17 @@ def dhconv_phase(gen):
     flops = 8 * b * l * m * i * o
     bound_ms, bound_by, bytes_ms, flops_ms = bound(n_bytes, flops,
                                                    PEAK_BF16_FLOPS)
-    print(f"dhconv_filter flagship: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+    print(f"dhconv_filter {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms, library (bf16 matmul) {library_ms:.4f} ms; bound: "
           f"{n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, {flops / 1e9:.1f} "
           f"GFLOP -> {flops_ms:.4f} ms")
-    return {
-        "name": "dhconv_filter", "route": "cuda",
-        "source": "ace_tpu_torch/csrc/dhconv_filter.cu",
-        "replaces": "ace_tpu/ops/pallas_filter.py:69",
-        "launches": None, "max_abs_err": err, "tol": tol,
-        "train_max_abs_err": train_err, "train_tol": train_tol,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
-    }
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
-def dhconv_train_check(gen):
-    """K1 as path T calls it: 2 * TRAIN_BATCH samples through
+def dhconv_train_check(gen, width=None, batch=2 * TRAIN_BATCH):
+    """K1 as path T (or, at ``width`` 384 and ``batch`` 1, path S-bf16)
+    calls it: ``batch`` samples through
     ``dhconv_filter_param``, whose autograd Function rounds the float32
     ``[2, L, I, O]`` weight (which requires grad) to bf16, one contiguous
     cast whose halves are K1's ``[L, I, O]`` weights; against the plain
@@ -245,8 +289,8 @@ def dhconv_train_check(gen):
         dhconv_filter_plain,
     )
 
-    b, l, m = 2 * TRAIN_BATCH, flagship.NLAT, flagship.NLON // 2 + 1
-    i = o = flagship.EMBED
+    b, l, m = batch, flagship.NLAT, flagship.NLON // 2 + 1
+    i = o = width or flagship.EMBED
     kw = dict(generator=gen, device="cuda")
     xr, xi = (torch.randn(b, l, m, i, **kw) for _ in range(2))
     weight = (torch.randn(2, l, i, o, **kw) * i ** -0.5).requires_grad_()
@@ -258,20 +302,21 @@ def dhconv_train_check(gen):
     ref = dhconv_filter_plain(xr, xi, *weight.detach())
     err, scale = max_err(tuple(t.detach() for t in out), ref)
     tol = BF16_TOL * scale
-    print(f"dhconv_filter flagship-train [{b},{l},{m},{i}] through "
+    print(f"dhconv_filter train [{b},{l},{m},{i}] through "
           f"dhconv_filter_param (f32 [2, L, I, O] weight): max_abs_err "
           f"{err:.3e} (tol {tol:.3e})")
     if not err <= tol:
         raise AssertionError("dhconv_filter disagrees with its plain version "
-                             "at the flagship training shape")
+                             f"at the training shape [{b},{l},{m},{i}]")
     return err, tol
 
 
 def dhconv_bwd_phase(gen):
     """Kernels 1b (dx) and 1c (dW) against their plain versions at a
-    ragged shape and the flagship training shape (B = 4: 2 samples x 2
-    members), with their times beside their bounds, their plain versions
-    and one bf16 library matmul each."""
+    ragged shape, the flagship training shape (B = 4: 2 samples x 2
+    members) and path S-bf16's (B = 1, width 384), with their times at
+    the last two beside their bounds, their plain versions and one bf16
+    library matmul each."""
     import torch
 
     from ace_tpu_torch import flagship
@@ -301,12 +346,16 @@ def dhconv_bwd_phase(gen):
                                  f"at the {label} shape")
         return err, tol
 
+    m = flagship.NLON // 2 + 1
     rows = {}
     for label, shape in (("ragged", (2, 3, 181, 96, 200)),
                          ("flagship-train", (2 * TRAIN_BATCH, flagship.NLAT,
-                                             flagship.NLON // 2 + 1,
-                                             flagship.EMBED, flagship.EMBED))):
-        xr, xi, gr, gi, wr, wi = inputs(*shape)
+                                             m, flagship.EMBED,
+                                             flagship.EMBED)),
+                         ("sfno-train", (1, flagship.NLAT, m, SFNO_EMBED,
+                                         SFNO_EMBED))):
+        args = inputs(*shape)
+        xr, xi, gr, gi, wr, wi = args
         dx = check(label, shape, "dhconv_filter_dx",
                    dhconv_filter_dx(gr, gi, wr, wi),
                    dhconv_filter_dx_plain(gr, gi, wr, wi))
@@ -315,7 +364,34 @@ def dhconv_bwd_phase(gen):
                    (dhconv_filter_dw(xr, xi, gr, gi),),
                    (torch.stack(dw_ref),))
         del dw_ref
-    b, l, m, i, o = shape
+        if label == "ragged":
+            continue
+        for name, row in _dhconv_bwd_times(label, args, dx, dw).items():
+            if label == "flagship-train":
+                rows[name] = row
+            else:
+                rows[name]["at_width_384"] = {
+                    k: row[k] for k in ("max_abs_err", "tol", "ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")}
+    return rows
+
+
+def _dhconv_bwd_times(label, args, dx, dw):
+    """1b's and 1c's times at ``args``' shape beside their plain versions,
+    one bf16 library matmul each and their bounds."""
+    import torch
+
+    from ace_tpu_torch.ops.dhconv_filter import (
+        dhconv_filter_dw,
+        dhconv_filter_dw_plain,
+        dhconv_filter_dx,
+        dhconv_filter_dx_plain,
+    )
+
+    xr, xi, gr, gi, wr, wi = args
+    b, l, m, i = xr.shape
+    o = wr.shape[-1]
     bf = torch.bfloat16
     # the same functions as one bf16 library matmul each, on the stacked
     # real forms (timed only, never used):
@@ -345,13 +421,14 @@ def dhconv_bwd_phase(gen):
     flops = 8 * b * l * m * i * o
     dx_bytes = 2 * b * l * m * o * 2 + 2 * l * i * o * 2 + 2 * b * l * m * i * 4
     dw_bytes = 2 * b * l * m * i * 4 + 2 * b * l * m * o * 2 + 2 * l * i * o * 4
+    rows = {}
     for name, n_bytes, key, source, replaces in (
             ("dhconv_filter_dx", dx_bytes, "dx", "dhconv_filter_bwd.cu", 129),
             ("dhconv_filter_dw", dw_bytes, "dw", "dhconv_filter_dw.cu", 137)):
         bound_ms, bound_by, bytes_ms, flops_ms = bound(n_bytes, flops,
                                                        PEAK_BF16_FLOPS)
         err, tol = dx if key == "dx" else dw
-        print(f"{name} flagship-train: kernel {times[key]:.4f} ms, plain "
+        print(f"{name} {label}: kernel {times[key]:.4f} ms, plain "
               f"{times[key + '_plain']:.4f} ms, library (bf16 matmul, "
               f"stacked real form) {times[key + '_library']:.4f} ms; bound: "
               f"{n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, "
@@ -1122,10 +1199,13 @@ def _write_files(tmp, series, time, info):
 
 
 def _entry_from_files(tmp, ckpt, series, time, info, counters, device,
-                      n_steps, in_memory, check_sync):
-    """Path I through ``main`` on a YAML: netCDF forcing in, predictions,
-    restart.nc and diagnostics out. Returns the writer-off run's summary,
-    launches, phases and peak, and the written predictions."""
+                      n_steps, in_memory, check_sync, data_dir=None,
+                      starts=(0, 1), label="path I"):
+    """Path I through ``main`` on a YAML: netCDF forcing in (``series``
+    written to a file, or the files under ``data_dir``), predictions from
+    ``starts``, restart.nc and diagnostics out. Returns the writer-off
+    run's summary, launches, phases and peak, and the written
+    predictions."""
     import os
 
     import numpy as np
@@ -1134,7 +1214,8 @@ def _entry_from_files(tmp, ckpt, series, time, info, counters, device,
     from ace_tpu_torch.data.store import open_file_dataset
     from ace_tpu_torch.inference.inference import main as inference_main
 
-    data_dir = _write_files(tmp, series, time, info)
+    if data_dir is None:
+        data_dir = _write_files(tmp, series, time, info)
     runs = {}
     for save in (False, True):
         out_dir = os.path.join(tmp, f"inference_{save}")
@@ -1143,7 +1224,7 @@ def _entry_from_files(tmp, ckpt, series, time, info, counters, device,
             "n_forward_steps": n_steps, "forward_steps_in_memory": in_memory,
             "logging": {"log_to_screen": False, "log_to_file": True},
             "forcing_loader": {"dataset": {"data_path": data_dir},
-                               "start_indices": {"list": [0, 1]}},
+                               "start_indices": {"list": list(starts)}},
             "data_writer": {"save_prediction_files": save},
         }
         path = os.path.join(tmp, f"inference_{save}.yaml")
@@ -1159,13 +1240,52 @@ def _entry_from_files(tmp, ckpt, series, time, info, counters, device,
             ds = open_file_dataset(os.path.join(out_dir, name))
             for k in ds.keys():
                 if not np.isfinite(ds[k].read(())).all():
-                    raise AssertionError(f"path I: {name} {k} not finite")
-        print(f"path I (writer {save}): {len(names)} files finite: "
+                    raise AssertionError(f"{label}: {name} {k} not finite")
+        print(f"{label} (writer {save}): {len(names)} files finite: "
               f"{sorted(names)}")
     ds = open_file_dataset(os.path.join(
         tmp, "inference_True", "autoregressive_predictions.nc"))
     written = {k: ds[k].read(()) for k in ds.keys()}
     return runs, written
+
+
+def _check_written(label, stepper, series, written, starts, n_steps):
+    """The written predictions against one ``Stepper.predict`` of the same
+    initial conditions (``series`` at ``starts``), forcing and seed: each
+    variable's largest error over its spatial std, and the dry-air mass's
+    largest drift from the initial condition's in Pa."""
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    ic = {k: torch.as_tensor(np.stack([series[k][s:s + 1] for s in starts]))
+          .to(stepper.device) for k in stepper.prognostic_names}
+    forcing = {k: torch.as_tensor(np.stack(
+        [series[k][s:s + n_steps + 1] for s in starts])).to(stepper.device)
+        for k in stepper.forcing_window_names}
+    ref, _ = stepper.predict(PrognosticState(data=ic), forcing,
+                             generator=torch.Generator(
+                                 stepper.device).manual_seed(0))
+    errs = {}
+    for k in stepper.out_names:
+        r = ref[k].float()
+        out = torch.as_tensor(written[k]).to(r.device)
+        if out.shape != r.shape:
+            raise AssertionError(f"{label}: {k} written as "
+                                 f"{tuple(out.shape)}")
+        err = float((out - r).abs().max())
+        errs[k] = err / float(r.std(dim=(-2, -1)).mean()) if err else 0.0
+    worst = max(errs, key=errs.get)
+    corrector = stepper.step.corrector
+    target = corrector.init_state({k: v[:, 0] for k, v in ic.items()})
+    drift = max(
+        float((corrector.init_state({
+            k: torch.as_tensor(written[k][:, t]).to(stepper.device)
+            for k in stepper.out_names})["global_dry_air_mass"]
+            - target["global_dry_air_mass"]).abs().max())
+        for t in range(n_steps))
+    return errs, worst, drift
 
 
 def inference_path(counters, device="cuda", sizes=None, n_steps=N_STEPS,
@@ -1226,35 +1346,8 @@ def inference_path(counters, device="cuda", sizes=None, n_steps=N_STEPS,
             in_memory, check_sync)
         stepper = checkpoint.load_stepper(ckpt, device=device)
 
-    # the same rollout as one predict call, from the same seed
-    starts = [0, 1]
-    ic = {k: torch.as_tensor(np.stack([series[k][s:s + 1] for s in starts]))
-          .to(stepper.device) for k in stepper.prognostic_names}
-    forcing = {k: torch.as_tensor(np.stack(
-        [series[k][s:s + n_steps + 1] for s in starts])).to(stepper.device)
-        for k in stepper.forcing_window_names}
-    from ace_tpu_torch.stepper.stepper import PrognosticState
-
-    ref, _ = stepper.predict(PrognosticState(data=ic), forcing,
-                             generator=torch.Generator(
-                                 stepper.device).manual_seed(0))
-    errs = {}
-    for k in stepper.out_names:
-        r = ref[k].float()
-        out = torch.as_tensor(written[k]).to(r.device)
-        if out.shape != r.shape:
-            raise AssertionError(f"path I: {k} written as {tuple(out.shape)}")
-        err = float((out - r).abs().max())
-        errs[k] = err / float(r.std(dim=(-2, -1)).mean()) if err else 0.0
-    worst = max(errs, key=errs.get)
-    corrector = stepper.step.corrector
-    target = corrector.init_state({k: v[:, 0] for k, v in ic.items()})
-    drift = max(
-        float((corrector.init_state({
-            k: torch.as_tensor(written[k][:, t]).to(stepper.device)
-            for k in stepper.out_names})["global_dry_air_mass"]
-            - target["global_dry_air_mass"]).abs().max())
-        for t in range(n_steps))
+    errs, worst, drift = _check_written("path I", stepper, series, written,
+                                        [0, 1], n_steps)
     (summary, launches, phases, peak) = runs[False]
     rate_on = runs[True][0]["total_steps_per_second"]
     print(f"path I: written predictions vs one {n_steps}-step predict: "
@@ -2205,7 +2298,7 @@ F_SPLITS = (("subset_0", F_TIMES, "1995-12-20T00:00"),
 F_INFERENCE_STEPS = 4
 
 
-def _time_mean_reference(tmp, paths, names):
+def _time_mean_reference(tmp, paths, names, split="valid"):
     """A synthetic time-mean reference: each variable's map at its
     centering value."""
     import numpy as np
@@ -2214,17 +2307,17 @@ def _time_mean_reference(tmp, paths, names):
     from ace_tpu_torch.data.store import write_h5
 
     means = load_scalar_dict_from_file(paths["centering"])
-    grid = _data_grid(paths)
+    grid = _data_grid(paths, split)
     data = {k: np.full(grid, means[k], np.float32) for k in names}
     path = os.path.join(tmp, "time-mean.nc")
     write_h5(path, data, {k: ("lat", "lon") for k in data})
     return path
 
 
-def _data_grid(paths):
+def _data_grid(paths, split="valid"):
     from ace_tpu_torch.data.store import open_file_dataset
 
-    ds = open_file_dataset(os.path.join(paths["valid"], "data.nc"))
+    ds = open_file_dataset(os.path.join(paths[split], "data.nc"))
     return (len(ds["lat"].read(())), len(ds["lon"].read(())))
 
 
@@ -2593,6 +2686,558 @@ def reference_finetune_phase(device="cuda", sizes=None):
     return {**errs, "worst": worst, "counts": counts}
 
 
+# path S: the ACE2-SHiELD AMIP recipe (SphericalFourierNeuralOperatorNet,
+# float32 as shipped) through the training and inference entries
+SHIELD_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "configs", "baselines", "amip-c96-shield",
+                             "train-ace2.yaml")
+# batch 2 for both loaders (the YAML: 16 and 128); each of the training
+# concat's four subsets reads its own file of 4 six-hourly times (2
+# windows of the YAML's 2 forward steps: 4 batches), each of the two
+# validation subsets 3 times (1 batch); one file of N_STEPS + 1 times for
+# the inline entry (4 steps from the YAML's first initial condition and
+# the time after it) and path S-I (N_STEPS steps from its first time)
+S_BATCH = 2
+S_SPLITS = (("subset_0", 4, "1995-12-30T00:00"),
+            ("subset_1", 4, "1995-12-30T00:00"),
+            ("subset_2", 4, "2011-01-01T00:00"),
+            ("subset_3", 4, "2011-01-01T00:00"),
+            ("valid_0", 3, "1996-01-01T00:00"),
+            ("valid_1", 3, "1996-01-01T00:00"),
+            ("inference", N_STEPS + 1, "1996-01-01T00:00"))
+S_INFERENCE_STEPS = 4
+S_INFERENCE_TIMES = ["1996-01-01T00:00:00", "1996-01-01T06:00:00"]
+S_WINDOW = 5
+# path S-bf16: train steps after the warm-up, at batch 1
+S_BF16_STEPS = 3
+# reference phase S, float32 card against CPU (both full float32, TF32
+# off): each output's error over its spatial anomaly, the loss
+# (relative) and each gradient (relative L2)
+S_F32_TOL = 1e-4
+S_F32_LOSS_TOL = 1e-4
+S_F32_GRAD_TOL = 1e-3
+
+
+def _shield_names():
+    step = _yaml(SHIELD_CONFIG)["stepper"]["step"]["config"]
+    return sorted(set(step["in_names"]) | set(step["out_names"]))
+
+
+def _monthly_reference(tmp, paths, names, split):
+    """A synthetic monthly-means reference (``[sample, month, lat, lon]``,
+    ``counts`` and ``valid_time``, as ``MonthlyMeanWriter`` writes it): 12
+    months of 1996, each variable's map at its centering value."""
+    import numpy as np
+
+    from ace_tpu_torch.core.normalizer import load_scalar_dict_from_file
+    from ace_tpu_torch.data.store import encode_cf_time, write_h5
+    from ace_tpu_torch.data.time import TimeCoord, encode_time
+
+    means = load_scalar_dict_from_file(paths["centering"])
+    nlat, nlon = _data_grid(paths, split)
+    micros = np.asarray([[encode_time(1996, m, 15) for m in range(1, 13)]])
+    values, units, calendar = encode_cf_time(TimeCoord(micros))
+    data = {k: np.full((1, 12, nlat, nlon), means[k], np.float32)
+            for k in names}
+    dims = {k: ("sample", "month", "lat", "lon") for k in names}
+    data["counts"] = np.ones((1, 12))
+    data["valid_time"] = values
+    dims["counts"] = dims["valid_time"] = ("sample", "month")
+    path = os.path.join(tmp, "monthly_mean_data.nc")
+    write_h5(path, data, dims,
+             attrs={"valid_time": {"units": units, "calendar": calendar}})
+    return path
+
+
+def _shield_config(paths, experiment_dir, tmp, names, sizes=None):
+    """The shipped ACE2-SHiELD AMIP config with path S's cuts: each subset
+    of both loaders' ``concat`` reads its own synthetic file (times inside
+    the subset), batch ``S_BATCH``, one epoch, the stats files, one inline
+    inference entry of ``S_INFERENCE_STEPS`` steps from 2 of the YAML's
+    initial conditions with its aggregator flags and synthetic time-mean
+    and monthly references, no Weights & Biases; ``sizes`` (``embed``,
+    ``layers``) makes the small copies the CPU runs."""
+    config = _yaml(SHIELD_CONFIG)
+    config["experiment_dir"] = experiment_dir
+    config["max_epochs"] = 1
+    config["logging"].update(log_to_wandb=False, log_to_screen=False)
+    for loader, prefix in (("train_loader", "subset"),
+                           ("validation_loader", "valid")):
+        for i, entry in enumerate(config[loader]["dataset"]["concat"]):
+            entry["data_path"] = paths[f"{prefix}_{i}"]
+        config[loader]["batch_size"] = S_BATCH
+    step = config["stepper"]["step"]["config"]
+    norm = step["normalization"]
+    norm["network"] = {"global_means_path": paths["centering"],
+                       "global_stds_path": paths["scaling-full-field"]}
+    norm["residual"] = {"global_means_path": paths["centering"],
+                        "global_stds_path": paths["scaling-residual"]}
+    if sizes:
+        step["builder"]["config"].update(embed_dim=sizes["embed"],
+                                         num_layers=sizes["layers"])
+    (entry,) = config["inference"]
+    entry.update(n_forward_steps=S_INFERENCE_STEPS,
+                 forward_steps_in_memory=S_INFERENCE_STEPS)
+    entry["loader"]["dataset"]["data_path"] = paths["inference"]
+    entry["loader"]["start_indices"]["times"] = S_INFERENCE_TIMES
+    entry["aggregator"].update(
+        time_mean_reference_data=_time_mean_reference(tmp, paths, names,
+                                                       "inference"),
+        monthly_reference_data=_monthly_reference(tmp, paths, names,
+                                                  "inference"))
+    return config
+
+
+def shield_train_path(counters, device="cuda", sizes=None, then=None):
+    """Path S-R: ``python -m ace_tpu_torch.train``'s ``main`` on
+    ``configs/baselines/amip-c96-shield/train-ace2.yaml`` with the cuts of
+    ``_shield_config`` (at its full width, embed 384, 8 layers, 180x360,
+    float32, unless ``sizes`` gives ``nlat``, ``nlon``, ``embed`` and
+    ``layers``) over synthetic files of its 56 variables. Checks finite
+    metrics, the four checkpoint files, no launch of any kernel (float32
+    takes the einsums, as in JAX) in the batch loop, validation and
+    inline inference, and (on the card) that the batch loop never waits
+    for the device; prints the loop's rate, the phases, the checkpoints'
+    bytes and seconds and the peak. ``then(paths, config, best)`` runs
+    after the gates inside the context that holds the files. Returns the
+    launches and the loop's rate."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.train.train import main as train_main
+
+    sizes = sizes or {}
+    nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
+    cuda = torch.device(device).type == "cuda"
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as tmp, files:
+        names = _shield_names()
+        paths = _training_files(tmp, names, nlat, nlon,
+                                torch.Generator(device).manual_seed(11),
+                                device, splits=S_SPLITS)
+        out_dir = os.path.join(tmp, "experiment")
+        config = _shield_config(paths, out_dir, tmp, names, sizes)
+        path = _write_yaml(os.path.join(tmp, "shield.yaml"), config)
+        builder = config["stepper"]["step"]["config"]["builder"]["config"]
+        layers = builder["num_layers"]
+        launches, rates, restored, records = {}, [], {}, []
+        GlobalTimer.reset()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with (_phase_probes(counters, launches, rates, cuda, restored),
+              _record_checkpoints(records, lambda stepper, kwargs: None)):
+            trainer = train_main([path], device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+        phases = GlobalTimer.get_instance().get_durations()
+        n_params = sum(p.numel() for p in trainer.stepper.module.parameters())
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        ckpt_dir = os.path.join(out_dir, "training_checkpoints")
+        files_found = sorted(os.listdir(ckpt_dir))
+        (line,) = _finite_metrics(os.path.join(out_dir, "metrics.jsonl"), 1)
+        print(f"path S-R: {SHIELD_CONFIG} at {nlat}x{nlon}, "
+              f"{len(names)} variables, embed {builder['embed_dim']}, "
+              f"{layers} layers, {n_params} parameters, batch {S_BATCH}: "
+              f"batch loop {rates[0]:.4f} train steps/s "
+              f"({rates[0] * S_BATCH:.4f} samples/s); phases "
+              f"{ {k: round(v, 4) for k, v in sorted(phases.items())} }; "
+              f"peak device memory {peak:.2f} GB")
+        for kind, name, seconds, size in records:
+            print(f"path S-R: {kind} {name}: {size} bytes in {seconds:.3f} s")
+        print(f"path S-R: train/loss {line['train/loss']:.6g}, val/loss "
+              f"{line['val/loss']:.6g}, inference error "
+              f"{line['inference/inference_error']:.6g}; {len(line)} finite "
+              f"metrics")
+        want_files = {"ckpt.msgpack", "best_ckpt.msgpack", "ema_ckpt.msgpack",
+                      "best_inference_ckpt.msgpack"}
+        if not want_files <= set(files_found):
+            raise AssertionError(f"path S-R: checkpoint files {files_found}")
+        none = {c.__name__: 0 for c in counters}
+        for phase, counts in launches.items():
+            print(f"path S-R: launches per {phase} call {counts} (want none)")
+            if any(c != none for c in counts):
+                raise AssertionError(f"path S-R: launches in {phase}")
+        if then is not None:
+            then(paths, config, os.path.join(ckpt_dir, "best_ckpt.msgpack"))
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates[0]
+
+
+def _read_series(path, names):
+    from ace_tpu_torch.data.store import open_file_dataset
+
+    ds = open_file_dataset(os.path.join(path, "data.nc"))
+    return {k: ds[k].read(()) for k in names}
+
+
+def shield_inference_path(counters, paths, ckpt, device="cuda",
+                          n_steps=N_STEPS, window=S_WINDOW):
+    """Path S-I: ``python -m ace_tpu_torch.inference``'s ``main`` over path
+    S-R's ``best_ckpt.msgpack``: batch 1 (the first time of the inference
+    file), ``n_steps`` steps in windows of ``window``, writer off (then on,
+    for the predictions). Checks finite outputs, no launch, no
+    synchronizing call in ``run_inference`` (on the card), the written
+    predictions within 1e-5 of each channel's spatial std of one
+    ``Stepper.predict`` and the dry-air mass within 1 Pa. Returns the
+    launches and the rate."""
+    import tempfile
+
+    import torch
+
+    from ace_tpu_torch.stepper import checkpoint
+
+    check_sync = torch.device(device).type == "cuda"
+    stepper = checkpoint.load_stepper(ckpt, device=device)
+    names = sorted(set(stepper.prognostic_names)
+                   | set(stepper.forcing_window_names))
+    series = _read_series(paths["inference"], names)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, written = _entry_from_files(
+            tmp, ckpt, None, None, None, counters, device, n_steps, window,
+            check_sync, data_dir=paths["inference"], starts=(0,),
+            label="path S-I")
+    errs, worst, drift = _check_written("path S-I", stepper, series, written,
+                                        [0], n_steps)
+    summary, launches, phases, peak = runs[False]
+    rate = summary["total_steps_per_second"]
+    print(f"path S-I: {summary['total_steps']} steps at {rate:.4f} steps/s "
+          f"(batch 1, windows of {window}, writer off; "
+          f"{runs[True][0]['total_steps_per_second']:.4f} with it on); "
+          f"phases { {k: round(v, 4) for k, v in sorted(phases.items())} }; "
+          f"peak device memory {peak:.2f} GB; launches {launches}")
+    print(f"path S-I: written predictions vs one {n_steps}-step predict: "
+          f"largest error {errs[worst]:.3g} of the channel's spatial std "
+          f"({worst}; tol 1e-5); dry-air mass drift {drift:.4f} Pa")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"path S-I: launches {launches}")
+    if not errs[worst] <= 1e-5:
+        raise AssertionError("path S-I: the written predictions disagree "
+                             "with Stepper.predict")
+    if not drift < 1.0:
+        raise AssertionError("path S-I: the dry-air mass is not conserved")
+    return launches, rate
+
+
+def shield_bf16_path(counters, paths, config, device="cuda",
+                     n_steps=N_STEPS, train_steps=S_BF16_STEPS):
+    """Path S-bf16: path S-R's config with ``compute_dtype: bfloat16`` (its
+    one change; batch 1) built through ``TrainConfig.build_trainer``:
+    a warm-up train step, ``train_steps`` more on one batch (each holding
+    per block and forward step one K1, 1b and 1c, no synchronizing call),
+    the loss after them below the warm-up's, then an ``n_steps``-step
+    rollout from the inference file (one K1 per block and step). Returns
+    the launches of both and their rates."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+    from ace_tpu_torch.train.trainer import TrainConfig
+
+    cuda = torch.device(device).type == "cuda"
+    config = copy.deepcopy(config)
+    builder = config["stepper"]["step"]["config"]["builder"]["config"]
+    builder["compute_dtype"] = "bfloat16"
+    layers = builder["num_layers"]
+    config["train_loader"]["batch_size"] = 1
+    trainer = from_dict(TrainConfig, config).build_trainer(device=device)
+    ts = trainer.train_stepper
+    ts.init(torch.Generator(device).manual_seed(0))
+    batch = next(iter(trainer.train_data)).data
+    gen = trainer.generator
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    first = ts.train_step(batch, gen)
+    steps = []
+
+    def train():
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = ts.train_step(batch, gen)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for _ in range(train_steps):
+        steps.append(counted(counters, train))
+    after = float(ts.valid_step(batch, gen)["loss"])
+    train_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    losses = [float(first["loss"])] + [float(m["loss"]) for (m, _), _ in
+                                       steps] + [after]
+    rate = len(steps) / sum(s for (_, s), _ in steps)
+
+    stepper = ts.stepper
+    names = sorted(set(stepper.prognostic_names)
+                   | set(stepper.forcing_window_names))
+    series = _read_series(paths["inference"], names)
+    ic = PrognosticState(data={
+        k: torch.as_tensor(series[k][None, :1]).to(device)
+        for k in stepper.prognostic_names})
+    forcing = {k: torch.as_tensor(series[k][None, :n_steps + 1]).to(device)
+               for k in stepper.forcing_window_names}
+    stepper.predict(ic, {k: v[:, :2] for k, v in forcing.items()})
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def rollout():
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            outputs, _ = stepper.predict(ic, forcing)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+        return outputs, time.perf_counter() - t0
+
+    (outputs, seconds), launches_r = counted(counters, rollout)
+    roll_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    finite = all(bool(torch.isfinite(v).all()) for v in outputs.values())
+    none = {c.__name__: 0 for c in counters}
+    want_t = none if not cuda else {
+        **none, "dhconv_filter": 2 * layers, "dhconv_filter_dx": 2 * layers,
+        "dhconv_filter_dw": 2 * layers}
+    want_r = none if not cuda else {**none,
+                                    "dhconv_filter": layers * n_steps}
+    print(f"path S-bf16: {len(steps)} train steps at batch 1 (2 forward "
+          f"steps) {rate:.4f} train steps/s, peak {train_peak:.2f} GB; "
+          f"losses {[round(v, 6) for v in losses]} (warm-up, the steps, "
+          f"after the updates); launches per train step "
+          f"{[n for _, n in steps]} (want {want_t})")
+    print(f"path S-bf16: {n_steps}-step rollout {n_steps / seconds:.4f} "
+          f"steps/s at batch 1, peak {roll_peak:.2f} GB, outputs finite "
+          f"{finite}; launches {launches_r} (want {want_r})")
+    del trainer, ts, stepper
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if not (all(map(math.isfinite, losses)) and finite):
+        raise AssertionError("path S-bf16: a loss or an output is not finite")
+    if not after < losses[0]:
+        raise AssertionError("path S-bf16: the loss after the updates is not "
+                             "below the warm-up step's")
+    if any(n != want_t for _, n in steps) or launches_r != want_r:
+        raise AssertionError("path S-bf16: launches")
+    total = {k: sum(n[k] for _, n in steps) + launches_r[k] for k in none}
+    return total, rate, n_steps / seconds
+
+
+def sfno_stepper_config(nlat=16, nlon=32, embed=128, layers=2,
+                        compute_dtype="float32", **builder):
+    """A small stepper config of path S's shape: the SHiELD YAML's
+    ``SphericalFourierNeuralOperatorNet`` (dhconv, instance norms, learned
+    position embedding, big skip) over 2 of its levels' variables with the
+    dry-air corrector and prescribed SST, and its dataset info; ``builder``
+    overrides the network's fields."""
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.core.step import StepSelector
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    config, info = flagship.stepper_config(nlat, nlon, nz=2)
+    step = config.step.config
+    fields = dict(_yaml(SHIELD_CONFIG)["stepper"]["step"]["config"][
+        "builder"]["config"])
+    fields.update(embed_dim=embed, num_layers=layers,
+                  compute_dtype=compute_dtype, **builder)
+    step["builder"] = {"type": "SphericalFourierNeuralOperatorNet",
+                       "config": fields}
+    # the scales of flagship.synthetic_inputs' draws
+    network = step["normalization"]["network"]
+    network["means"]["PRESsfc"], network["stds"]["PRESsfc"] = 1.0e5, 100.0
+    for name in network["stds"]:
+        if name.startswith("specific_total_water"):
+            network["stds"][name] = 1e-3
+    return StepperConfig(step=StepSelector(type="single_module",
+                                           config=step)), info
+
+
+def _reference_s_case(label, counters, device, dtype, builder, tols,
+                      embed=128):
+    """One case of reference phase S: a 2-step rollout and one train step
+    (MSE, 2 forward steps) of a small SFNO on ``device`` and the CPU from
+    the same weights (``flagship.draw_check_weights``) and inputs.
+
+    Each output is held within ``out_tol`` of its spatial anomaly plus
+    1e-5 of its largest value (the dry-air target: a float32 global mean
+    of ~1e5 Pa rounds differently on the two devices). Each gradient is
+    held within ``grad_tol`` of its norm plus 1e-6 of the largest
+    gradient's norm plus, in bf16, twice its own distance on the CPU from
+    the float32 model's gradient: the instance norms make some gradients
+    sums whose terms cancel to a small fraction of them, which keep the
+    bf16 rounding of those terms on the card and on the CPU alike. A
+    block's output bias, but the last's, adds a per-channel constant that
+    the next block's instance norm removes: its true gradient is zero, and
+    each side's is held below ``grad_tol`` of the largest gradient's
+    norm."""
+    import torch
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.core.loss import StepLossConfig
+    from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
+
+    def train_stepper(config, info, dev):
+        return TrainStepper(
+            config.get_stepper(info, device=dev),
+            StepperTrainConfig(n_forward_steps=2, loss=from_dict(
+                StepLossConfig, {"type": "MSE"})),
+            OptimizationConfig(lr=1e-4, optimizer_type="AdamW"),
+            EMAConfig())
+
+    config, info = sfno_stepper_config(embed=embed, compute_dtype=dtype,
+                                       **builder)
+    sides = [train_stepper(config, info, dev) for dev in ("cpu", device)]
+    gen = torch.Generator().manual_seed(3)
+    flagship.draw_check_weights(sides[0].stepper, gen)
+    weights = sides[0].module.state_dict()
+    sides[1].stepper.load_state_dict(weights)
+    ic, forcing = flagship.synthetic_inputs(sides[0].stepper, 2, batch=2,
+                                            generator=gen)
+    batch = flagship.synthetic_batch(sides[0].stepper, 2,
+                                     n_forward_steps=2, generator=gen)
+    out = []
+    for ts in sides:
+        dev = ts.stepper.device
+
+        def run():
+            moved = type(ic)(data={k: v.to(dev) for k, v in ic.data.items()})
+            outputs, _ = ts.stepper.predict(
+                moved, {k: v.to(dev) for k, v in forcing.items()})
+            loss, grads = flagship.train_gradients(
+                ts, {k: v.to(dev) for k, v in batch.items()})
+            return outputs, loss, grads
+
+        out.append(counted(counters, run))
+    (ref, ref_loss, ref_grads), _ = out[0]
+    (res, loss, grads), launches = out[1]
+    noise = {k: 0.0 for k in ref_grads}
+    if dtype == "bfloat16":
+        f32_config, _ = sfno_stepper_config(embed=embed, **builder)
+        f32 = train_stepper(f32_config, info, "cpu")
+        f32.stepper.load_state_dict(weights)
+        _, f32_grads = flagship.train_gradients(f32, batch)
+        noise = {k: float((r.double() - f32_grads[k].double()).norm())
+                 for k, r in ref_grads.items()}
+    out_tol, loss_tol, grad_tol = tols
+    ratios = {}
+    for k, r in ref.items():
+        r = r.float()
+        anomaly = (r - r.mean((-2, -1), keepdim=True)).abs().amax((-2, -1))
+        err = (res[k].float().cpu() - r).abs().amax((-2, -1))
+        allowed = out_tol * anomaly + 1e-5 * r.abs().amax((-2, -1))
+        ratios[k] = float((err / allowed).max())
+    worst_out = max(ratios, key=ratios.get)
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    largest = max(float(r.double().norm()) for r in ref_grads.values())
+    layers = config.step.config["builder"]["config"]["num_layers"]
+    zero = {f"block_{i}.mlp.fc2.bias" for i in range(layers - 1)}
+    gerrs = {k: float((grads[k].double().cpu() - r.double()).norm())
+             / (grad_tol * float(r.double().norm()) + 1e-6 * largest
+                + 2 * noise[k])
+             for k, r in ref_grads.items() if k not in zero}
+    for k in zero:
+        gerrs[k] = max(float(g[k].double().norm()) for g in (grads, ref_grads)
+                       ) / (grad_tol * largest)
+    rel = flagship.gradient_error(grads, ref_grads)
+    worst = sorted(gerrs, key=gerrs.get, reverse=True)[:3]
+    shown = worst + sorted(k for k in gerrs if k.endswith("filter.weight")
+                           and k not in worst)
+    print(f"reference S ({label}): {device} vs CPU: rollout error "
+          f"{ratios[worst_out]:.3g} of the allowed ({worst_out}; {out_tol} of "
+          f"the anomaly + 1e-5 of the largest value); loss {float(loss):.6g} "
+          f"/ {float(ref_loss):.6g}, relative error {loss_err:.3g} (tol "
+          f"{loss_tol}); gradients, largest errors of the allowed, then the "
+          f"filters': "
+          + ", ".join(f"{k} {gerrs[k]:.3g} (relative L2 {rel[k]:.3g}, norm "
+                      f"{float(ref_grads[k].norm()) / largest:.2g} of the "
+                      f"largest, CPU bf16 vs f32 {noise[k] / largest:.2g})"
+                      for k in shown)
+          + f" (tol {grad_tol} of the norm + 1e-6 of the largest + twice "
+          f"the CPU's bf16 distance from f32) over {len(rel)} parameters; "
+          f"launches {launches}")
+    if not (ratios[worst_out] <= 1 and loss_err <= loss_tol
+            and gerrs[worst[0]] <= 1):
+        raise AssertionError(f"reference S ({label}): the card disagrees "
+                             "with the CPU")
+    return launches
+
+
+def reference_sfno_phase(counters, device="cuda", embed=128):
+    """Reference phase S: a small SFNO of path S's shape (embed 128, 2
+    layers, 16x32) on ``device`` against the CPU: float32 (the einsums,
+    both sides full float32) within ``S_F32_*``; bfloat16 (K1, 1b, 1c on
+    the card against their plain versions on the CPU) within
+    ``flagship.CHECK_TOL`` and the train step's limits; the diagonal
+    operator and the FFT transform in float32. Returns the bf16 case's
+    launches."""
+    from ace_tpu_torch import flagship
+
+    f32 = (S_F32_TOL, S_F32_LOSS_TOL, S_F32_GRAD_TOL)
+    none = {c.__name__: 0 for c in counters}
+    cuda = device != "cpu"
+    for label, builder in (("f32 dhconv", {}),
+                           ("f32 diagonal", {"operator_type": "diagonal"}),
+                           ("f32 fft", {"spectral_transform": "fft"})):
+        launches = _reference_s_case(label, counters, device, "float32",
+                                     builder, f32, embed)
+        if launches != none:
+            raise AssertionError(f"reference S ({label}): launches "
+                                 f"{launches}")
+    launches = _reference_s_case(
+        "bf16 dhconv", counters, device, "bfloat16", {},
+        (flagship.CHECK_TOL, flagship.TRAIN_LOSS_TOL,
+         flagship.TRAIN_GRAD_TOL), embed)
+    # 2 rollout steps and 2 loss steps of 2 blocks: K1 in each forward,
+    # 1b and 1c in each backward
+    want = none if not cuda else {**none, "dhconv_filter": 8,
+                                  "dhconv_filter_dx": 4,
+                                  "dhconv_filter_dw": 4}
+    if launches != want:
+        raise AssertionError(f"reference S (bf16): launches {launches}, "
+                             f"want {want}")
+    return launches
+
+
+def shield_paths(counters, smi, sizes=None, device="cuda"):
+    """Reference phase S, then paths S-R, S-I and S-bf16: the launches of
+    each. ``sizes`` (``nlat``, ``nlon``, ``embed``, ``layers``) makes the
+    small copies the CPU runs (the reference phase at that embed)."""
+    reference_sfno_phase(counters, device, (sizes or {}).get("embed", 128))
+    print(smi)
+    out = {}
+
+    def then(paths, config, best):
+        print(smi)
+        out["S-I"], _ = shield_inference_path(counters, paths, best,
+                                              device=device)
+        print(smi)
+        out["S-bf16"], _, _ = shield_bf16_path(counters, paths, config,
+                                               device=device)
+
+    out["S-R"], _ = shield_train_path(counters, device=device, sizes=sizes,
+                                      then=then)
+    return out
+
+
 def _entry_paths(counters, keep, none, smi, rate_t):
     """Paths I, E (with phase E-agg), R and F (with reference phases R
     and F): the launches of each."""
@@ -2784,6 +3429,13 @@ def main() -> int:
         by_path.update(_entry_paths(counters, keep, none, smi, rate_t))
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # reference phase S and paths S-R, S-I, S-bf16: the ACE2-SHiELD AMIP
+    # recipe's SphericalFourierNeuralOperatorNet (K1, 1b and 1c only in
+    # S-bf16)
+    by_path.update(shield_paths(counters, smi))
 
     own_path = {"dhconv_filter": "0", "fused_block_tail": "A",
                 "fused_sht": "B", "dhconv_filter_dx": "T",

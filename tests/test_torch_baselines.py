@@ -26,6 +26,7 @@ SMALL = dict(nlat=16, nlon=32, nz=2, embed=16, layers=2)
     ("era5/ace-train-config-multi-step-finetuning.yaml", TrainConfig),
     ("era5/ace-evaluator-config.yaml", EvaluatorConfig),
     ("shield-som/ace-2pctCO2-evaluator-config.yaml", EvaluatorConfig),
+    ("amip-c96-shield/train-ace2.yaml", TrainConfig),
 ])
 def test_baseline_configs_build_in_the_port(name, schema):
     """Each YAML, with Weights & Biases off as the port needs, builds in
@@ -35,6 +36,11 @@ def test_baseline_configs_build_in_the_port(name, schema):
     config = from_dict(schema, data)
     if schema is TrainConfig:
         pinit = config.stepper_training.parameter_init
+        if "amip" in name:
+            builder = config.stepper.step.config["builder"]
+            assert builder["type"] == "SphericalFourierNeuralOperatorNet"
+            entry = config.inference_entries[0]
+            assert entry.aggregator.monthly_reference_data
         if "finetuning" in name:
             assert pinit.weights_path and (
                 config.stepper_training.optimize_last_step_only)

@@ -45,9 +45,10 @@ _FILTER_EDGES = [(2, 3, m, 96, o) for m in (1, 64, 65, 181, 193)
 
 @pytest.mark.parametrize(
     "shape",
-    [(1, 180, 181, 512, 512), (2, 3, 181, 96, 200), (1, 2, 5, 32, 8)]
+    [(1, 180, 181, 512, 512), (1, 180, 181, 384, 384), (2, 3, 181, 96, 200),
+     (1, 2, 5, 32, 8)]
     + _FILTER_EDGES,
-    ids=["flagship", "ragged", "tiny"]
+    ids=["flagship", "sfno", "ragged", "tiny"]
     + [f"M{s[2]}-O{s[4]}" for s in _FILTER_EDGES],
 )
 def test_dhconv_kernel_matches_plain(cuda, shape):
@@ -120,8 +121,9 @@ def _assert_f32_close(out, ref):
 
 @pytest.mark.parametrize(
     "shape",
-    [(4, 180, 181, 512, 512), (2, 3, 181, 96, 200)] + _DX_EDGES + _DX_WALKS,
-    ids=["flagship-train", "ragged"]
+    [(4, 180, 181, 512, 512), (1, 180, 181, 384, 384), (2, 3, 181, 96, 200)]
+    + _DX_EDGES + _DX_WALKS,
+    ids=["flagship-train", "sfno-train", "ragged"]
     + ["M{}-I{}-O{}".format(*s[2:]) if s[0] == 2
        else "B{}-M{}-I{}-O{}".format(s[0], *s[2:]) for s in _DX_EDGES]
     + ["walk-B{}-L{}-M{}-I{}-O{}".format(*s) for s in _DX_WALKS],
@@ -147,8 +149,9 @@ _DW_EDGES = [(b, 3, m, i, o) for b in (1, 3) for m in (1, 32, 33, 181)
 
 
 @pytest.mark.parametrize(
-    "shape", [(4, 180, 181, 512, 512), (2, 3, 181, 96, 200)] + _DW_EDGES,
-    ids=["flagship-train", "ragged"]
+    "shape", [(4, 180, 181, 512, 512), (1, 180, 181, 384, 384),
+              (2, 3, 181, 96, 200)] + _DW_EDGES,
+    ids=["flagship-train", "sfno-train", "ragged"]
     + ["B{}-M{}-I{}-O{}".format(s[0], *s[2:]) for s in _DW_EDGES],
 )
 def test_dhconv_dw_kernel_matches_plain(cuda, shape):

@@ -44,7 +44,8 @@ def _noise(batch: int) -> np.ndarray:
 
 def config(data: SyntheticData, out_dir) -> dict:
     """A NoiseConditionedSFNO config of ``tests/test_train_integration.py``'s
-    shape (the port refuses SphericalFourierNeuralOperatorNet), MSE loss,
+    shape (tests/test_torch_sfno_train.py runs that file's
+    SphericalFourierNeuralOperatorNet config itself), MSE loss,
     AdamW with clipping, the default EMA, and one inline-inference entry."""
     loader = {"dataset": {"data_path": str(data.data_dir)}, "batch_size": 2,
               "num_data_workers": 1}
