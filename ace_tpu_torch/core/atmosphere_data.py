@@ -196,8 +196,10 @@ class AtmosphereData:
         return self._get("toa_down_sw_radiative_flux")
 
     @property
-    def net_surface_energy_flux(self):
-        """Net surface energy flux, W/m^2, positive into the surface."""
+    def net_surface_energy_flux_without_frozen_precip(self):
+        """Net surface energy flux, W/m^2, positive into the surface, without
+        the latent heat of the frozen precipitation (what the slab ocean
+        absorbs)."""
         radiative = (
             self._get("sfc_down_sw_radiative_flux")
             - self._get("sfc_up_sw_radiative_flux")
@@ -206,7 +208,12 @@ class AtmosphereData:
         )
         turbulent = (-self._get("latent_heat_flux")
                      - self._get("sensible_heat_flux"))
-        return (radiative + turbulent
+        return radiative + turbulent
+
+    @property
+    def net_surface_energy_flux(self):
+        """Net surface energy flux, W/m^2, positive into the surface."""
+        return (self.net_surface_energy_flux_without_frozen_precip
                 - self.frozen_precipitation_rate * LATENT_HEAT_OF_FREEZING)
 
     @property

@@ -12,6 +12,7 @@ import torch
 
 from ace_tpu_torch.core.registry import Registry, Selector
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
+from ace_tpu_torch.models.layers import init_weights
 
 StepperState = dict
 
@@ -39,6 +40,68 @@ class StepOutput:
     output: TensorDict
     stepper_state: StepperState
     corrector_diagnostics: TensorDict = dataclasses.field(default_factory=dict)
+
+
+class StepConfigBase:
+    """The name sets every step config derives from its input and output
+    names (port of ace_tpu/core/step/base.py:StepConfigABC)."""
+
+    @property
+    def prognostic_names(self) -> list[str]:
+        return sorted(set(self.output_names) & set(self.input_names))
+
+    @property
+    def loss_names(self) -> list[str]:
+        return self.output_names
+
+    def get_next_step_forcing_names(self) -> list[str]:
+        return list(getattr(self, "next_step_forcing_names", []))
+
+
+class StepBase:
+    """A step's name sets, read from its config (port of
+    ace_tpu/core/step/base.py:StepABC). ``module`` holds every weight of
+    the step: one network, or an ``nn.ModuleDict`` keyed as the JAX
+    package keys the parameter tree of a step with several."""
+
+    n_ic_timesteps = 1
+    corrector = None
+
+    @property
+    def input_names(self) -> list[str]:
+        return self.config.input_names
+
+    @property
+    def output_names(self) -> list[str]:
+        return self.config.output_names
+
+    @property
+    def prognostic_names(self) -> list[str]:
+        return self.config.prognostic_names
+
+    @property
+    def loss_names(self) -> list[str]:
+        return self.config.loss_names
+
+    @property
+    def next_step_input_names(self) -> list[str]:
+        return self.config.next_step_input_names
+
+    @property
+    def next_step_forcing_names(self) -> list[str]:
+        return self.config.get_next_step_forcing_names()
+
+    def init_params(self, generator: torch.Generator | None = None):
+        """Draw the step's weights with ``generator``."""
+        init_weights(self.module, generator)
+
+    def init_stepper_state(self, input_data: TensorMapping) -> StepperState:
+        """The per-sample state of a rollout: the corrector's references,
+        from the initial condition."""
+        state: StepperState = {}
+        if self.corrector is not None:
+            state["corrector"] = self.corrector.init_state(input_data)
+        return state
 
 
 class StepSelector(Selector):

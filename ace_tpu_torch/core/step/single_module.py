@@ -1,21 +1,24 @@
 """The default single-module step (port of
 ace_tpu/core/step/single_module.py).
 
-Per step: normalize inputs -> pack channels -> module forward -> unpack ->
-denormalize -> corrector -> ocean SST prescription -> prescribed
-prognostic overwrite. Global-mean removal, input dropout, channel-mask
-inputs and the secondary decoder are not ported yet: their config fields
-are accepted at their defaults and raise otherwise.
+Per step: global-mean removal (optional) -> normalize inputs -> input
+dropout and data presence -> pack channels (with presence channels when
+``include_channel_mask_inputs``) -> module forward -> unpack (and the
+secondary decoder's diagnostics) -> residual -> denormalize -> restore
+the global means -> corrector -> ocean SST (prescribed or slab) ->
+prescribed prognostic overwrite.
 """
 
 import dataclasses
 from typing import Any
 
 import torch
+from torch import nn
 
 from ace_tpu_torch.core.config import to_dict
 from ace_tpu_torch.core.corrector.atmosphere import AtmosphereCorrectorConfig
 from ace_tpu_torch.core.dataset_info import DatasetInfo
+from ace_tpu_torch.core.masking import VariableMaskingConfig
 from ace_tpu_torch.core.normalizer import (
     NetworkAndLossNormalizationConfig,
     StandardNormalizer,
@@ -24,30 +27,76 @@ from ace_tpu_torch.core.ocean import OceanConfig
 from ace_tpu_torch.core.packer import Packer
 from ace_tpu_torch.core.step.base import (
     StepArgs,
+    StepBase,
+    StepConfigBase,
     StepOutput,
-    StepperState,
     StepSelector,
 )
-from ace_tpu_torch.core.typing_ import TensorMapping
+from ace_tpu_torch.core.step.global_mean_removal import (
+    GlobalMeanRemovalConfig,
+)
+from ace_tpu_torch.core.step.secondary_decoder import SecondaryDecoderConfig
+from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
 from ace_tpu_torch.device import get_device
-from ace_tpu_torch.models.layers import init_weights
 from ace_tpu_torch.models.registry import ModuleSelector
+
+
+def apply_input_mask(input_norm: TensorMapping,
+                     presence: TensorMapping) -> TensorDict:
+    """Zero the masked channels of normalized inputs. ``presence`` maps a
+    channel to a 0-d bool (dropout, shared by the batch) or a ``[batch]``
+    one; channels it does not name are present."""
+    result = dict(input_norm)
+    for name, mask in presence.items():
+        if name not in result:
+            continue
+        t = result[name]
+        if mask.dim() > 0:
+            mask = mask.reshape(-1, *(1,) * (t.dim() - 1))
+        result[name] = torch.where(mask, t, torch.zeros((), dtype=t.dtype,
+                                                        device=t.device))
+    return result
+
+
+def build_corrector(config, dataset_info: DatasetInfo):
+    """The step's corrector, or None when its config does nothing."""
+    if config.is_noop:
+        return None
+    if dataset_info.timestep is None:
+        raise ValueError("corrector requires dataset_info.timestep")
+    return config.build(
+        dataset_info.gridded_operations,
+        dataset_info.atmosphere_vertical_coordinate,
+        dataset_info.timestep,
+    )
 
 
 def step_with_adjustments(args: StepArgs, network_call, normalizer, corrector,
                           ocean, residual_prediction: bool,
                           prognostic_names: list[str],
-                          prescribed_prognostic_names: list[str]) -> StepOutput:
+                          prescribed_prognostic_names: list[str],
+                          global_mean_removal=None) -> StepOutput:
     """The step pipeline around the network call
-    ``network_call(input_norm, generator) -> output_norm``."""
+    ``network_call(input_norm, generator) -> output_norm``: the corrector
+    runs before the ocean, so a slab SST reads the corrected fluxes."""
     input_data = args.input
     next_step_input_data = args.next_step_input_data
-    input_norm = normalizer.normalize(dict(input_data))
+    gmr_state = None
+    if global_mean_removal is not None:
+        network_input, gmr_state = global_mean_removal.forward_transform(
+            input_data)
+        # the extra global-mean channels are normalized already
+        input_norm = {**normalizer.normalize(dict(network_input)),
+                      **gmr_state.extras}
+    else:
+        input_norm = normalizer.normalize(dict(input_data))
     output_norm = network_call(input_norm, args.generator)
     if residual_prediction:
         for name in prognostic_names:
             output_norm[name] = output_norm[name] + input_norm[name]
     output = normalizer.denormalize(output_norm)
+    if global_mean_removal is not None:
+        output = global_mean_removal.inverse_transform(output, gmr_state)
 
     stepper_state = dict(args.stepper_state)
     diagnostics = {}
@@ -87,7 +136,7 @@ def step_with_adjustments(args: StepArgs, network_call, normalizer, corrector,
 @StepSelector.register("single_module")
 @StepSelector.register("default")
 @dataclasses.dataclass
-class SingleModuleStepConfig:
+class SingleModuleStepConfig(StepConfigBase):
     """Configuration for the single-module step, with the JAX package's
     fields (port of ace_tpu/core/step/single_module.py:173)."""
 
@@ -104,23 +153,15 @@ class SingleModuleStepConfig:
         default_factory=list
     )
     residual_prediction: bool = False
-    global_mean_removal: dict | None = None
+    global_mean_removal: GlobalMeanRemovalConfig | None = None
     include_channel_mask_inputs: bool = False
-    input_dropout: dict | None = None
-    secondary_decoder: dict | None = None
+    input_dropout: VariableMaskingConfig | None = None
+    secondary_decoder: SecondaryDecoderConfig | None = None
 
     def __post_init__(self):
-        unported = {
-            "global_mean_removal": self.global_mean_removal is not None,
-            "include_channel_mask_inputs": self.include_channel_mask_inputs,
-            "input_dropout": self.input_dropout is not None,
-            "secondary_decoder": self.secondary_decoder is not None,
-        }
-        for option, requested in unported.items():
-            if requested:
-                raise NotImplementedError(
-                    f"single_module option {option} is not ported yet"
-                )
+        if self.global_mean_removal is not None:
+            self.global_mean_removal.validate_names(self.in_names,
+                                                    self.out_names)
         for name in self.prescribed_prognostic_names:
             if name not in self.out_names:
                 raise ValueError(
@@ -135,6 +176,13 @@ class SingleModuleStepConfig:
                 raise ValueError(
                     f"next_step_forcing_name {name!r} is an output variable"
                 )
+        if self.secondary_decoder is not None:
+            for name in self.secondary_decoder.secondary_diagnostic_names:
+                if name in self.in_names or name in self.out_names:
+                    raise ValueError(
+                        f"secondary_diagnostic_name {name!r} is already an "
+                        "input or output variable"
+                    )
 
     @property
     def input_names(self) -> list[str]:
@@ -144,7 +192,9 @@ class SingleModuleStepConfig:
 
     @property
     def output_names(self) -> list[str]:
-        return list(self.out_names)
+        secondary = (self.secondary_decoder.secondary_diagnostic_names
+                     if self.secondary_decoder is not None else [])
+        return list(self.out_names) + list(secondary)
 
     @property
     def next_step_input_names(self) -> list[str]:
@@ -155,8 +205,8 @@ class SingleModuleStepConfig:
         return sorted(result)
 
     @property
-    def prognostic_names(self) -> list[str]:
-        return sorted(set(self.output_names) & set(self.input_names))
+    def _normalize_names(self) -> list[str]:
+        return sorted(set(self.in_names) | set(self.output_names))
 
     def get_step(self, dataset_info: DatasetInfo,
                  device=None) -> "SingleModuleStep":
@@ -165,11 +215,16 @@ class SingleModuleStepConfig:
     def get_state(self) -> dict[str, Any]:
         state = to_dict(self)
         state["builder"] = self.builder.get_state()
+        if self.secondary_decoder is not None:
+            state["secondary_decoder"]["network"] = (
+                self.secondary_decoder.network.get_state())
         return state
 
 
-class SingleModuleStep:
-    n_ic_timesteps = 1
+class SingleModuleStep(StepBase):
+    """``module`` is the network, or with a secondary decoder an
+    ``nn.ModuleDict`` of ``main`` (the network) and ``secondary_decoder``,
+    as the JAX package keys its parameters."""
 
     def __init__(self, config: SingleModuleStepConfig,
                  dataset_info: DatasetInfo, device=None):
@@ -178,17 +233,42 @@ class SingleModuleStep:
         self.device = get_device(device)
         self.normalizer: StandardNormalizer = (
             config.normalization.build_network_normalizer(
-                sorted(set(config.in_names) | set(config.out_names))
-            )
+                config._normalize_names)
         )
-        self.module = config.builder.build(
-            n_in_channels=len(config.in_names),
+        self.global_mean_removal = (
+            config.global_mean_removal.build(self.normalizer)
+            if config.global_mean_removal is not None else None
+        )
+        extra_names = (self.global_mean_removal.extra_channel_names
+                       if self.global_mean_removal is not None else [])
+        packed_in_names = list(config.in_names) + extra_names
+        self.input_masking = (
+            config.input_dropout.build(packed_in_names)
+            if config.input_dropout is not None else None
+        )
+        n_in_channels = len(packed_in_names)
+        if config.include_channel_mask_inputs:
+            # one presence channel for each input channel
+            n_in_channels *= 2
+        self.network = config.builder.build(
+            n_in_channels=n_in_channels,
             n_out_channels=len(config.out_names),
             dataset_info=dataset_info,
             device=self.device,
         )
-        self.in_packer = Packer(config.in_names)
+        self.in_packer = Packer(packed_in_names)
         self.out_packer = Packer(config.out_names)
+        self.secondary_decoder = None
+        self.module: nn.Module = self.network
+        if config.secondary_decoder is not None:
+            self.secondary_decoder = config.secondary_decoder.build(
+                n_in_channels=len(config.out_names),
+                dataset_info=dataset_info, device=self.device,
+            )
+            self.module = nn.ModuleDict({
+                "main": self.network,
+                "secondary_decoder": self.secondary_decoder.module,
+            })
         self.ocean = None
         if config.ocean is not None:
             if dataset_info.timestep is None:
@@ -196,53 +276,57 @@ class SingleModuleStep:
             self.ocean = config.ocean.build(
                 config.in_names, config.out_names, dataset_info.timestep
             )
-        self.corrector = None
-        if not config.corrector.is_noop:
-            if dataset_info.timestep is None:
-                raise ValueError("corrector requires dataset_info.timestep")
-            self.corrector = config.corrector.build(
-                dataset_info.gridded_operations,
-                dataset_info.atmosphere_vertical_coordinate,
-                dataset_info.timestep,
-            )
+        self.corrector = build_corrector(config.corrector, dataset_info)
 
-    @property
-    def input_names(self) -> list[str]:
-        return self.config.input_names
+    def draw_input_dropout_presence(self, args: StepArgs
+                                    ) -> TensorDict | None:
+        """Input dropout's presence of each packed input channel (a 0-d
+        bool, one draw shared by the batch), drawn from the step's
+        generator; None (nothing drawn) when the step is deterministic or
+        has no generator or no input dropout. Tests replace it on the
+        instance to pass a presence in."""
+        if (self.input_masking is None or args.deterministic
+                or args.generator is None):
+            return None
+        presence = self.input_masking.sample_presence(args.generator)
+        return {name: presence[i]
+                for i, name in enumerate(self.in_packer.names)}
 
-    @property
-    def output_names(self) -> list[str]:
-        return self.config.output_names
-
-    @property
-    def prognostic_names(self) -> list[str]:
-        return self.config.prognostic_names
-
-    @property
-    def next_step_input_names(self) -> list[str]:
-        return self.config.next_step_input_names
-
-    @property
-    def next_step_forcing_names(self) -> list[str]:
-        return self.config.next_step_forcing_names
-
-    def init_params(self, generator: torch.Generator | None = None):
-        """Draw the module's weights with ``generator``."""
-        init_weights(self.module, generator)
-
-    def init_stepper_state(self, input_data: TensorMapping) -> StepperState:
-        state: StepperState = {}
-        if self.corrector is not None:
-            state["corrector"] = self.corrector.init_state(input_data)
-        return state
+    def _channel_masks(self, packed: torch.Tensor,
+                       dropout_presence: TensorMapping | None
+                       ) -> torch.Tensor:
+        """The presence channels, packed as the inputs: ones, times the
+        dropout presence (dataset masks are not ported)."""
+        batch, spatial = packed.shape[0], packed.shape[1:-1]
+        ones = torch.ones((), dtype=packed.dtype, device=packed.device)
+        masks = {}
+        for name in self.in_packer.names:
+            real = ones
+            if dropout_presence is not None and name in dropout_presence:
+                real = dropout_presence[name].to(packed.dtype)
+            masks[name] = real.expand(batch, *spatial)
+        return self.in_packer.pack(masks)
 
     def step(self, args: StepArgs) -> StepOutput:
+        config = self.config
+        dropout_presence = self.draw_input_dropout_presence(args)
+
         def network_call(input_norm, generator):
+            if dropout_presence is not None:
+                input_norm = apply_input_mask(input_norm, dropout_presence)
             packed = self.in_packer.pack(input_norm)
-            return self.out_packer.unpack(
-                self.module(packed, generator=generator,
-                            deterministic=args.deterministic)
-            )
+            if config.include_channel_mask_inputs:
+                packed = torch.cat(
+                    [packed, self._channel_masks(packed, dropout_presence)],
+                    dim=-1)
+            out_packed = self.network(packed, generator=generator,
+                                      deterministic=args.deterministic)
+            output = self.out_packer.unpack(out_packed)
+            if self.secondary_decoder is not None:
+                output.update(self.secondary_decoder(
+                    out_packed, deterministic=args.deterministic,
+                    generator=generator))
+            return output
 
         return step_with_adjustments(
             args=args,
@@ -250,9 +334,8 @@ class SingleModuleStep:
             normalizer=self.normalizer,
             corrector=self.corrector,
             ocean=self.ocean,
-            residual_prediction=self.config.residual_prediction,
+            residual_prediction=config.residual_prediction,
             prognostic_names=self.prognostic_names,
-            prescribed_prognostic_names=(
-                self.config.prescribed_prognostic_names
-            ),
+            prescribed_prognostic_names=config.prescribed_prognostic_names,
+            global_mean_removal=self.global_mean_removal,
         )

@@ -101,7 +101,8 @@ def run_evaluator_from_config(config: EvaluatorConfig, device=None) -> dict:
     info = data.dataset_info
     aggregator = config.aggregator.build(
         info, n_timesteps=config.n_forward_steps,
-        normalizer=stepper.step.normalizer, n_ensemble_per_ic=n_ens,
+        normalizer=getattr(stepper.step, "normalizer", None),
+        n_ensemble_per_ic=n_ens,
     )
     writer = config.data_writer.build(config.experiment_dir, info)
     # the targets: the model's outputs that the dataset holds

@@ -214,7 +214,8 @@ def _run_inference_impl(config: InferenceConfig, device: torch.device
     info = forcing_data.dataset_info
     aggregator = config.aggregator.build(
         info, n_timesteps=config.n_forward_steps,
-        normalizer=stepper.step.normalizer, n_ensemble_per_ic=n_ens,
+        normalizer=getattr(stepper.step, "normalizer", None),
+        n_ensemble_per_ic=n_ens,
     )
     writer = config.data_writer.build(config.experiment_dir, info)
     summary = run_inference(

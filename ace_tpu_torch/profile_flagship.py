@@ -4,7 +4,8 @@ GPU.
     python -m ace_tpu_torch.profile_flagship [--steps N] [--out DIR]
                                              [--fused-block-tail]
                                              [--train | --inference |
-                                              --evaluator | --shield]
+                                              --evaluator | --shield |
+                                              --som]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -43,6 +44,14 @@ SphericalFourierNeuralOperatorNet, embed 384, 8 layers, float32): its
 train step at batch 2 (``N`` steps untraced, default 5, then 2 traced),
 then its rollout at batch 1 (20 untraced, 3 traced), each with its tables
 and peak (``shield_train_trace.json``, ``shield_rollout_trace.json``).
+``--som`` profiles path M, the ACE2-SOM slab-ocean recipe
+(``configs/baselines/shield-som/ace-train-config.yaml``): a rollout step
+as path M-I runs it (the multi-call wrapper without a config around the
+slab-ocean step, float32, batch 4: 20 untraced, 3 traced), then a train
+step as path M-bf16 runs it (bfloat16, CO2 quadrupled in a second call
+of each step with its six radiative fluxes in the loss, batch 1: ``N``
+untraced, default 5, then 2 traced; ``som_rollout_trace.json``,
+``som_train_trace.json``).
 Writes the Chrome trace to
 ``DIR/flagship_trace.json`` (``flagship_train_trace.json``,
 ``flagship_inference_trace.json``, ``flagship_evaluator_trace.json``;
@@ -160,6 +169,10 @@ def main(argv=None):
     mode.add_argument("--shield", action="store_true",
                       help="profile path S: the ACE2-SHiELD AMIP recipe's "
                            "train step (batch 2), then its rollout (batch 1)")
+    mode.add_argument("--som", action="store_true",
+                      help="profile path M: the ACE2-SOM recipe's rollout "
+                           "(f32, batch 4), then its bf16 multi-call train "
+                           "step (batch 1)")
     parser.add_argument("--read", metavar="TRACE",
                         help="only print the tables of this Chrome trace")
     parser.add_argument("--traced-steps", type=int, default=TRACED_TRAIN_STEPS,
@@ -169,7 +182,7 @@ def main(argv=None):
         print_tables(device_events(args.read), args.traced_steps)
         return
     if args.steps is None:
-        args.steps = (5 if args.train or args.shield else 100
+        args.steps = (5 if args.train or args.shield or args.som else 100
                       if args.evaluator else 20)
 
     device = get_device()
@@ -188,6 +201,15 @@ def main(argv=None):
         print("path S rollout (batch 1, f32):")
         _profile(rollout, 20, TRACED_STEPS,
                  os.path.join(args.out, "shield_rollout_trace.json"))
+        return
+    if args.som:
+        train, rollout = _som_runners(device)
+        print("path M rollout (batch 4, f32, the slab-ocean step):")
+        _profile(rollout, 20, TRACED_STEPS,
+                 os.path.join(args.out, "som_rollout_trace.json"))
+        print("path M-bf16 train step (batch 1, 2 forward steps of 2 calls):")
+        _profile(train, args.steps, TRACED_TRAIN_STEPS,
+                 os.path.join(args.out, "som_train_trace.json"))
         return
     if args.train:
         run, n = _train_runner(device, args.fused_block_tail), TRACED_TRAIN_STEPS
@@ -387,6 +409,104 @@ def _shield_runners(device, nlat=180, nlon=360, embed=None, layers=None):
         generator=torch.Generator(device).manual_seed(1))
     ic, forcing = flagship.synthetic_inputs(
         stepper, 20, generator=torch.Generator(device).manual_seed(2))
+
+    def train(n):
+        return [ts.train_step(batch, torch.Generator(device).manual_seed(3))
+                for _ in range(n)]
+
+    def rollout(n):
+        return stepper.predict(ic, {k: v[:, : n + 1]
+                                    for k, v in forcing.items()})[0]
+
+    return train, rollout
+
+
+SOM_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "configs", "baselines", "shield-som", "ace-train-config.yaml")
+# path M-bf16's multi-call: CO2 quadrupled, the six radiative fluxes kept
+SOM_MULTI_CALL = {"forcing_name": "global_mean_co2",
+                  "forcing_multipliers": {"_4xCO2": 4.0},
+                  "output_names": ["ULWRFtoa", "USWRFtoa", "DLWRFsfc",
+                                   "ULWRFsfc", "DSWRFsfc", "USWRFsfc"]}
+
+
+def _som_draws(data: dict, generator):
+    """The slab's forcing in ``data`` redrawn in realistic ranges: depths
+    of 10-200 m (a depth near zero makes the slab tendency blow up) and
+    q-fluxes within 100 W/m2."""
+    for name, (low, high) in (("prescribed_mixed_layer_depth", (10., 200.)),
+                              ("prescribed_qflux", (-100., 100.))):
+        if name in data:
+            v = data[name]
+            data[name] = low + (high - low) * torch.rand(
+                v.shape, generator=generator, device=v.device)
+    return data
+
+
+def _som_runners(device, nlat=180, nlon=360, embed=None, layers=None):
+    """``(train, rollout)`` of the ACE2-SOM recipe (``SOM_CONFIG``: its
+    network, slab-ocean step, corrector, loss, optimizer and EMA;
+    statistics of unit scale but for the surface pressure's and the
+    water's, in place of its files) at ``nlat`` x ``nlon``:
+    ``rollout(n)`` an ``n``-step float32 rollout of its step (the
+    multi-call wrapper without a config) at batch 4, as path M-I runs it
+    (returns the outputs); ``train(n)`` ``n`` bfloat16 train steps on one
+    batch of 1 with ``SOM_MULTI_CALL`` in the loss, as path M-bf16 runs
+    them (returns their metrics). Weights from a seed. ``embed`` and
+    ``layers`` make a small copy."""
+    import copy
+
+    import yaml
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.loss import StepLossConfig
+    from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
+    from ace_tpu_torch.core.step import StepSelector
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+    from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
+
+    with open(SOM_CONFIG) as f:
+        config = yaml.safe_load(f)
+    step = config["stepper"]["step"]
+    wrapped = step["config"]["wrapped_step"]["config"]
+    names = sorted(set(wrapped["in_names"]) | set(wrapped["out_names"]))
+    stds = {n: 1e-3 if n.startswith("specific_total_water") else 1.0
+            for n in names}
+    stats = {"means": {n: 1.0e5 if n == "PRESsfc" else 0.0 for n in names},
+             "stds": {**stds, "PRESsfc": 100.0}}
+    wrapped["normalization"] = {"network": stats, "residual": stats}
+    if embed is not None:
+        wrapped["builder"]["config"].update(embed_dim=embed,
+                                            num_layers=layers)
+    _, info = flagship.stepper_config(nlat, nlon)
+    stepper = StepperConfig(step=StepSelector(**step)).get_stepper(
+        info, device=device)
+    stepper.init_params(torch.Generator(device).manual_seed(0))
+    gen = torch.Generator(device).manual_seed(2)
+    ic, forcing = flagship.synthetic_inputs(stepper, 20, batch=4,
+                                            generator=gen)
+    _som_draws(forcing, gen)
+
+    bf16 = copy.deepcopy(step)
+    bf16["config"].update(config=SOM_MULTI_CALL,
+                          include_multi_call_in_loss=True)
+    bf16["config"]["wrapped_step"]["config"]["builder"]["config"][
+        "compute_dtype"] = "bfloat16"
+    train_stepper = StepperConfig(step=StepSelector(**bf16)).get_stepper(
+        info, device=device)
+    training = config["stepper_training"]
+    ts = TrainStepper(
+        train_stepper,
+        StepperTrainConfig(
+            n_forward_steps=training["n_forward_steps"],
+            loss=from_dict(StepLossConfig, training["loss"])),
+        from_dict(OptimizationConfig, config["optimization"]),
+        from_dict(EMAConfig, config["ema"]))
+    ts.init(torch.Generator(device).manual_seed(0))
+    batch = _som_draws(flagship.synthetic_batch(
+        train_stepper, 1, n_forward_steps=training["n_forward_steps"],
+        generator=gen), gen)
 
     def train(n):
         return [ts.train_step(batch, torch.Generator(device).manual_seed(3))

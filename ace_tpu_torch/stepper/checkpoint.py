@@ -26,7 +26,7 @@ from ace_tpu_torch.core.training_history import TrainingHistory
 from ace_tpu_torch.stepper.stepper import Stepper, StepperConfig
 from ace_tpu_torch.utils.convert import (
     flax_params_to_state_dict,
-    state_dict_to_flax_params,
+    state_dict_to_flax_variables,
 )
 
 # flax.serialization's msgpack extension codes
@@ -187,13 +187,13 @@ def save_msgpack(path: str, payload: dict):
 
 def get_stepper_state(stepper: Stepper, config: StepperConfig) -> dict:
     """The stepper's checkpoint entry: config, dataset info, the
-    parameters in flax's tree (``{"params": ...}``) and the training
+    parameters in flax's tree (``{"params": ...}``, or one such tree under
+    each module's key for a multi-module step) and the training
     history, as ``ace_tpu``'s ``get_stepper_state`` lays them out."""
     return {
         "config": json.dumps(config.get_state()),
         "dataset_info": json.dumps(stepper.dataset_info.get_state()),
-        "params": {"params": state_dict_to_flax_params(
-            stepper.module.state_dict())},
+        "params": state_dict_to_flax_variables(stepper.module.state_dict()),
         "training_history": json.dumps(stepper.training_history.get_state()),
     }
 
@@ -241,7 +241,7 @@ def _optax_state(optimization, names: list[str]) -> dict:
     config = optimization.config
 
     def tree(tensors):
-        return {"params": state_dict_to_flax_params(dict(zip(names, tensors)))}
+        return state_dict_to_flax_variables(dict(zip(names, tensors)))
 
     adam = {"count": np.asarray(optimization.adam_count, np.int32),
             "mu": tree(optimization.mu), "nu": tree(optimization.nu)}
@@ -323,7 +323,7 @@ def save_train_checkpoint(path: str, stepper: Stepper, config: StepperConfig,
             raise ValueError("the optimizer state needs parameter_names")
         payload["optimizer"] = _optax_state(optimization, parameter_names)
     if ema_state is not None:
-        payload["ema"] = {"params": state_dict_to_flax_params(ema_state)}
+        payload["ema"] = state_dict_to_flax_variables(ema_state)
     if extra:
         payload["extra"] = json.dumps(extra)
     save_msgpack(path, payload)

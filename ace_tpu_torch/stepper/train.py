@@ -151,13 +151,22 @@ class TrainStepper:
                                     device=stepper.device)
             sht = complex_sht(self.loss_sht)
         config = step.config
-        loss_normalizer = config.normalization.build_loss_normalizer(
-            sorted(set(config.in_names) | set(config.out_names)),
-            residual_scaled_names=step.prognostic_names,
-        )
+        if hasattr(config, "get_loss_normalizer"):
+            # a multi-call step's suffixed outputs share their base
+            # variable's statistics
+            loss_normalizer = config.get_loss_normalizer(
+                residual_scaled_names=step.prognostic_names)
+        else:
+            loss_normalizer = config.normalization.build_loss_normalizer(
+                config._normalize_names,
+                residual_scaled_names=step.prognostic_names,
+            )
+        # the loss's names: a multi-call step's suffixed outputs only with
+        # include_multi_call_in_loss (ace_tpu takes every output, and so
+        # wants targets for the suffixed names even without it)
         self.step_loss = train_config.loss.build(
             info.gridded_operations,
-            out_names=step.output_names,
+            out_names=step.loss_names,
             normalizer=loss_normalizer,
             sht=sht,
         )
@@ -300,7 +309,7 @@ class TrainStepper:
         input_only = sorted(set(step.input_names) - set(step.output_names))
         nsf = set(step.next_step_forcing_names)
         nsi = step.next_step_input_names
-        out_names = step.output_names
+        out_names = step.loss_names
         n_ens = cfg.n_ensemble
 
         def expand_ens(x):

@@ -217,7 +217,9 @@ class TrainConfig:
             self.stepper = self.stepper.to_stepper_config()
         step = self.stepper.step.instance
         requirements = DataRequirements(
-            names=sorted(set(step.input_names) | set(step.output_names)),
+            # a multi-call step's suffixed outputs are read as targets
+            # only when they are in the loss
+            names=sorted(set(step.input_names) | set(step.loss_names)),
             n_timesteps=self.n_forward_steps + 1,
         )
         train_data = self.train_loader.build(
@@ -636,7 +638,7 @@ class Trainer:
             stepper.prognostic_names).to_device(self.device).data)
         aggregator = cfg.aggregator.build(
             data.dataset_info, n_timesteps=cfg.n_forward_steps,
-            normalizer=stepper.step.normalizer,
+            normalizer=getattr(stepper.step, "normalizer", None),
         )
         target_names = [n for n in stepper.out_names
                         if n in data.dataset.names]

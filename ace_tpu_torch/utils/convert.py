@@ -6,6 +6,27 @@ import numpy as np
 import torch
 
 
+# the subtrees of a step with several modules, each a flax variable tree
+# (``{"params": ...}``), as the JAX package keys them; the port's
+# ``nn.ModuleDict`` uses the same keys, so that ``main.block_0.x`` is flax's
+# ``main/params/block_0/x``
+MODULE_KEYS = frozenset({"main", "radiation", "secondary",
+                         "secondary_decoder"})
+
+
+def _is_module_tree(params: dict) -> bool:
+    """A multi-module step's parameter tree: module keys, each over its
+    own ``{"params": ...}``."""
+    return bool(params) and set(params) <= MODULE_KEYS and all(
+        isinstance(v, dict) and set(v) == {"params"} for v in params.values())
+
+
+def _module_prefix(key: str) -> str | None:
+    """The module key a ``state_dict`` key starts with, if any."""
+    head = key.split(".", 1)[0]
+    return head if head in MODULE_KEYS and "." in key else None
+
+
 def _flatten(tree, prefix=()):
     for key, value in tree.items():
         path = prefix + (str(key),)
@@ -50,6 +71,9 @@ def flax_params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
     """
     if set(params) == {"params"}:
         params = params["params"]
+    if _is_module_tree(params):
+        # a multi-module step: each module's subtree under its key
+        params = {k: v["params"] for k, v in params.items()}
     state = {}
     for path, leaf in _flatten(params):
         value = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
@@ -90,6 +114,17 @@ def state_dict_to_flax_params(state: dict[str, torch.Tensor]) -> dict:
     return tree
 
 
+def state_dict_to_flax_variables(state: dict[str, torch.Tensor]) -> dict:
+    """:func:`state_dict_to_flax_params` as the JAX package's step holds
+    the tree: ``{"params": ...}`` for one network, and for a multi-module
+    step (keys under ``MODULE_KEYS``) each module's subtree as its own
+    ``{"params": ...}`` under its key."""
+    tree = state_dict_to_flax_params(state)
+    if state and all(_module_prefix(k) for k in state):
+        return {k: {"params": v} for k, v in tree.items()}
+    return {"params": tree}
+
+
 def flax_name(key: str, value: torch.Tensor) -> str:
     """The "/"-joined name ``ace_tpu`` gives the leaf that the port's
     ``state_dict`` entry ``key`` holds (``params/block_0/filter/weight``;
@@ -98,6 +133,8 @@ def flax_name(key: str, value: torch.Tensor) -> str:
     *path, name = key.split(".")
     if name == "weight" and value.dim() == 2:
         name = "kernel"
+    if _module_prefix(key):
+        return "/".join([path[0], "params", *path[1:], name])
     return "/".join(["params", *path, name])
 
 

@@ -97,6 +97,28 @@
      within 1 Pa); S-bf16, S-R's config with ``compute_dtype: bfloat16``
      (3 train steps at batch 1 after a warm-up: 16 K1, 16 1b, 16 1c each,
      the loss falling; a 20-step rollout: 8 K1 a step).
+   - path M, the ACE2-SOM slab-ocean recipe
+     (``configs/baselines/shield-som/``: the same network at embed 384,
+     the multi-call step around the slab-ocean step, the energy-budget
+     corrector with 1.14 W/m2 of unaccounted heating), after reference
+     phase M (small steps of every type and option of the slice, card
+     against CPU in float32 and bfloat16: ``multi_call`` over the slab
+     step, global-mean removal in both modes, channel-mask inputs, input
+     dropout with its presence passed in, the secondary decoder,
+     ``separate_radiation`` with and without ``detach_radiation``,
+     ``secondary_module`` with a decoder; exact K1, 1b and 1c counts in
+     bfloat16): M-R, the training entry over synthetic files with the
+     cuts of ``_som_config`` (no launch, no sync in the batch loop); M-I,
+     the abrupt-4xCO2 inference YAML over M-R's best checkpoint (4 of its
+     initial conditions, 20 steps in its windows of 1: no launch, no sync
+     in ``run_inference``, the forcing's CO2 the YAML's constant, the slab
+     SST within 1e-6 of its float64 formula, within 1e-5 of
+     ``Stepper.predict``); M-bf16, M-R's config in bfloat16 with CO2
+     quadrupled in a second call of each step and its six fluxes in the
+     loss (3 train steps at batch 1 after a warm-up: 32 K1, 32 1b, 32 1c
+     each; a 20-step rollout with the multi-call set through
+     ``stepper_override``: 16 K1 a step, its suffixed outputs equal to a
+     call of the wrapped step with CO2 x 4).
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -1408,11 +1430,41 @@ def _field_scale(name):
         "DSWRFsfc": (180.0, 30.0, False),
         "USWRFsfc": (20.0, 5.0, False),
         "USWRFtoa": (100.0, 10.0, False),
+        "total_frozen_precipitation_rate": (0.0, 1e-6, True),
+        "TMP2m": (285.0, 10.0, False),
+        "TMP850": (270.0, 10.0, False),
+        "Q2m": (0.0, 5e-3, True),
+        "UGRD10m": (0.0, 5.0, False),
+        "VGRD10m": (0.0, 5.0, False),
     }
     for prefix, value in table.items():
         if name == prefix or name.startswith(prefix + "_"):
             return value
     return 0.0, 1e-4, False
+
+
+# the slab ocean's forcing, drawn uniform in these ranges: positive
+# mixed-layer depths of a realistic size (a depth near zero makes the slab
+# tendency blow up) and q-fluxes of order 100 W/m2
+SLAB_DRAWS = {"prescribed_mixed_layer_depth": (10.0, 200.0),
+              "prescribed_qflux": (-100.0, 100.0)}
+
+
+def _draw(name, shape, generator, device):
+    """A synthetic field of variable ``name``: ``_field_scale``'s normal
+    draw, a fraction in [0, 1] for the ocean fraction, or uniform in
+    ``SLAB_DRAWS``' range."""
+    import torch
+
+    if name in SLAB_DRAWS:
+        low, high = SLAB_DRAWS[name]
+        return low + (high - low) * torch.rand(shape, generator=generator,
+                                               device=device)
+    mean, std, positive = _field_scale(name)
+    v = torch.randn(shape, generator=generator, device=device)
+    if name == "ocean_fraction":
+        return v.abs().clamp(0, 1)
+    return (v.abs() if positive else v) * std + mean
 
 
 R_SPLITS = (("train", R_TRAIN_TIMES, "2000-01-01T00:00"),
@@ -1427,7 +1479,6 @@ def _training_files(tmp, names, nlat, nlon, generator, device,
     (from the first split), drawn from ``generator`` on ``device``;
     returns their paths."""
     import numpy as np
-    import torch
 
     from ace_tpu_torch.core.coordinates import gaussian_latitudes
     from ace_tpu_torch.data.store import write_h5
@@ -1443,14 +1494,8 @@ def _training_files(tmp, names, nlat, nlon, generator, device,
     for split, n, start in splits:
         data = {}
         for name in names:
-            mean, std, positive = _field_scale(name)
-            v = torch.randn(n, nlat, nlon, generator=generator,
-                            device=device)
-            if name == "ocean_fraction":
-                v = v.abs().clamp(0, 1)
-            else:
-                v = (v.abs() if positive else v) * std + mean
-            data[name] = v.cpu().numpy()
+            data[name] = _draw(name, (n, nlat, nlon), generator,
+                               device).cpu().numpy()
         series[split] = dict(data)
         dims = {k: ("time", "lat", "lon") for k in data}
         for i, (a, b) in enumerate(zip(ak, bk)):
@@ -2793,7 +2838,19 @@ def shield_train_path(counters, device="cuda", sizes=None, then=None):
     ``configs/baselines/amip-c96-shield/train-ace2.yaml`` with the cuts of
     ``_shield_config`` (at its full width, embed 384, 8 layers, 180x360,
     float32, unless ``sizes`` gives ``nlat``, ``nlon``, ``embed`` and
-    ``layers``) over synthetic files of its 56 variables. Checks finite
+    ``layers``) over synthetic files of its 56 variables, through
+    ``_recipe_train_path``."""
+    return _recipe_train_path("path S-R", SHIELD_CONFIG, _shield_names(),
+                              S_SPLITS, _shield_config, S_BATCH, counters,
+                              device, sizes, then)
+
+
+def _recipe_train_path(label, source, names, splits, make_config, batch,
+                       counters, device="cuda", sizes=None, then=None):
+    """A recipe's training entry: ``main`` on the config that
+    ``make_config(paths, experiment_dir, tmp, names, sizes)`` makes of the
+    YAML ``source`` over synthetic files of ``names`` (``splits``; at
+    180x360 unless ``sizes`` gives ``nlat`` and ``nlon``). Checks finite
     metrics, the four checkpoint files, no launch of any kernel (float32
     takes the einsums, as in JAX) in the batch loop, validation and
     inline inference, and (on the card) that the batch loop never waits
@@ -2816,15 +2873,12 @@ def shield_train_path(counters, device="cuda", sizes=None, then=None):
     files = h5py_in_memory() if "h5py" in missing else (
         contextlib.nullcontext())
     with tempfile.TemporaryDirectory() as tmp, files:
-        names = _shield_names()
         paths = _training_files(tmp, names, nlat, nlon,
                                 torch.Generator(device).manual_seed(11),
-                                device, splits=S_SPLITS)
+                                device, splits=splits)
         out_dir = os.path.join(tmp, "experiment")
-        config = _shield_config(paths, out_dir, tmp, names, sizes)
-        path = _write_yaml(os.path.join(tmp, "shield.yaml"), config)
-        builder = config["stepper"]["step"]["config"]["builder"]["config"]
-        layers = builder["num_layers"]
+        config = make_config(paths, out_dir, tmp, names, sizes)
+        path = _write_yaml(os.path.join(tmp, "recipe.yaml"), config)
         launches, rates, restored, records = {}, [], {}, []
         GlobalTimer.reset()
         if cuda:
@@ -2837,6 +2891,10 @@ def shield_train_path(counters, device="cuda", sizes=None, then=None):
         peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
         phases = GlobalTimer.get_instance().get_durations()
         n_params = sum(p.numel() for p in trainer.stepper.module.parameters())
+        builder = trainer.stepper.step.config
+        while not hasattr(builder, "builder"):
+            builder = builder.wrapped_step.instance
+        builder = builder.builder.instance
         del trainer
         gc.collect()
         if cuda:
@@ -2844,28 +2902,28 @@ def shield_train_path(counters, device="cuda", sizes=None, then=None):
         ckpt_dir = os.path.join(out_dir, "training_checkpoints")
         files_found = sorted(os.listdir(ckpt_dir))
         (line,) = _finite_metrics(os.path.join(out_dir, "metrics.jsonl"), 1)
-        print(f"path S-R: {SHIELD_CONFIG} at {nlat}x{nlon}, "
-              f"{len(names)} variables, embed {builder['embed_dim']}, "
-              f"{layers} layers, {n_params} parameters, batch {S_BATCH}: "
-              f"batch loop {rates[0]:.4f} train steps/s "
-              f"({rates[0] * S_BATCH:.4f} samples/s); phases "
+        print(f"{label}: {source} at {nlat}x{nlon}, "
+              f"{len(names)} variables, embed {builder.embed_dim}, "
+              f"{builder.num_layers} layers, {n_params} parameters, batch "
+              f"{batch}: batch loop {rates[0]:.4f} train steps/s "
+              f"({rates[0] * batch:.4f} samples/s); phases "
               f"{ {k: round(v, 4) for k, v in sorted(phases.items())} }; "
               f"peak device memory {peak:.2f} GB")
         for kind, name, seconds, size in records:
-            print(f"path S-R: {kind} {name}: {size} bytes in {seconds:.3f} s")
-        print(f"path S-R: train/loss {line['train/loss']:.6g}, val/loss "
+            print(f"{label}: {kind} {name}: {size} bytes in {seconds:.3f} s")
+        print(f"{label}: train/loss {line['train/loss']:.6g}, val/loss "
               f"{line['val/loss']:.6g}, inference error "
               f"{line['inference/inference_error']:.6g}; {len(line)} finite "
               f"metrics")
         want_files = {"ckpt.msgpack", "best_ckpt.msgpack", "ema_ckpt.msgpack",
                       "best_inference_ckpt.msgpack"}
         if not want_files <= set(files_found):
-            raise AssertionError(f"path S-R: checkpoint files {files_found}")
+            raise AssertionError(f"{label}: checkpoint files {files_found}")
         none = {c.__name__: 0 for c in counters}
         for phase, counts in launches.items():
-            print(f"path S-R: launches per {phase} call {counts} (want none)")
+            print(f"{label}: launches per {phase} call {counts} (want none)")
             if any(c != none for c in counts):
-                raise AssertionError(f"path S-R: launches in {phase}")
+                raise AssertionError(f"{label}: launches in {phase}")
         if then is not None:
             then(paths, config, os.path.join(ckpt_dir, "best_ckpt.msgpack"))
     total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
@@ -3071,9 +3129,30 @@ def sfno_stepper_config(nlat=16, nlon=32, embed=128, layers=2,
 
 def _reference_s_case(label, counters, device, dtype, builder, tols,
                       embed=128):
-    """One case of reference phase S: a 2-step rollout and one train step
-    (MSE, 2 forward steps) of a small SFNO on ``device`` and the CPU from
-    the same weights (``flagship.draw_check_weights``) and inputs.
+    """One case of reference phase S: ``_reference_case`` on a small SFNO
+    of path S's shape (``sfno_stepper_config``; ``builder`` overrides its
+    network's fields), a 2-step rollout."""
+    from ace_tpu_torch import flagship
+
+    def inputs(stepper, gen):
+        ic, forcing = flagship.synthetic_inputs(stepper, 2, batch=2,
+                                                generator=gen)
+        return ic, forcing, flagship.synthetic_batch(
+            stepper, 2, n_forward_steps=2, generator=gen)
+
+    return _reference_case(
+        f"reference S ({label})", counters, device, tols,
+        lambda dt: sfno_stepper_config(embed=embed, compute_dtype=dt,
+                                       **builder), dtype, inputs)
+
+
+def _reference_case(label, counters, device, tols, make, dtype, inputs,
+                    prepare=None):
+    """A rollout and one train step (MSE, 2 forward steps) of the small
+    model of ``make(dtype) -> (StepperConfig, DatasetInfo)`` on ``device``
+    and the CPU from the same weights (``flagship.draw_check_weights``) and
+    inputs (``inputs(stepper, generator) -> (ic, forcing, batch)``, drawn
+    on the CPU); ``prepare(train_stepper)`` runs on each side before.
 
     Each output is held within ``out_tol`` of its spatial anomaly plus
     1e-5 of its largest value (the dry-air target: a float32 global mean
@@ -3086,7 +3165,9 @@ def _reference_s_case(label, counters, device, dtype, builder, tols,
     block's output bias, but the last's, adds a per-channel constant that
     the next block's instance norm removes: its true gradient is zero, and
     each side's is held below ``grad_tol`` of the largest gradient's
-    norm."""
+    norm. Returns the card's launches."""
+    import re
+
     import torch
 
     from ace_tpu_torch import flagship
@@ -3103,17 +3184,16 @@ def _reference_s_case(label, counters, device, dtype, builder, tols,
             OptimizationConfig(lr=1e-4, optimizer_type="AdamW"),
             EMAConfig())
 
-    config, info = sfno_stepper_config(embed=embed, compute_dtype=dtype,
-                                       **builder)
+    config, info = make(dtype)
     sides = [train_stepper(config, info, dev) for dev in ("cpu", device)]
+    if prepare is not None:
+        for ts in sides:
+            prepare(ts)
     gen = torch.Generator().manual_seed(3)
     flagship.draw_check_weights(sides[0].stepper, gen)
     weights = sides[0].module.state_dict()
     sides[1].stepper.load_state_dict(weights)
-    ic, forcing = flagship.synthetic_inputs(sides[0].stepper, 2, batch=2,
-                                            generator=gen)
-    batch = flagship.synthetic_batch(sides[0].stepper, 2,
-                                     n_forward_steps=2, generator=gen)
+    ic, forcing, batch = inputs(sides[0].stepper, gen)
     out = []
     for ts in sides:
         dev = ts.stepper.device
@@ -3131,8 +3211,10 @@ def _reference_s_case(label, counters, device, dtype, builder, tols,
     (res, loss, grads), launches = out[1]
     noise = {k: 0.0 for k in ref_grads}
     if dtype == "bfloat16":
-        f32_config, _ = sfno_stepper_config(embed=embed, **builder)
+        f32_config, _ = make("float32")
         f32 = train_stepper(f32_config, info, "cpu")
+        if prepare is not None:
+            prepare(f32)
         f32.stepper.load_state_dict(weights)
         _, f32_grads = flagship.train_gradients(f32, batch)
         noise = {k: float((r.double() - f32_grads[k].double()).norm())
@@ -3148,8 +3230,14 @@ def _reference_s_case(label, counters, device, dtype, builder, tols,
     worst_out = max(ratios, key=ratios.get)
     loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
     largest = max(float(r.double().norm()) for r in ref_grads.values())
-    layers = config.step.config["builder"]["config"]["num_layers"]
-    zero = {f"block_{i}.mlp.fc2.bias" for i in range(layers - 1)}
+    blocks = {}
+    for k in ref_grads:
+        match = re.search(r"^(.*)block_(\d+)\.mlp\.fc2\.bias$", k)
+        if match:
+            blocks.setdefault(match.group(1), []).append(
+                (int(match.group(2)), k))
+    zero = {k for found in blocks.values() for i, k in found
+            if i < max(found)[0]}
     gerrs = {k: float((grads[k].double().cpu() - r.double()).norm())
              / (grad_tol * float(r.double().norm()) + 1e-6 * largest
                 + 2 * noise[k])
@@ -3161,7 +3249,7 @@ def _reference_s_case(label, counters, device, dtype, builder, tols,
     worst = sorted(gerrs, key=gerrs.get, reverse=True)[:3]
     shown = worst + sorted(k for k in gerrs if k.endswith("filter.weight")
                            and k not in worst)
-    print(f"reference S ({label}): {device} vs CPU: rollout error "
+    print(f"{label}: {device} vs CPU: rollout error "
           f"{ratios[worst_out]:.3g} of the allowed ({worst_out}; {out_tol} of "
           f"the anomaly + 1e-5 of the largest value); loss {float(loss):.6g} "
           f"/ {float(ref_loss):.6g}, relative error {loss_err:.3g} (tol "
@@ -3176,8 +3264,7 @@ def _reference_s_case(label, counters, device, dtype, builder, tols,
           f"launches {launches}")
     if not (ratios[worst_out] <= 1 and loss_err <= loss_tol
             and gerrs[worst[0]] <= 1):
-        raise AssertionError(f"reference S ({label}): the card disagrees "
-                             "with the CPU")
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
     return launches
 
 
@@ -3235,6 +3322,749 @@ def shield_paths(counters, smi, sizes=None, device="cuda"):
 
     out["S-R"], _ = shield_train_path(counters, device=device, sizes=sizes,
                                       then=then)
+    return out
+
+
+SOM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                       "baselines", "shield-som")
+SOM_TRAIN = os.path.join(SOM_DIR, "ace-train-config.yaml")
+SOM_INFERENCE = os.path.join(
+    SOM_DIR, "ace-abrupt-4xCO2-inference-ensemble-config.yaml")
+SOM_EVALUATOR = os.path.join(SOM_DIR, "ace-2pctCO2-evaluator-config.yaml")
+# path M-bf16's and reference M's multi-call: CO2 quadrupled, the six
+# radiative fluxes kept under the suffix
+M_FLUXES = ["ULWRFtoa", "USWRFtoa", "DLWRFsfc", "ULWRFsfc", "DSWRFsfc",
+            "USWRFsfc"]
+M_MULTI_CALL = {"forcing_name": "global_mean_co2",
+                "forcing_multipliers": {"_4xCO2": 4.0},
+                "output_names": M_FLUXES}
+# batch 2 for both loaders (the YAML: 16 and 32); each subset of the
+# training concat reads its own file of 4 six-hourly times inside its
+# range (2 windows of the YAML's 2 forward steps: 4 batches, one epoch),
+# each validation subset 3 times (1 batch); one file of N_STEPS + 1 times
+# from the YAML's first inline start for the inline entry (4 steps from
+# that start and the time after it) and path M-bf16's rollout
+M_BATCH = 2
+M_SPLITS = (("subset_0", 4, "2031-01-01T06:00"),
+            ("subset_1", 4, "2073-01-01T06:00"),
+            ("valid_0", 3, "2059-01-01T06:00"),
+            ("valid_1", 3, "2071-01-01T06:00"),
+            ("inference", N_STEPS + 1, "2031-01-01T06:00"))
+M_INFERENCE_STEPS = 4
+M_INFERENCE_TIMES = ["2031-01-01T06:00:00", "2031-01-01T12:00:00"]
+# path M-I: its first 4 of the YAML's 36 monthly initial conditions
+M_I_STARTS = 4
+M_BF16_STEPS = 3
+# the slab-SST gate: the largest error over the SST's largest value
+M_SLAB_TOL = 1e-6
+# path M-bf16: a suffixed output against a call of the wrapped step with
+# the forcing scaled, over the field's largest value
+M_MULTI_CALL_TOL = 1e-6
+
+
+def _som_names():
+    step = _yaml(SOM_TRAIN)["stepper"]["step"]["config"]["wrapped_step"][
+        "config"]
+    slab = step["ocean"]["slab"]
+    return sorted(set(step["in_names"]) | set(step["out_names"])
+                  | {slab["mixed_layer_depth_name"], slab["q_flux_name"]})
+
+
+def _som_dataset(entry, path):
+    """A dataset entry of the SOM YAMLs over a synthetic netCDF directory
+    (the YAMLs read zarr stores that are not in the repo)."""
+    entry.update(data_path=path, file_pattern="data.nc", engine="netcdf4")
+
+
+def _som_config(paths, experiment_dir, tmp, names, sizes=None):
+    """The shipped ACE2-SOM training config with path M-R's cuts: each
+    subset of both loaders' ``concat`` reads its own synthetic file (times
+    inside the subset), batch ``M_BATCH``, one epoch, the stats files, one
+    inline entry of ``M_INFERENCE_STEPS`` steps from the YAML's first
+    initial condition and the time after it, no Weights & Biases;
+    ``sizes`` (``embed``, ``layers``) makes the small copies the CPU runs."""
+    config = _yaml(SOM_TRAIN)
+    config["experiment_dir"] = experiment_dir
+    config["max_epochs"] = 1
+    config["logging"].update(log_to_wandb=False, log_to_screen=False)
+    for loader, prefix in (("train_loader", "subset"),
+                           ("validation_loader", "valid")):
+        for i, entry in enumerate(config[loader]["dataset"]["concat"]):
+            _som_dataset(entry, paths[f"{prefix}_{i}"])
+        config[loader]["batch_size"] = M_BATCH
+    step = config["stepper"]["step"]["config"]["wrapped_step"]["config"]
+    norm = step["normalization"]
+    norm["network"] = {"global_means_path": paths["centering"],
+                       "global_stds_path": paths["scaling-full-field"]}
+    norm["residual"] = {"global_means_path": paths["centering"],
+                        "global_stds_path": paths["scaling-residual"]}
+    if sizes:
+        step["builder"]["config"].update(embed_dim=sizes["embed"],
+                                         num_layers=sizes["layers"])
+    (entry,) = config["inference"]
+    entry.update(n_forward_steps=M_INFERENCE_STEPS,
+                 forward_steps_in_memory=M_INFERENCE_STEPS)
+    _som_dataset(entry["loader"]["dataset"], paths["inference"])
+    entry["loader"]["start_indices"]["times"] = M_INFERENCE_TIMES
+    return config
+
+
+def som_train_path(counters, device="cuda", sizes=None, then=None):
+    """Path M-R: ``python -m ace_tpu_torch.train``'s ``main`` on
+    ``configs/baselines/shield-som/ace-train-config.yaml`` (the multi-call
+    wrapper with ``config: null``, the slab ocean, the energy-budget
+    corrector with 1.14 W/m2 of unaccounted heating) with the cuts of
+    ``_som_config`` (at its full width, embed 384, 8 layers, 180x360,
+    float32, unless ``sizes`` gives ``nlat``, ``nlon``, ``embed`` and
+    ``layers``) over synthetic files of its 59 variables, the six fluxes'
+    suffixed targets of path M-bf16 beside them, through
+    ``_recipe_train_path``."""
+    from ace_tpu_torch.core.step.multi_call import get_multi_call_name
+
+    names = _som_names()
+    suffix, = M_MULTI_CALL["forcing_multipliers"]
+    targets = [get_multi_call_name(n, suffix) for n in M_FLUXES]
+    return _recipe_train_path("path M-R", SOM_TRAIN, names + targets,
+                              M_SPLITS, _som_config, M_BATCH, counters,
+                              device, sizes, then)
+
+
+def _write_series(path, series, time, nz=8):
+    """``series`` (``{name: [time, lat, lon]}``) as a netCDF file at
+    ``path``, with the grid and a vertical coordinate of ``nz`` levels."""
+    import numpy as np
+
+    from ace_tpu_torch.core.coordinates import gaussian_latitudes
+    from ace_tpu_torch.data.store import write_h5
+
+    _, nlat, nlon = next(iter(series.values())).shape
+    data = dict(series)
+    dims = {k: ("time", "lat", "lon") for k in data}
+    ak = np.concatenate([np.linspace(100.0, 5000.0, nz // 2),
+                         np.linspace(5000.0, 0.0, nz // 2 + 1)])
+    for i, (a, b) in enumerate(zip(ak, np.linspace(0.0, 1.0, nz + 1))):
+        data[f"ak_{i}"], data[f"bk_{i}"] = np.float32(a), np.float32(b)
+        dims[f"ak_{i}"] = dims[f"bk_{i}"] = ()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_h5(path, data, dims,
+             coords={"lat": gaussian_latitudes(nlat),
+                     "lon": np.linspace(0, 360, nlon, endpoint=False)},
+             time=time)
+    return path
+
+
+def _recording(cls, name, records):
+    """A context in which each call of ``cls.name`` appends its arguments
+    and result to ``records`` (references: nothing waits for the
+    device)."""
+    import contextlib
+
+    original = getattr(cls, name)
+
+    def recorded(self, *args, **kwargs):
+        result = original(self, *args, **kwargs)
+        records.append((args, result))
+        return result
+
+    @contextlib.contextmanager
+    def context():
+        setattr(cls, name, recorded)
+        try:
+            yield
+        finally:
+            setattr(cls, name, original)
+
+    return context()
+
+
+def _slab_error(records, timestep):
+    """The largest error, over the SST's largest value, of the SST the
+    ocean wrote against ``f (SST_in + dt (F_net + q) / (rho c h)) + (1 -
+    f) SST_gen`` evaluated on the host in float64 from each recorded
+    call's own input, output and forcing tensors (``f`` the next step's
+    ocean fraction: ``interpolate`` is on)."""
+    import numpy as np
+
+    from ace_tpu_torch.core.constants import (
+        DENSITY_OF_WATER,
+        SPECIFIC_HEAT_OF_WATER,
+    )
+
+    worst = 0.0
+    for (input_data, gen, target), out in records:
+        def host(d, k):
+            return d[k].detach().double().cpu().numpy()
+
+        f_net = (host(gen, "DSWRFsfc") - host(gen, "USWRFsfc")
+                 + host(gen, "DLWRFsfc") - host(gen, "ULWRFsfc")
+                 - host(gen, "LHTFLsfc") - host(gen, "SHTFLsfc"))
+        frac = host(target, "ocean_fraction")
+        slab = host(input_data, "surface_temperature") + timestep * (
+            f_net + host(target, "prescribed_qflux")) / (
+            DENSITY_OF_WATER * SPECIFIC_HEAT_OF_WATER
+            * host(target, "prescribed_mixed_layer_depth"))
+        want = frac * slab + (1 - frac) * host(gen, "surface_temperature")
+        got = host(out, "surface_temperature")
+        worst = max(worst, float(np.abs(got - want).max()
+                                 / np.abs(want).max()))
+    return worst
+
+
+def som_inference_files(tmp, stepper, device, n_steps=N_STEPS,
+                        n_starts=M_I_STARTS, seed=13):
+    """Path M-I's synthetic files under ``tmp``, drawn from ``seed`` on
+    ``device``: the prognostic variables of ``stepper`` at the first
+    ``n_starts`` initial conditions of the inference YAML (one file at
+    those times), and its forcing variables every 6 hours from the first
+    to ``n_steps`` steps after the last. Returns the paths, the times,
+    the host arrays and each start's offset into the forcing."""
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.data.time import TimeCoord, parse_datetime_string
+
+    nlat, nlon = stepper.dataset_info.img_shape
+    times = _yaml(SOM_INFERENCE)["initial_condition"]["start_indices"][
+        "times"][:n_starts]
+    micros = np.asarray([parse_datetime_string(t) for t in times])
+    offsets = [int((m - micros[0]) // (21600 * 10**6)) for m in micros]
+    n_times = offsets[-1] + n_steps + 1
+    gen = torch.Generator(device).manual_seed(seed)
+    ic = {k: _draw(k, (n_starts, nlat, nlon), gen, device).cpu().numpy()
+          for k in stepper.prognostic_names}
+    forcing = {k: _draw(k, (n_times, nlat, nlon), gen, device).cpu().numpy()
+               for k in stepper.forcing_window_names}
+    ic_path = _write_series(os.path.join(tmp, "ic", "data.nc"), ic,
+                            TimeCoord(micros))
+    forcing_dir = os.path.dirname(_write_series(
+        os.path.join(tmp, "forcing", "data.nc"), forcing,
+        TimeCoord.from_range(times[0], n_times, 21600)))
+    return dict(ic_path=ic_path, forcing_dir=forcing_dir, times=times,
+                ic=ic, forcing=forcing, offsets=offsets)
+
+
+def som_inference_config(path, out_dir, ckpt, files, n_steps, save):
+    """The ACE2-SOM inference YAML with path M-I's cuts (``files`` of
+    ``som_inference_files``, ``n_steps`` steps, ``save``: the prediction
+    files on), written to ``path``."""
+    config = _yaml(SOM_INFERENCE)
+    config.update(experiment_dir=out_dir, checkpoint_path=ckpt,
+                  n_forward_steps=n_steps)
+    config["logging"].update(log_to_wandb=False, log_to_screen=False)
+    _som_dataset(config["forcing_loader"]["dataset"], files["forcing_dir"])
+    config["initial_condition"].update(path=files["ic_path"],
+                                       engine="netcdf4")
+    config["initial_condition"]["start_indices"]["times"] = files["times"]
+    config["data_writer"]["save_prediction_files"] = save
+    return _write_yaml(path, config)
+
+
+def som_inference_path(counters, ckpt, device="cuda", n_steps=N_STEPS,
+                       n_starts=M_I_STARTS):
+    """Path M-I: ``python -m ace_tpu_torch.inference``'s ``main`` on
+    ``configs/baselines/shield-som/ace-abrupt-4xCO2-inference-ensemble-config.yaml``
+    over path M-R's ``best_ckpt.msgpack``: its ``stepper_override`` (no
+    multi-call), its ``overwrite.constant`` of ``global_mean_co2`` on the
+    forcing, its windows of 1 step and its writer; cut to ``n_steps``
+    steps from its first ``n_starts`` initial conditions (one batch), over
+    ``som_inference_files``. Checks no launch, no synchronizing call in
+    ``run_inference``, then (a second run with the prediction files on)
+    every step's forcing ``global_mean_co2`` equal to the constant, the
+    slab SST of every step within ``M_SLAB_TOL`` (``_slab_error``), and
+    the written predictions within 1e-5 of each channel's spatial std of
+    one ``Stepper.predict``. Returns the launches and the rate."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.core.ocean import Ocean
+    from ace_tpu_torch.core.step.single_module import SingleModuleStep
+    from ace_tpu_torch.data.store import open_file_dataset
+    from ace_tpu_torch.inference.inference import main as inference_main
+    from ace_tpu_torch.stepper import checkpoint
+    from ace_tpu_torch.stepper.stepper import (
+        PrognosticState,
+        StepperOverrideConfig,
+    )
+
+    check_sync = torch.device(device).type == "cuda"
+    base = _yaml(SOM_INFERENCE)
+    override = StepperOverrideConfig(**base["stepper_override"])
+    stepper = checkpoint.load_stepper(ckpt, override=override, device=device)
+    co2 = base["forcing_loader"]["dataset"]["overwrite"]["constant"][
+        "global_mean_co2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        files = som_inference_files(tmp, stepper, device, n_steps, n_starts)
+        runs, steps, oceans = {}, [], []
+        for save in (False, True):
+            path = som_inference_config(
+                os.path.join(tmp, f"m_i_{save}.yaml"),
+                os.path.join(tmp, f"out_{save}"), ckpt, files, n_steps, save)
+            if save:
+                with (_recording(SingleModuleStep, "step", steps),
+                      _recording(Ocean, "__call__", oceans)):
+                    runs[save] = _timed_run(
+                        counters, lambda: inference_main([path],
+                                                         device=device),
+                        False)
+            else:
+                runs[save] = _timed_run(
+                    counters, lambda: inference_main([path], device=device),
+                    check_sync)
+        ds = open_file_dataset(os.path.join(
+            tmp, "out_True", "autoregressive_predictions.nc"))
+        written = {k: ds[k].read(()) for k in ds.keys()}
+    co2_seen = {float(v) for (args,), _ in steps
+                for v in args.input["global_mean_co2"].unique().cpu()}
+    slab = _slab_error(oceans, stepper.dataset_info.timestep.total_seconds())
+    forcing, offsets = files["forcing"], files["offsets"]
+    forcing["global_mean_co2"][:] = co2
+    ref, _ = stepper.predict(
+        PrognosticState(data={k: torch.as_tensor(v[:, None]).to(device)
+                              for k, v in files["ic"].items()}),
+        {k: torch.as_tensor(np.stack([v[o:o + n_steps + 1]
+                                      for o in offsets])).to(device)
+         for k, v in forcing.items()},
+        generator=torch.Generator(device).manual_seed(0))
+    errs = {}
+    for k in stepper.out_names:
+        r = ref[k].float()
+        out = torch.as_tensor(written[k]).to(r.device)
+        if out.shape != r.shape:
+            raise AssertionError(f"path M-I: {k} written as "
+                                 f"{tuple(out.shape)}")
+        err = float((out - r).abs().max())
+        errs[k] = err / float(r.std(dim=(-2, -1)).mean()) if err else 0.0
+    worst = max(errs, key=errs.get)
+    summary, launches, phases, peak = runs[False]
+    rate = summary["total_steps_per_second"]
+    print(f"path M-I: {SOM_INFERENCE}: {summary['total_steps']} sample-steps "
+          f"({n_steps} steps of {n_starts} initial conditions "
+          f"{files['times']}) at {rate:.4f} sample-steps/s (windows of "
+          f"{base['forward_steps_in_memory']}, the YAML's writer; "
+          f"{runs[True][0]['total_steps_per_second']:.4f} with the prediction "
+          f"files on); phases "
+          f"{ {k: round(v, 4) for k, v in sorted(phases.items())} }; peak "
+          f"device memory {peak:.2f} GB; launches {launches}")
+    print(f"path M-I: forcing global_mean_co2 {sorted(co2_seen)} in "
+          f"{len(steps)} steps (want {co2}); slab SST of {len(oceans)} "
+          f"steps: largest error {slab:.3g} of the SST (tol {M_SLAB_TOL}); "
+          f"written predictions vs one {n_steps}-step predict: largest "
+          f"error {errs[worst]:.3g} of the channel's spatial std ({worst}; "
+          f"tol 1e-5)")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"path M-I: launches {launches}")
+    if co2_seen != {float(np.float32(co2))} or len(steps) != n_steps:
+        raise AssertionError("path M-I: the forcing's global_mean_co2 is not "
+                             "the overwrite constant")
+    if not (len(oceans) == n_steps and slab <= M_SLAB_TOL):
+        raise AssertionError("path M-I: the slab SST disagrees")
+    if not errs[worst] <= 1e-5:
+        raise AssertionError("path M-I: the written predictions disagree "
+                             "with Stepper.predict")
+    return launches, rate
+
+
+def _override_multi_call(stepper, config, multi_call, device):
+    """A stepper of ``config`` (a ``StepperConfig``) with
+    ``stepper_override.multi_call`` set to ``multi_call``, holding
+    ``stepper``'s weights."""
+    import json
+
+    from ace_tpu_torch.stepper.stepper import (
+        StepperConfig,
+        StepperOverrideConfig,
+    )
+
+    state = StepperOverrideConfig(multi_call=multi_call).apply(
+        json.loads(json.dumps(config.get_state())))
+    out = StepperConfig.from_state(state).get_stepper(stepper.dataset_info,
+                                                      device=device)
+    out.load_state_dict(stepper.module.state_dict())
+    return out
+
+
+def _dhconv_filters(module):
+    """The number of dhconv filters in ``module`` (each launches K1 once
+    per call, and 1b and 1c once per backward, in bf16)."""
+    from ace_tpu_torch.models.sfno import SpectralConvS2
+
+    return sum(isinstance(m, SpectralConvS2) and m.operator_type == "dhconv"
+               and not m.separable for m in module.modules())
+
+
+def som_bf16_path(counters, paths, config, device="cuda", n_steps=N_STEPS,
+                  train_steps=M_BF16_STEPS):
+    """Path M-bf16: path M-R's config with ``compute_dtype: bfloat16`` and
+    the multi-call ``M_MULTI_CALL`` in the loss
+    (``include_multi_call_in_loss``; its six suffixed targets are in the
+    synthetic files), batch 1, built through ``TrainConfig.build_trainer``:
+    a warm-up train step and ``train_steps`` more on one batch (2 forward
+    steps of 2 calls: 4 K1, 1b and 1c per filter, no synchronizing call);
+    then an ``n_steps``-step rollout with the multi-call set through
+    ``stepper_override.multi_call`` (2 K1 per filter and step), whose
+    suffixed outputs of the first step equal a 1-step rollout of the
+    wrapped step with ``global_mean_co2`` x 4 within
+    ``M_MULTI_CALL_TOL``. Returns the launches of both and their rates."""
+    import copy
+
+    import torch
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.step.multi_call import get_multi_call_name
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+    from ace_tpu_torch.train.trainer import TrainConfig
+
+    cuda = torch.device(device).type == "cuda"
+    config = copy.deepcopy(config)
+    step = config["stepper"]["step"]["config"]
+    step.update(config=M_MULTI_CALL, include_multi_call_in_loss=True)
+    step["wrapped_step"]["config"]["builder"]["config"]["compute_dtype"] = (
+        "bfloat16")
+    config["train_loader"]["batch_size"] = 1
+    trainer = from_dict(TrainConfig, config).build_trainer(device=device)
+    ts = trainer.train_stepper
+    ts.init(torch.Generator(device).manual_seed(0))
+    filters = _dhconv_filters(ts.module)
+    calls = 1 + len(M_MULTI_CALL["forcing_multipliers"])
+    batch = next(iter(trainer.train_data)).data
+    gen = trainer.generator
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    first = ts.train_step(batch, gen)
+    steps = []
+
+    def train():
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = ts.train_step(batch, gen)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for _ in range(train_steps):
+        steps.append(counted(counters, train))
+    train_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    losses = [float(first["loss"])] + [float(m["loss"]) for (m, _), _ in
+                                       steps]
+    loss_names = ts.step_loss.loss.out_names
+    rate = len(steps) / sum(s for (_, s), _ in steps)
+
+    stepper = _override_multi_call(ts.stepper, trainer.config.stepper,
+                                   M_MULTI_CALL, device)
+    wrapped = _override_multi_call(ts.stepper, trainer.config.stepper,
+                                   None, device)
+    del trainer, ts
+    gc.collect()
+    names = sorted(set(stepper.prognostic_names)
+                   | set(stepper.forcing_window_names))
+    series = _read_series(paths["inference"], names)
+    ic = PrognosticState(data={
+        k: torch.as_tensor(series[k][None, :1]).to(device)
+        for k in stepper.prognostic_names})
+    forcing = {k: torch.as_tensor(series[k][None, :n_steps + 1]).to(device)
+               for k in stepper.forcing_window_names}
+    stepper.predict(ic, {k: v[:, :2] for k, v in forcing.items()})
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def rollout():
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            outputs, _ = stepper.predict(ic, forcing)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+        return outputs, time.perf_counter() - t0
+
+    (outputs, seconds), launches_r = counted(counters, rollout)
+    roll_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    finite = all(bool(torch.isfinite(v).all()) for v in outputs.values())
+    scaled = dict(forcing)
+    name = M_MULTI_CALL["forcing_name"]
+    (suffix, multiplier), = M_MULTI_CALL["forcing_multipliers"].items()
+    scaled[name] = multiplier * forcing[name]
+    alone, _ = wrapped.predict(ic, {k: v[:, :2] for k, v in scaled.items()})
+    errs = {}
+    for k in M_FLUXES:
+        want = alone[k][:, 0].float()
+        got = outputs[get_multi_call_name(k, suffix)][:, 0].float()
+        errs[k] = float((got - want).abs().max() / want.abs().max())
+    worst = max(errs, key=errs.get)
+    none = {c.__name__: 0 for c in counters}
+    per_call = 2 * calls * filters  # 2 forward steps
+    want_t = none if not cuda else {
+        **none, "dhconv_filter": per_call, "dhconv_filter_dx": per_call,
+        "dhconv_filter_dw": per_call}
+    want_r = none if not cuda else {
+        **none, "dhconv_filter": calls * filters * n_steps}
+    print(f"path M-bf16: {len(steps)} train steps at batch 1 (2 forward "
+          f"steps of {calls} calls, {len(loss_names)} loss variables) "
+          f"{rate:.4f} train steps/s, peak {train_peak:.2f} GB; losses "
+          f"{[round(v, 6) for v in losses]} (warm-up, the steps); launches "
+          f"per train step {[n for _, n in steps]} (want {want_t})")
+    print(f"path M-bf16: {n_steps}-step rollout {n_steps / seconds:.4f} "
+          f"steps/s at batch 1, peak {roll_peak:.2f} GB, outputs finite "
+          f"{finite}; launches {launches_r} (want {want_r}); first step's "
+          f"suffixed outputs vs the wrapped step with {name} x "
+          f"{multiplier}: largest error {errs[worst]:.3g} of the field "
+          f"({worst}; tol {M_MULTI_CALL_TOL})")
+    del stepper, wrapped
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if not (all(map(math.isfinite, losses)) and finite):
+        raise AssertionError("path M-bf16: a loss or an output is not finite")
+    if not all(get_multi_call_name(k, suffix) in loss_names
+               for k in M_FLUXES):
+        raise AssertionError("path M-bf16: the suffixed outputs are not in "
+                             "the loss")
+    if not errs[worst] <= M_MULTI_CALL_TOL:
+        raise AssertionError("path M-bf16: a suffixed output disagrees with "
+                             "the wrapped step's call")
+    if any(n != want_t for _, n in steps) or launches_r != want_r:
+        raise AssertionError("path M-bf16: launches")
+    total = {k: sum(n[k] for _, n in steps) + launches_r[k] for k in none}
+    return total, rate, n_steps / seconds
+
+
+def _som_stats(name):
+    """(mean, std) of a variable's normalization in reference M: those of
+    its synthetic draw (``_field_scale``), the ocean fraction's of a
+    fraction."""
+    if name == "ocean_fraction":
+        return 0.5, 0.3
+    mean, std, _ = _field_scale(name)
+    return mean, std
+
+
+def som_step_configs(nlat=16, nlon=32, embed=64, layers=2,
+                     compute_dtype="float32", nz=2):
+    """Reference M's steps, at ``nz`` of the SOM recipe's levels: the
+    SOM YAML's wrapped step (its SphericalFourierNeuralOperatorNet at
+    ``embed`` and ``layers``, the slab ocean, its corrector) with explicit
+    statistics, inside each step type and option path M's slice ports.
+    Returns ``{case: step selector dict}`` and the port's dataset info;
+    the dicts build in both packages."""
+    import copy
+    import re
+
+    from ace_tpu_torch import flagship
+
+    def keep(name):
+        match = re.search(r"_(\d+)$", name)
+        return match is None or int(match.group(1)) < nz
+
+    base = copy.deepcopy(_yaml(SOM_TRAIN)["stepper"]["step"]["config"][
+        "wrapped_step"]["config"])
+    for key in ("in_names", "out_names"):
+        base[key] = [n for n in base[key] if keep(n)]
+    corrector = base["corrector"]
+    corrector["force_positive_names"] = [
+        n for n in corrector["force_positive_names"] if keep(n)]
+    base["builder"]["config"].update(embed_dim=embed, num_layers=layers,
+                                     compute_dtype=compute_dtype)
+    names = sorted(set(base["in_names"]) | set(base["out_names"]))
+    stats = {k: _som_stats(k) for k in names}
+    means = {k: m for k, (m, _) in stats.items()}
+    base["normalization"] = {
+        "network": {"means": means, "stds": {k: s for k, (_, s) in
+                                             stats.items()}},
+        "residual": {"means": means, "stds": {k: 0.5 * s for k, (_, s) in
+                                              stats.items()}}}
+    decoded = ["TMP850", "h500"]
+    decoder = {"secondary_diagnostic_names": decoded,
+               "network": {"type": "MLP", "config": {"hidden_channels": 32}}}
+    prognostic = sorted(set(base["in_names"]) & set(base["out_names"]))
+    forcings = [n for n in base["in_names"] if n not in prognostic]
+    diagnostics = [n for n in base["out_names"] if n not in prognostic]
+
+    def single(**options):
+        config = copy.deepcopy(base)
+        if "secondary_decoder" in options:
+            config["out_names"] = [n for n in config["out_names"]
+                                   if n not in decoded]
+        config.update(options)
+        return {"type": "single_module", "config": config}
+
+    def radiation(detach):
+        only = ["DSWRFtoa", "global_mean_co2"]
+        return {"type": "separate_radiation", "config": dict(
+            builder=base["builder"], radiation_builder=base["builder"],
+            main_prognostic_names=prognostic,
+            shared_forcing_names=[n for n in forcings if n not in only],
+            radiation_only_forcing_names=only,
+            radiation_diagnostic_names=M_FLUXES,
+            main_diagnostic_names=[n for n in diagnostics
+                                   if n not in M_FLUXES],
+            normalization=base["normalization"], ocean=base["ocean"],
+            corrector=base["corrector"],
+            next_step_forcing_names=base["next_step_forcing_names"],
+            detach_radiation=detach, residual_prediction=True)}
+
+    secondary = ["PRATEsfc", "TMP850"]
+    cases = {
+        "multi_call slab": {"type": "multi_call", "config": {
+            "wrapped_step": single(), "config": M_MULTI_CALL,
+            "include_multi_call_in_loss": True}},
+        "per-channel global-mean removal, secondary decoder": single(
+            global_mean_removal={
+                "names": ["air_temperature_0", "air_temperature_1", "TMP2m"],
+                "append_as_input": True},
+            secondary_decoder=decoder),
+        "shared global-mean removal, channel masks, input dropout": single(
+            global_mean_removal={
+                "names": ["TMP2m", "air_temperature_0", "air_temperature_1"],
+                "mode": "shared", "reference_field": "TMP2m",
+                "append_as_input": True},
+            include_channel_mask_inputs=True,
+            input_dropout={"default": {"max_masked_vars": 3},
+                           "override_groups": [{
+                               "variables": ["HGTsfc", "land_fraction"],
+                               "masking": {"rate": 0.5}}]}),
+        "separate_radiation": radiation(False),
+        "separate_radiation detached": radiation(True),
+        "secondary_module with a decoder": {
+            "type": "secondary_module", "config": dict(
+                builder=base["builder"], secondary_builder=base["builder"],
+                in_names=base["in_names"],
+                out_names=[n for n in base["out_names"]
+                           if n not in secondary + ["h500"]],
+                normalization=base["normalization"],
+                secondary_out_names=secondary,
+                secondary_residual_out_names=["Q2m"],
+                secondary_decoder={**decoder,
+                                   "secondary_diagnostic_names": ["h500"]},
+                ocean=base["ocean"], corrector=base["corrector"],
+                next_step_forcing_names=base["next_step_forcing_names"],
+                residual_prediction=True)},
+    }
+    _, info = flagship.stepper_config(nlat, nlon, nz=nz)
+    return cases, info
+
+
+def som_inputs(stepper, n_steps, batch, generator):
+    """A random initial condition, ``n_steps + 1`` forcing times and a
+    training batch of 2 forward steps for ``stepper``, drawn with
+    ``_draw`` (the slab's depths and q-fluxes in ``SLAB_DRAWS``' ranges)
+    on the stepper's device."""
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    nlat, nlon = stepper.dataset_info.img_shape
+    step = stepper.step
+
+    def draw(name, n):
+        return _draw(name, (batch, n, nlat, nlon), generator, stepper.device)
+
+    ic = PrognosticState(data={k: draw(k, 1)
+                               for k in stepper.prognostic_names})
+    forcing = {k: draw(k, n_steps + 1)
+               for k in stepper.forcing_window_names}
+    data = {k: draw(k, 3) for k in
+            sorted(set(step.input_names) | set(step.loss_names))}
+    return ic, forcing, data
+
+
+def fixed_dropout_presence(train_stepper, dropped=("HGTsfc", "TMP2m")):
+    """Make an input-dropout step drop ``dropped`` in every train (not
+    deterministic) call, whatever its generator draws: the card and the
+    CPU then drop the same channels."""
+    import torch
+
+    step = train_stepper.stepper.step
+    step = getattr(step, "wrapped", step)
+    if getattr(step, "input_masking", None) is None:
+        return
+    device = step.device
+
+    def presence(args):
+        if args.deterministic:
+            return None
+        return {n: torch.tensor(n not in dropped, device=device)
+                for n in step.in_packer.names}
+
+    step.draw_input_dropout_presence = presence
+
+
+def reference_som_phase(counters, device="cuda", embed=64, n_steps=4):
+    """Reference phase M: each step of ``som_step_configs`` (embed
+    ``embed``, 2 layers, 16x32) on ``device`` against the CPU through
+    ``_reference_case``: an ``n_steps``-step rollout and one train step
+    (MSE, 2 forward steps), float32 within ``S_F32_*`` and bfloat16
+    within ``flagship.CHECK_TOL`` and the train step's limits (reference
+    S's), input dropout's presence passed in (``fixed_dropout_presence``).
+    On the card float32 launches nothing; bfloat16 launches per dhconv
+    filter K1 once a call (a multi-call's 2 calls a step) and 1b and 1c
+    once a call's backward. Returns the bf16 launches, by case."""
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.core.step import StepSelector
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    f32 = (S_F32_TOL, S_F32_LOSS_TOL, S_F32_GRAD_TOL)
+    bf16 = (flagship.CHECK_TOL, flagship.TRAIN_LOSS_TOL,
+            flagship.TRAIN_GRAD_TOL)
+    none = {c.__name__: 0 for c in counters}
+    cuda = device != "cpu"
+    cases, _ = som_step_configs(embed=embed)
+    out = {}
+    for case in cases:
+        def make(dtype, case=case):
+            configs, info = som_step_configs(embed=embed,
+                                             compute_dtype=dtype)
+            return StepperConfig(step=StepSelector(**configs[case])), info
+
+        for dtype, tols in (("float32", f32), ("bfloat16", bf16)):
+            label = f"reference M ({case}, {dtype})"
+            launches = _reference_case(
+                label, counters, device, tols, make, dtype,
+                lambda stepper, gen: som_inputs(stepper, n_steps, 2, gen),
+                prepare=fixed_dropout_presence)
+            config, info = make(dtype)
+            stepper = config.get_stepper(info, device="cpu")
+            filters = _dhconv_filters(stepper.module)
+            multi_call = getattr(stepper.step.config, "config", None)
+            calls = 1 + (len(multi_call.forcing_multipliers)
+                         if multi_call is not None else 0)
+            want = none
+            if cuda and dtype == "bfloat16":
+                per = calls * filters
+                want = {**none, "dhconv_filter": per * (n_steps + 2),
+                        "dhconv_filter_dx": 2 * per,
+                        "dhconv_filter_dw": 2 * per}
+            if launches != want:
+                raise AssertionError(f"{label}: launches {launches}, want "
+                                     f"{want}")
+            if dtype == "bfloat16":
+                out[case] = launches
+    return out
+
+
+def som_paths(counters, smi, sizes=None, device="cuda"):
+    """Reference phase M, then paths M-R, M-I and M-bf16: the launches of
+    each path. ``sizes`` (``nlat``, ``nlon``, ``embed``, ``layers``) makes
+    the small copies the CPU runs (the reference phase at that embed)."""
+    reference_som_phase(counters, device, (sizes or {}).get("embed", 64))
+    out = {}
+    print(smi)
+
+    def then(paths, config, best):
+        print(smi)
+        out["M-I"], _ = som_inference_path(counters, best, device=device)
+        print(smi)
+        out["M-bf16"], _, _ = som_bf16_path(counters, paths, config,
+                                            device=device)
+
+    out["M-R"], _ = som_train_path(counters, device=device, sizes=sizes,
+                                   then=then)
     return out
 
 
@@ -3436,6 +4266,13 @@ def main() -> int:
     # recipe's SphericalFourierNeuralOperatorNet (K1, 1b and 1c only in
     # S-bf16)
     by_path.update(shield_paths(counters, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # reference phase M and paths M-R, M-I, M-bf16: the ACE2-SOM slab-ocean
+    # recipe (the multi-call step over the slab-ocean step; K1, 1b and 1c
+    # only in M-bf16, 2 calls of the wrapped step a step)
+    by_path.update(som_paths(counters, smi))
 
     own_path = {"dhconv_filter": "0", "fused_block_tail": "A",
                 "fused_sht": "B", "dhconv_filter_dx": "T",
