@@ -147,6 +147,10 @@ class AtmosphereData:
         self._set("precipitation_rate", value)
 
     @property
+    def latent_heat_flux(self):
+        return self._get("latent_heat_flux")
+
+    @property
     def evaporation_rate(self):
         return self._get("latent_heat_flux") / LATENT_HEAT_OF_VAPORIZATION
 

@@ -1,5 +1,7 @@
-"""Horizontal and vertical coordinates (port of the lat-lon and hybrid
-sigma-pressure parts of ace_tpu/core/coordinates.py).
+"""Horizontal and vertical coordinates (port of the lat-lon, hybrid
+sigma-pressure and depth parts of ace_tpu/core/coordinates.py). A dataset
+with no vertical coordinate has ``None`` (the JAX package's
+``NullVerticalCoordinate``).
 
 Coordinates hold numpy arrays on the host; the tensors that device math
 needs are made once per device and cached.
@@ -72,6 +74,80 @@ class HybridSigmaPressureCoordinate:
         return (integrand * thickness).sum(-1) / GRAVITY
 
 
+def dz_from_idepth(idepth: np.ndarray, mask: np.ndarray,
+                   deptho: np.ndarray | None = None) -> np.ndarray:
+    """Layer thicknesses from interface depths, with partial bottom cells
+    where the sea-floor depth ``deptho`` is given (port of
+    ace_tpu/core/coordinates.py:99)."""
+    z_top = idepth[..., :-1]
+    z_bot = idepth[..., 1:]
+    if deptho is None:
+        deptho_exp = np.max(mask * z_bot, axis=-1, keepdims=True)
+    else:
+        deptho_exp = np.asarray(deptho)[..., None]
+    dz = np.clip(deptho_exp, z_top, z_bot) - z_top
+    return np.nan_to_num(dz) * mask
+
+
+@dataclasses.dataclass(eq=False)
+class DepthCoordinate:
+    """Ocean depth coordinate: interface depths ``idepth`` (1-D, positive
+    down), a per-layer wet mask ``[..., n_layers]`` (1 wet, 0 dry) and
+    optionally the sea-floor depth ``deptho`` for partial bottom cells
+    (port of ace_tpu/core/coordinates.py:119)."""
+
+    idepth: np.ndarray
+    mask: np.ndarray
+    deptho: np.ndarray | None = None
+
+    def __post_init__(self):
+        self.idepth = np.asarray(self.idepth, dtype=np.float32)
+        self.mask = np.asarray(self.mask, dtype=np.float32)
+        if self.deptho is not None:
+            self.deptho = np.asarray(self.deptho, dtype=np.float32)
+        if self.idepth.ndim != 1:
+            raise ValueError("idepth must be 1-dimensional")
+        if self.mask.shape[-1] != len(self.idepth) - 1:
+            raise ValueError(
+                "mask last dim must equal len(idepth) - 1 "
+                f"({self.mask.shape[-1]} vs {len(self.idepth) - 1})"
+            )
+        self._dz = dz_from_idepth(self.idepth, self.mask, self.deptho)
+        # the wet columns: those whose surface layer is wet
+        self._wet = (self.mask[..., 0] if self.mask.ndim > 1
+                     else self.mask[:1]) > 0
+        self._device_cache: dict = {}
+
+    def __len__(self):
+        return len(self.idepth)
+
+    @property
+    def dz(self) -> np.ndarray:
+        return self._dz
+
+    def as_dict(self) -> dict:
+        d = {"idepth": self.idepth.tolist(), "mask": self.mask.tolist()}
+        if self.deptho is not None:
+            d["deptho"] = np.nan_to_num(self.deptho).tolist()
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DepthCoordinate":
+        return cls(idepth=np.asarray(d["idepth"]), mask=np.asarray(d["mask"]),
+                   deptho=(np.asarray(d["deptho"])
+                           if d.get("deptho") is not None else None))
+
+    def depth_integral(self, integrand: torch.Tensor) -> torch.Tensor:
+        """∫ x dz over the wet layers; removes the trailing vertical axis.
+        NaNs in the integrand count as zero; dry columns (surface mask 0)
+        are NaN."""
+        device = integrand.device
+        dz = cached_on_device(self._device_cache, "dz", self._dz, device)
+        wet = cached_on_device(self._device_cache, "wet", self._wet, device)
+        integral = torch.nan_to_num(integrand * dz).sum(-1)
+        return torch.where(wet, integral, float("nan"))
+
+
 @dataclasses.dataclass(eq=False)
 class LatLonCoordinates:
     """A lat-lon (possibly Gaussian) grid."""
@@ -130,14 +206,18 @@ def gaussian_latitudes(nlat: int) -> np.ndarray:
 def serialize_vertical_coordinate(vc) -> dict:
     if isinstance(vc, HybridSigmaPressureCoordinate):
         return {"type": "hybrid_sigma_pressure", "data": vc.as_dict()}
+    if isinstance(vc, DepthCoordinate):
+        return {"type": "depth", "data": vc.as_dict()}
+    if vc is None:
+        return {"type": "null", "data": {}}
     raise NotImplementedError(f"vertical coordinate {type(vc).__name__}")
 
 
 def deserialize_vertical_coordinate(state: dict):
     if state["type"] == "hybrid_sigma_pressure":
         return HybridSigmaPressureCoordinate.from_dict(state["data"])
+    if state["type"] == "depth":
+        return DepthCoordinate.from_dict(state["data"])
     if state["type"] == "null":
         return None
-    raise NotImplementedError(
-        f"vertical coordinate {state['type']!r} is not ported yet"
-    )
+    raise ValueError(f"unknown vertical coordinate {state['type']!r}")

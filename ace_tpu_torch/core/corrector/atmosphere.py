@@ -27,6 +27,26 @@ from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
 CorrectorState = dict
 
 
+def replace_value_keep_gradient(x: torch.Tensor,
+                                new_value: torch.Tensor) -> torch.Tensor:
+    """``new_value`` in the forward pass with the gradient of the identity
+    on ``x`` (a straight-through estimator)."""
+    return x + (new_value - x).detach()
+
+
+def force_positive(data: TensorMapping, names: list[str],
+                   keep_gradient: bool = False) -> TensorDict:
+    """``data``'s ``names`` clamped at 0 (with ``keep_gradient``, with the
+    identity's gradient)."""
+    out: TensorDict = {}
+    for name in names:
+        clamped = torch.clamp(data[name], min=0.0)
+        if keep_gradient:
+            clamped = replace_value_keep_gradient(data[name], clamped)
+        out[name] = clamped
+    return out
+
+
 @dataclasses.dataclass
 class EnergyBudgetConfig:
     """Total energy budget correction (port of
@@ -130,14 +150,8 @@ class AtmosphereCorrector:
             modified.update(changed.keys())
 
         if cfg.force_positive_names:
-            def clamp(x):
-                clamped = torch.clamp(x, min=0.0)
-                if cfg.keep_gradient_through_clamps:
-                    # the clamped value with the gradient of the identity
-                    return x + (clamped - x).detach()
-                return clamped
-
-            apply({n: clamp(gen[n]) for n in cfg.force_positive_names})
+            apply(force_positive(gen, cfg.force_positive_names,
+                                 cfg.keep_gradient_through_clamps))
         if cfg.conserve_dry_air:
             if "global_dry_air_mass" not in state:
                 state.update(self.init_state(input_data))

@@ -1,9 +1,10 @@
 """Dataset metadata bundle (port of ace_tpu/core/dataset_info.py).
 
-Carries the grid, the vertical coordinate and the timestep; serialized
-into checkpoints in the JAX package's layout (``get_state``/``from_state``
-round-trip with ``ace_tpu``'s). HEALPix grids, depth coordinates and
-dataset masks are not ported yet and raise.
+Carries the grid, the vertical coordinate (hybrid sigma-pressure or
+depth), the timestep and the dataset's static masks; serialized into
+checkpoints in the JAX package's layout (``get_state``/``from_state``
+round-trip with ``ace_tpu``'s). HEALPix grids are not ported yet and
+raise.
 """
 
 import dataclasses
@@ -12,12 +13,14 @@ from datetime import timedelta
 import numpy as np
 
 from ace_tpu_torch.core.coordinates import (
+    DepthCoordinate,
     HybridSigmaPressureCoordinate,
     LatLonCoordinates,
     deserialize_vertical_coordinate,
     serialize_vertical_coordinate,
 )
 from ace_tpu_torch.core.gridded_ops import LatLonOperations
+from ace_tpu_torch.core.masking import MaskProvider
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,11 +36,14 @@ class IncompatibleDatasetInfo(ValueError):
 @dataclasses.dataclass
 class DatasetInfo:
     horizontal_coordinates: LatLonCoordinates | None = None
-    vertical_coordinate: HybridSigmaPressureCoordinate | None = None
+    vertical_coordinate: (
+        HybridSigmaPressureCoordinate | DepthCoordinate | None) = None
     timestep: timedelta | None = None
     variable_metadata: dict[str, VariableMetadata] = dataclasses.field(
         default_factory=dict
     )
+    # the dataset's static "mask_*" fields; None: no masks
+    mask_provider: MaskProvider | None = None
     all_labels: tuple = ()
 
     @property
@@ -50,13 +56,24 @@ class DatasetInfo:
     def gridded_operations(self) -> LatLonOperations:
         if self.horizontal_coordinates is None:
             raise ValueError("DatasetInfo has no horizontal coordinates")
-        return self.horizontal_coordinates.get_gridded_operations()
+        ops = self.horizontal_coordinates.get_gridded_operations()
+        if self.mask_provider is not None and self.mask_provider.masks:
+            # masked cells get zero area weight in every scalar metric
+            ops = LatLonOperations(ops.area_weights_host,
+                                   mask_provider=self.mask_provider)
+        return ops
 
     @property
     def atmosphere_vertical_coordinate(
         self,
     ) -> HybridSigmaPressureCoordinate | None:
         if isinstance(self.vertical_coordinate, HybridSigmaPressureCoordinate):
+            return self.vertical_coordinate
+        return None
+
+    @property
+    def depth_coordinate(self) -> DepthCoordinate | None:
+        if isinstance(self.vertical_coordinate, DepthCoordinate):
             return self.vertical_coordinate
         return None
 
@@ -102,19 +119,21 @@ class DatasetInfo:
             )
         if self.timestep is not None:
             state["timestep_seconds"] = self.timestep.total_seconds()
+        if self.mask_provider is not None and self.mask_provider.masks:
+            state["mask_provider"] = self.mask_provider.get_state()
         if self.all_labels:
             state["all_labels"] = list(self.all_labels)
         return state
 
     @classmethod
     def from_state(cls, state: dict) -> "DatasetInfo":
-        if "mask_provider" in state:
-            raise NotImplementedError("dataset masks are not ported yet")
         horizontal = None
         if "horizontal_coordinates" in state:
             hc = state["horizontal_coordinates"]
             if "nside" in hc:
-                raise NotImplementedError("HEALPix grids are not ported yet")
+                raise NotImplementedError(
+                    'HEALPix grids are not ported yet (ROADMAP Queue 1, '
+                    '"Other ops")')
             horizontal = LatLonCoordinates(
                 lat=np.asarray(hc["lat"]), lon=np.asarray(hc["lon"])
             )
@@ -130,10 +149,14 @@ class DatasetInfo:
             k: VariableMetadata(units=v["units"], long_name=v["long_name"])
             for k, v in state.get("variable_metadata", {}).items()
         }
+        mask_provider = None
+        if "mask_provider" in state:
+            mask_provider = MaskProvider.from_state(state["mask_provider"])
         return cls(
             horizontal_coordinates=horizontal,
             vertical_coordinate=vertical,
             timestep=timestep,
             variable_metadata=metadata,
+            mask_provider=mask_provider,
             all_labels=tuple(state.get("all_labels", ())),
         )

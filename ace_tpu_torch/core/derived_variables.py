@@ -1,12 +1,12 @@
-"""Registry of derived variables computed after the rollout from
-``AtmosphereData`` (port of ace_tpu/core/derived_variables.py, the
-atmosphere registry).
+"""Registries of derived variables computed after the rollout (port of
+ace_tpu/core/derived_variables.py): the atmosphere's from
+``AtmosphereData``, the ocean's from ``OceanData``; a depth coordinate
+selects the ocean registry.
 
 Each function takes the fields of a window (``[batch, time, lat, lon]``
 tensors, on whatever device they are) and the timestep, and returns a
 derived field; a variable is computed only when the data lack it and have
-what it needs. The ocean registry waits for the depth coordinate, which
-the port does not have yet.
+what it needs.
 """
 
 import datetime
@@ -16,7 +16,9 @@ from collections.abc import Callable, MutableMapping
 import torch
 
 from ace_tpu_torch.core.atmosphere_data import AtmosphereData
+from ace_tpu_torch.core.coordinates import DepthCoordinate
 from ace_tpu_torch.core.dataset_info import VariableMetadata
+from ace_tpu_torch.core.ocean_data import OceanData
 from ace_tpu_torch.core.typing_ import TensorDict
 
 DerivedVariableFunc = Callable[[AtmosphereData, datetime.timedelta],
@@ -162,14 +164,108 @@ def compute_derived_quantities(
     return out
 
 
+# ----- the ocean registry -----
+
+_OCEAN_DERIVED_VARIABLE_REGISTRY: dict = {}
+
+
+def ocean_register(metadata: VariableMetadata, exists_ok: bool = False):
+    def decorator(func):
+        _OCEAN_DERIVED_VARIABLE_REGISTRY[func.__name__] = (
+            func, metadata, exists_ok)
+        return func
+
+    return decorator
+
+
+def get_ocean_derived_variable_metadata() -> dict[str, VariableMetadata]:
+    return {label: meta for label, (_, meta, _)
+            in _OCEAN_DERIVED_VARIABLE_REGISTRY.items()}
+
+
+@ocean_register(
+    VariableMetadata("J/m**2", "Column-integrated ocean heat content")
+)
+def ocean_heat_content(data, timestep):
+    return data.ocean_heat_content
+
+
+@ocean_register(VariableMetadata(
+    "W/m**2", "Tendency of column-integrated ocean heat content"
+))
+def ocean_heat_content_tendency(data, timestep):
+    ohc = data.ocean_heat_content
+    return _with_zero_first_step(
+        ohc, torch.diff(ohc, dim=1) / timestep.total_seconds())
+
+
+@ocean_register(VariableMetadata(
+    "W/m**2",
+    "Implied advective tendency of ocean heat content assuming closed "
+    "budget",
+))
+def implied_tendency_of_ocean_heat_content_due_to_advection(data, timestep):
+    return (ocean_heat_content_tendency(data, timestep)
+            - data.net_energy_flux_into_ocean)
+
+
+@ocean_register(VariableMetadata(
+    "W/m**2", "Net energy flux through surface and sea floor into ocean"
+))
+def net_energy_flux_into_ocean_column(data, timestep):
+    return data.net_energy_flux_into_ocean
+
+
+@ocean_register(
+    VariableMetadata("[0-1]", "sea ice concentration"), exists_ok=True
+)
+def sea_ice_fraction(data, timestep):
+    return data.sea_ice_fraction
+
+
+def compute_ocean_derived_quantities(
+    data: TensorDict,
+    depth_coordinate,
+    timestep: datetime.timedelta,
+    forcing_data: TensorDict | None = None,
+) -> TensorDict:
+    """Every registered ocean variable that ``data`` lacks and that its
+    fields (with ``forcing_data`` filling gaps) allow; a variable of the
+    data that collides with one not registered ``exists_ok`` raises."""
+    out = dict(data)
+    merged = dict(data)
+    if forcing_data is not None:
+        for k, v in forcing_data.items():
+            merged.setdefault(k, v)
+    ocean = OceanData(merged, depth_coordinate)
+    for label, (func, _, exists_ok) in (
+            _OCEAN_DERIVED_VARIABLE_REGISTRY.items()):
+        if label in out:
+            if exists_ok:
+                continue
+            raise ValueError(
+                f"variable {label} already exists; derived variables may "
+                "not collide with dataset variables unless registered with "
+                "exists_ok=True"
+            )
+        try:
+            out[label] = func(ocean, timestep)
+        except (KeyError, ValueError):
+            logging.debug(f"cannot compute ocean derived {label}")
+    return out
+
+
 def compute_derived_for(
     data: TensorDict,
     vertical_coordinate,
     timestep: datetime.timedelta,
     forcing_data: TensorDict | None = None,
 ) -> TensorDict:
-    """The derived variables for the data's vertical coordinate (port of
-    ace_tpu/core/derived_variables.py:270; the port has the hybrid
-    sigma-pressure coordinate only, so this is the atmosphere registry)."""
+    """The derived variables for the data's vertical coordinate: a
+    ``DepthCoordinate`` selects the ocean registry, anything else the
+    atmosphere's (port of ace_tpu/core/derived_variables.py:270)."""
+    if isinstance(vertical_coordinate, DepthCoordinate):
+        return compute_ocean_derived_quantities(
+            data, vertical_coordinate, timestep, forcing_data)
     return compute_derived_quantities(data, vertical_coordinate, timestep,
                                       forcing_data)

@@ -1,7 +1,9 @@
 """Grid-aware reductions (port of ace_tpu/core/gridded_ops.py:129
 LatLonOperations and the helpers of its base class, :49-80). Reductions
 run over the last two (lat, lon) axes with cos-lat area weights, held on
-the device of the data they reduce."""
+the device of the data they reduce. With masks (exact-name
+``spatial_masks``, or a dataset's ``MaskProvider``), a named variable's
+masked cells get zero weight, so its means are over the wet cells only."""
 
 import numpy as np
 import torch
@@ -14,13 +16,44 @@ HORIZONTAL_DIMS = (-2, -1)
 
 
 class LatLonOperations:
-    def __init__(self, area_weights):
+    def __init__(self, area_weights, spatial_masks=None, mask_provider=None):
         self._area_weights = np.asarray(area_weights, dtype=np.float32)
+        self._spatial_masks = (
+            {k: np.asarray(v, dtype=np.float32)
+             for k, v in spatial_masks.items()} if spatial_masks else None)
+        self._mask_provider = mask_provider
+        # each name's masked weights on the host (None: unmasked)
+        self._masked_weights: dict = {}
         self._device_cache: dict = {}
+
+    @property
+    def area_weights_host(self) -> np.ndarray:
+        return self._area_weights
 
     def area_weights(self, device) -> torch.Tensor:
         return cached_on_device(self._device_cache, "area_weights",
                                 self._area_weights, device)
+
+    def _weights_for(self, name: str | None, device) -> torch.Tensor:
+        """The area weights of variable ``name``: zero where its mask
+        (``spatial_masks`` by exact name first, then the mask provider's)
+        is 0."""
+        if name is None:
+            return self.area_weights(device)
+        if name not in self._masked_weights:
+            mask = None
+            if self._spatial_masks is not None and name in self._spatial_masks:
+                mask = self._spatial_masks[name]
+            elif self._mask_provider is not None:
+                mask = self._mask_provider.get_mask_for(name)
+            self._masked_weights[name] = (
+                None if mask is None
+                else (self._area_weights * mask).astype(np.float32))
+        weights = self._masked_weights[name]
+        if weights is None:
+            return self.area_weights(device)
+        return cached_on_device(self._device_cache, f"masked/{name}",
+                                weights, device)
 
     @staticmethod
     def zonal_mean(data: torch.Tensor) -> torch.Tensor:
@@ -29,14 +62,14 @@ class LatLonOperations:
     def area_weighted_sum(self, data: torch.Tensor, keepdim: bool = False,
                           name: str | None = None) -> torch.Tensor:
         return metrics.weighted_sum(
-            data, self.area_weights(data.device), dim=HORIZONTAL_DIMS,
+            data, self._weights_for(name, data.device), dim=HORIZONTAL_DIMS,
             keepdim=keepdim,
         )
 
     def area_weighted_mean(self, data: torch.Tensor, keepdim: bool = False,
                            name: str | None = None) -> torch.Tensor:
         return metrics.weighted_mean(
-            data, self.area_weights(data.device), dim=HORIZONTAL_DIMS,
+            data, self._weights_for(name, data.device), dim=HORIZONTAL_DIMS,
             keepdim=keepdim,
         )
 
@@ -83,6 +116,6 @@ class LatLonOperations:
     def area_weighted_gradient_magnitude_percent_diff(self, truth, predicted,
                                                       name=None):
         return metrics.gradient_magnitude_percent_diff(
-            truth, predicted, self.area_weights(truth.device),
+            truth, predicted, self._weights_for(name, truth.device),
             dim=HORIZONTAL_DIMS,
         )

@@ -17,6 +17,7 @@ from torch import nn
 
 from ace_tpu_torch.core.config import to_dict
 from ace_tpu_torch.core.corrector.atmosphere import AtmosphereCorrectorConfig
+from ace_tpu_torch.core.corrector.registry import CorrectorSelector
 from ace_tpu_torch.core.dataset_info import DatasetInfo
 from ace_tpu_torch.core.masking import VariableMaskingConfig
 from ace_tpu_torch.core.normalizer import (
@@ -59,11 +60,15 @@ def apply_input_mask(input_norm: TensorMapping,
 
 
 def build_corrector(config, dataset_info: DatasetInfo):
-    """The step's corrector, or None when its config does nothing."""
+    """The step's corrector, or None when its config does nothing: an
+    ``AtmosphereCorrectorConfig``, or a ``CorrectorSelector`` (the
+    atmosphere, ocean or ice corrector)."""
     if config.is_noop:
         return None
     if dataset_info.timestep is None:
         raise ValueError("corrector requires dataset_info.timestep")
+    if isinstance(config, CorrectorSelector):
+        return config.build_from_dataset_info(dataset_info)
     return config.build(
         dataset_info.gridded_operations,
         dataset_info.atmosphere_vertical_coordinate,
@@ -145,8 +150,8 @@ class SingleModuleStepConfig(StepConfigBase):
     out_names: list[str]
     normalization: NetworkAndLossNormalizationConfig
     ocean: OceanConfig | None = None
-    corrector: AtmosphereCorrectorConfig = dataclasses.field(
-        default_factory=AtmosphereCorrectorConfig
+    corrector: AtmosphereCorrectorConfig | CorrectorSelector = (
+        dataclasses.field(default_factory=AtmosphereCorrectorConfig)
     )
     next_step_forcing_names: list[str] = dataclasses.field(default_factory=list)
     prescribed_prognostic_names: list[str] = dataclasses.field(

@@ -10,22 +10,28 @@ fields are broadcast along time; the derived static fields x/y/z
 (reference: xarray.py:202 StaticDerivedData).
 
 Everything here stays numpy on the host. Lat-lon grids with a hybrid
-sigma-pressure coordinate (or none) are read; HEALPix grids, depth
-coordinates and ``mask_*`` fields are not ported yet and raise.
+sigma-pressure coordinate, a depth coordinate (``idepth_N`` with the
+per-layer ``mask_N`` and ``deptho``) or none are read, and the static
+``mask_*`` fields become the dataset info's ``MaskProvider``; HEALPix
+grids are not ported yet and raise.
 """
 
 import dataclasses
 import datetime
+import functools
 import glob
+import logging
 import os
 
 import numpy as np
 
 from ace_tpu_torch.core.coordinates import (
+    DepthCoordinate,
     HybridSigmaPressureCoordinate,
     LatLonCoordinates,
 )
 from ace_tpu_torch.core.dataset_info import DatasetInfo, VariableMetadata
+from ace_tpu_torch.core.masking import MaskProvider
 from ace_tpu_torch.core.typing_ import Slice
 from ace_tpu_torch.data.store import FileDataset, open_file_dataset
 from ace_tpu_torch.data.time import RepeatedInterval, TimeCoord, TimeSlice
@@ -183,7 +189,9 @@ class XarrayDataset:
         if "face" in first.keys() and "height" in first.keys() and (
             "width" in first.keys()
         ):
-            raise NotImplementedError("HEALPix grids are not ported yet")
+            raise NotImplementedError(
+                'HEALPix grids are not ported yet (ROADMAP Queue 1, "Other '
+                'ops")')
         elif lat_name is None or lon_name is None:
             raise ValueError(
                 "could not find lat/lon or face/height/width coordinates"
@@ -203,8 +211,39 @@ class XarrayDataset:
               if k.startswith("bk_") and k[3:].isdigit()}
         idepth = {k: float(first[k].read(())) for k in first.keys()
                   if k.startswith("idepth_") and k[7:].isdigit()}
+        if idepth and ak and bk:
+            raise ValueError(
+                "Dataset contains both hybrid sigma-pressure (ak_N/bk_N)"
+                " and depth (idepth_N) coordinates; the vertical"
+                " coordinate is ambiguous."
+            )
         if idepth:
-            raise NotImplementedError("depth coordinates are not ported yet")
+            idepth_arr = np.asarray(
+                [idepth[k] for k in sorted(idepth, key=lambda s_: int(s_[7:]))],
+                np.float32,
+            )
+            layer_masks = {
+                int(k[5:]): np.asarray(first[k].read(()), np.float32)
+                for k in first.keys()
+                if k.startswith("mask_") and k[5:].isdigit()
+            }
+            if layer_masks:
+                mask = np.stack(
+                    [layer_masks[i] for i in sorted(layer_masks)], axis=-1
+                )
+            else:
+                logging.warning(
+                    "Dataset has idepth_N but no mask_N variables; "
+                    "DepthCoordinate mask set to 1 at all layers."
+                )
+                mask = np.ones(len(idepth_arr) - 1, np.float32)
+            deptho = (
+                np.asarray(first["deptho"].read(()), np.float32)
+                if "deptho" in first.keys() else None
+            )
+            self.vertical_coordinate = DepthCoordinate(
+                idepth=idepth_arr, mask=mask, deptho=deptho
+            )
         elif ak and bk:
             self.vertical_coordinate = HybridSigmaPressureCoordinate(
                 ak=np.asarray(
@@ -275,15 +314,24 @@ class XarrayDataset:
             self._start_indices, limit, side="right"
         ))
 
+    @functools.cached_property
+    def mask_provider(self) -> MaskProvider | None:
+        """The static ``mask_*`` fields, read once; None without any."""
+        masks = {
+            name: np.asarray(self._files[0][disk].read(()), np.float32)
+            for name, disk in self._static.items()
+            if name.startswith("mask_")
+        }
+        return MaskProvider(masks) if masks else None
+
     @property
     def dataset_info(self) -> DatasetInfo:
-        if any(name.startswith("mask_") for name in self._static):
-            raise NotImplementedError("dataset masks are not ported yet")
         return DatasetInfo(
             horizontal_coordinates=self.horizontal_coordinates,
             vertical_coordinate=self.vertical_coordinate,
             timestep=self.timestep,
             variable_metadata=self.variable_metadata,
+            mask_provider=self.mask_provider,
             all_labels=tuple(sorted(self.config.labels or ())),
         )
 

@@ -123,8 +123,9 @@ def _refuse_remote(path: str):
     if "://" in str(path):
         raise NotImplementedError(
             f"remote path {path!r}: reading through a URL needs "
-            "data/cloud.py, which the port does not have; copy the file "
-            "to a local path"
+            "data/cloud.py, which the port does not have (ROADMAP Queue 1, "
+            '"The rest of the slice-1 modules"); copy the file to a local '
+            "path"
         )
 
 

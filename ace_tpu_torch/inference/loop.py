@@ -87,7 +87,11 @@ def run_inference(
         writer = None
     timer = GlobalTimer.get_instance()
     info = stepper.dataset_info
-    vc = info.atmosphere_vertical_coordinate
+    # a hybrid sigma-pressure coordinate drives the atmosphere's derived
+    # variables, a depth coordinate the ocean's
+    vc = (info.atmosphere_vertical_coordinate
+          if info.atmosphere_vertical_coordinate is not None
+          else info.depth_coordinate)
     device = stepper.device
     state = stepper.get_initial_state(initial_condition)
     generator = torch.Generator(device).manual_seed(0)

@@ -50,9 +50,13 @@ class ModuleSelector(Selector):
 
     def __post_init__(self):
         if self.conditional:
-            raise NotImplementedError("conditional (label) models are not ported yet")
+            raise NotImplementedError(
+                "conditional (label) models are not ported yet (ROADMAP "
+                'Queue 1, "The rest of the slice-1 modules")')
         if self.allow_missing_variables:
-            raise NotImplementedError("allow_missing_variables is not ported yet")
+            raise NotImplementedError(
+                "allow_missing_variables is not ported yet (ROADMAP Queue 1, "
+                '"The rest of the slice-1 modules")')
         super().__post_init__()
 
     @classmethod
@@ -282,6 +286,45 @@ class MLPBuilder(ModuleConfig):
 class LinearBuilder(ModuleConfig):
     def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
         return LinearModule(n_in_channels, n_out_channels, device=device)
+
+
+@ModuleSelector.register("Samudra")
+@dataclasses.dataclass
+class SamudraBuilder(ModuleConfig):
+    """Samudra builder with the JAX package's fields and defaults (port of
+    ace_tpu/models/registry.py:390). As there, ``n_layers`` and ``pad``
+    are accepted and not passed to the network (one block a level,
+    circular longitude padding)."""
+
+    ch_width: list[int] = dataclasses.field(
+        default_factory=lambda: [200, 250, 300, 400]
+    )
+    n_layers: list[int] = dataclasses.field(
+        default_factory=lambda: [1, 1, 1, 1]
+    )
+    dilation: list[int] = dataclasses.field(
+        default_factory=lambda: [1, 2, 4, 8]
+    )
+    pad: str = "circular"
+    norm: str = "instance"
+    upscale_factor: int = 4
+    zonally_periodic_upsample: bool = False
+    compute_dtype: str = "float32"
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        from ace_tpu_torch.models.samudra import Samudra
+
+        return Samudra(
+            in_channels=n_in_channels,
+            out_channels=n_out_channels,
+            ch_width=tuple(self.ch_width),
+            dilation=tuple(self.dilation),
+            norm=self.norm,
+            upscale_factor=self.upscale_factor,
+            zonally_periodic_upsample=self.zonally_periodic_upsample,
+            dtype=compute_dtype(self.compute_dtype),
+            device=device,
+        )
 
 
 @ModuleSelector.register("NoiseConditionedSFNO")

@@ -5,7 +5,7 @@ GPU.
                                              [--fused-block-tail]
                                              [--train | --inference |
                                               --evaluator | --shield |
-                                              --som]
+                                              --som | --ocean]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -51,7 +51,16 @@ slab-ocean step, float32, batch 4: 20 untraced, 3 traced), then a train
 step as path M-bf16 runs it (bfloat16, CO2 quadrupled in a second call
 of each step with its six radiative fluxes in the loss, batch 1: ``N``
 untraced, default 5, then 2 traced; ``som_rollout_trace.json``,
-``som_train_trace.json``).
+``som_train_trace.json``). ``--ocean`` profiles path O, the uncoupled-ocean
+CM4 recipe (``configs/baselines/cm4-piControl/uncoupled-ocean/
+train-config.yaml``: Samudra at its widths, float32, 180x360, the ocean
+corrector, input and output masking over a land mask of 30% of the grid
+and its depth coordinate): its train step as path O-R runs it (batch 4, 4
+forward steps, FusedAdam with weight decay, EMA: ``N`` untraced, default
+5, then 2 traced), then its rollout at batch 1 as path O-E runs it (20
+untraced, 3 traced; ``ocean_train_trace.json``,
+``ocean_rollout_trace.json``). Convolutions run with TF32 off, as every
+profile here.
 Writes the Chrome trace to
 ``DIR/flagship_trace.json`` (``flagship_train_trace.json``,
 ``flagship_inference_trace.json``, ``flagship_evaluator_trace.json``;
@@ -169,6 +178,9 @@ def main(argv=None):
     mode.add_argument("--shield", action="store_true",
                       help="profile path S: the ACE2-SHiELD AMIP recipe's "
                            "train step (batch 2), then its rollout (batch 1)")
+    mode.add_argument("--ocean", action="store_true",
+                      help="path O: the uncoupled-ocean recipe's train "
+                           "step, then its rollout")
     mode.add_argument("--som", action="store_true",
                       help="profile path M: the ACE2-SOM recipe's rollout "
                            "(f32, batch 4), then its bf16 multi-call train "
@@ -182,7 +194,8 @@ def main(argv=None):
         print_tables(device_events(args.read), args.traced_steps)
         return
     if args.steps is None:
-        args.steps = (5 if args.train or args.shield or args.som else 100
+        args.steps = (5 if args.train or args.shield or args.som
+                      or args.ocean else 100
                       if args.evaluator else 20)
 
     device = get_device()
@@ -210,6 +223,25 @@ def main(argv=None):
         print("path M-bf16 train step (batch 1, 2 forward steps of 2 calls):")
         _profile(train, args.steps, TRACED_TRAIN_STEPS,
                  os.path.join(args.out, "som_train_trace.json"))
+        return
+    if args.ocean:
+        train, rollout = _ocean_runners(device)
+        flop = convolution_flop(rollout)
+        print(f"Samudra's convolutions: {flop / 1e12:.4f} TFLOP a "
+              f"sample-step forward (from their shapes), "
+              f"{3 * flop / 1e12:.4f} with the backward (x3)")
+        print(f"path O train step (batch {OCEAN_BATCH}, 4 forward steps, "
+              f"f32):")
+        busy = _profile(train, args.steps, TRACED_TRAIN_STEPS,
+                        os.path.join(args.out, "ocean_train_trace.json"))
+        rate = 3 * flop * OCEAN_BATCH * 4 / busy / 1e12
+        print(f"path O train step: {rate:.2f} TFLOP/s of convolutions over "
+              f"the busy time")
+        print("path O rollout (batch 1, f32):")
+        busy = _profile(rollout, 20, TRACED_STEPS,
+                        os.path.join(args.out, "ocean_rollout_trace.json"))
+        print(f"path O rollout: {flop / busy / 1e12:.2f} TFLOP/s of "
+              f"convolutions over the busy time")
         return
     if args.train:
         run, n = _train_runner(device, args.fused_block_tail), TRACED_TRAIN_STEPS
@@ -242,7 +274,8 @@ def main(argv=None):
 def _profile(run, steps, n, trace_path, untraced=contextlib.nullcontext):
     """Time ``run(1)`` (the first call), then ``run(steps)`` untraced (in
     the context ``untraced()``), then trace ``run(n)`` into
-    ``trace_path`` and print its tables."""
+    ``trace_path`` and print its tables. Returns the device's busy
+    seconds a step of the traced run."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run(1)
@@ -271,6 +304,7 @@ def _profile(run, steps, n, trace_path, untraced=contextlib.nullcontext):
           f"idle {100 * (1 - busy_s / wall_s):.1f}%; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print_tables(events, n)
+    return busy_s / n
 
 
 @contextlib.contextmanager
@@ -517,6 +551,134 @@ def _som_runners(device, nlat=180, nlon=360, embed=None, layers=None):
                                     for k, v in forcing.items()})[0]
 
     return train, rollout
+
+
+OCEAN_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "configs", "baselines", "cm4-piControl", "uncoupled-ocean",
+    "train-config.yaml")
+OCEAN_BATCH = 4
+
+
+def _ocean_runners(device, nlat=180, nlon=360, ch_width=None,
+                   dilation=None):
+    """``(train, rollout)`` of the uncoupled-ocean recipe (``OCEAN_CONFIG``:
+    its Samudra, ocean corrector, input masking, loss, optimizer and EMA;
+    statistics of unit scale in place of its files) at ``nlat`` x
+    ``nlon``, over a random land mask of 30% of the grid with nested
+    per-level masks (19 levels down to 5500 m) and inputs NaN on the dry
+    cells, as path O's data: ``train(n)`` ``n`` train steps on one batch of
+    ``OCEAN_BATCH`` (returns their metrics); ``rollout(n)`` an ``n``-step
+    rollout at batch 1 (returns its outputs). Weights from a seed;
+    ``ch_width`` and ``dilation`` make a small copy."""
+    import datetime
+
+    import numpy as np
+    import yaml
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.coordinates import (
+        DepthCoordinate,
+        LatLonCoordinates,
+    )
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.core.loss import StepLossConfig
+    from ace_tpu_torch.core.masking import MaskProvider
+    from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
+    from ace_tpu_torch.stepper.stepper import PrognosticState, StepperConfig
+    from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
+
+    with open(OCEAN_CONFIG) as f:
+        config = yaml.safe_load(f)
+    step = config["stepper"]["step"]["config"]
+    names = sorted(set(step["in_names"]) | set(step["out_names"]))
+    step["normalization"] = {"network": {"means": dict.fromkeys(names, 0.0),
+                                         "stds": dict.fromkeys(names, 1.0)}}
+    if ch_width is not None:
+        step["builder"]["config"].update(ch_width=ch_width,
+                                         dilation=dilation)
+    rng = np.random.default_rng(0)
+    levels = 19
+    idepth = 5500.0 * (np.arange(levels + 1) / levels) ** 2
+    ocean = rng.random((nlat, nlon)) > 0.3
+    floor = idepth[1] + (idepth[-1] - idepth[1]) * rng.random((nlat, nlon))
+    layer = np.stack([ocean & (floor > idepth[k]) for k in range(levels)],
+                     -1).astype(np.float32)
+    masks = {f"mask_{k}": layer[..., k] for k in range(levels)}
+    masks["mask_2d"] = masks["mask_0"]
+    info = DatasetInfo(
+        horizontal_coordinates=LatLonCoordinates(
+            lat=np.linspace(-90 + 90 / nlat, 90 - 90 / nlat, nlat),
+            lon=(np.arange(nlon) + 0.5) * 360 / nlon),
+        vertical_coordinate=DepthCoordinate(
+            idepth=idepth, mask=layer,
+            deptho=np.where(ocean, floor, np.nan)),
+        timestep=datetime.timedelta(days=5),
+        mask_provider=MaskProvider(masks))
+    stepper = from_dict(StepperConfig, config["stepper"]).get_stepper(
+        info, device=device)
+    training = config["stepper_training"]
+    ts = TrainStepper(
+        stepper,
+        StepperTrainConfig(
+            n_forward_steps=training["n_forward_steps"],
+            loss=from_dict(StepLossConfig, training["loss"])),
+        from_dict(OptimizationConfig, config["optimization"]),
+        from_dict(EMAConfig, config["ema"]))
+    ts.init(torch.Generator(device).manual_seed(0))
+    gen = torch.Generator(device).manual_seed(1)
+    provider = info.mask_provider
+
+    def draw(batch, n_times):
+        data = {}
+        for k in names:
+            v = torch.randn(batch, n_times, nlat, nlon, generator=gen,
+                            device=device)
+            key = provider.mask_key_for(k)
+            if k in step["out_names"] and key is not None:
+                v = torch.where(provider.on_device(key, "wet", device), v,
+                                torch.full((), float("nan"), device=device))
+            data[k] = v
+        return data
+
+    batch = draw(OCEAN_BATCH, training["n_forward_steps"] + 1)
+    series = draw(1, 21)
+    ic = PrognosticState(data={k: series[k][:, :1]
+                               for k in stepper.prognostic_names})
+    forcing = {k: series[k] for k in stepper.forcing_window_names}
+
+    def train(n):
+        return [ts.train_step(batch, torch.Generator(device).manual_seed(3))
+                for _ in range(n)]
+
+    def rollout(n):
+        return stepper.predict(ic, {k: v[:, : n + 1]
+                                    for k, v in forcing.items()})[0]
+
+    rollout.module = stepper.module
+    return train, rollout
+
+
+def convolution_flop(rollout) -> float:
+    """The operations (2 per multiply-add) of the convolutions in a
+    1-step ``rollout(1)`` at batch 1, counted from each call's kernel and
+    output shapes (forward hooks on the ``Conv2d`` modules)."""
+    from ace_tpu_torch.models.samudra import Conv2d
+
+    total = [0.0]
+
+    def count(module, args, out):
+        out_c, in_c, kh, kw = module.kernel.shape
+        total[0] += 2.0 * in_c * kh * kw * out.numel()
+
+    hooks = [m.register_forward_hook(count)
+             for m in rollout.module.modules() if isinstance(m, Conv2d)]
+    try:
+        rollout(1)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return total[0]
 
 
 def _train_runner(device, fused):

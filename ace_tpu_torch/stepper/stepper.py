@@ -9,11 +9,14 @@ busy. The caller syncs when it reads the results.
 """
 
 import dataclasses
+import logging
 from typing import Any
 
 import torch
 
+from ace_tpu_torch.core.config import from_dict, to_dict
 from ace_tpu_torch.core.dataset_info import DatasetInfo
+from ace_tpu_torch.core.masking import StaticSpatialMaskingConfig
 from ace_tpu_torch.core.step import StepArgs, StepperState, StepSelector
 from ace_tpu_torch.core.step.single_module import SingleModuleStep
 from ace_tpu_torch.core.training_history import TrainingHistory
@@ -35,24 +38,27 @@ class Stepper:
     """Rollout engine: threads prognostic state, per-sample stepper state
     and the noise generator through the forward steps."""
 
-    def __init__(self, step: SingleModuleStep):
+    def __init__(self, step: SingleModuleStep, input_masker=None):
         self.step = step
         self.has_params = False
         # the chain of training jobs behind the weights (saved with them)
         self.training_history = TrainingHistory()
-
-    @staticmethod
-    def input_masker(data: TensorMapping) -> TensorDict:
-        """Input spatial masking: the identity, since ``input_masking``
-        is refused by ``StepperConfig`` and dataset masks by
-        ``DatasetInfo``."""
-        return dict(data)
-
-    @staticmethod
-    def output_masker(data: TensorMapping) -> TensorDict:
-        """Output spatial masking from dataset masks: the identity, since
-        ``DatasetInfo`` refuses masks."""
-        return dict(data)
+        # output spatial masking from the dataset's "mask_*" fields: NaN
+        # in each output's masked cells
+        provider = step.dataset_info.mask_provider
+        self.output_masker = (
+            provider.build_output_masker() if provider is not None
+            else _identity)
+        # input spatial masking (``StepperConfig.input_masking``): refills
+        # the masked cells of each step's inputs
+        self.input_masker = input_masker or _identity
+        if input_masker is None and provider is not None and provider.masks:
+            logging.warning(
+                "dataset has mask_* fields: outputs are NaN-filled in "
+                "masked regions but no input_masking is configured; NaN "
+                "will feed the network after the first step; set "
+                "stepper.input_masking to refill masked inputs"
+            )
 
     @property
     def device(self) -> torch.device:
@@ -150,14 +156,15 @@ class Stepper:
             }
             next_t = {k: forcing[k][:, t + 1] for k in nsi}
             out = step.step(StepArgs(
-                input={**state, **forcing_t},
-                next_step_input_data=next_t,
+                input=self.input_masker({**state, **forcing_t}),
+                next_step_input_data=self.input_masker(next_t),
                 stepper_state=stepper_state,
                 generator=generator,
             ))
             stepper_state = out.stepper_state
-            state = {k: out.output[k] for k in prognostic_names}
-            for k, v in out.output.items():
+            masked = self.output_masker(out.output)
+            state = {k: masked[k] for k in prognostic_names}
+            for k, v in masked.items():
                 outputs.setdefault(k, []).append(v)
             for k, v in out.corrector_diagnostics.items():
                 diagnostics.setdefault(k, []).append(v)
@@ -207,32 +214,45 @@ class Stepper:
         return outputs, next_ic
 
 
+def _identity(data: TensorMapping) -> TensorDict:
+    return dict(data)
+
+
 @dataclasses.dataclass
 class StepperConfig:
     """Top-level stepper configuration (port of
-    ace_tpu/stepper/stepper.py:259). ``input_masking`` is accepted for
-    config compatibility and must be None for now."""
+    ace_tpu/stepper/stepper.py:259). ``input_masking`` refills the
+    statically masked cells of every step's inputs."""
 
     step: StepSelector
-    input_masking: dict | None = None
-
-    def __post_init__(self):
-        if self.input_masking is not None:
-            raise NotImplementedError("input_masking is not ported yet")
+    input_masking: StaticSpatialMaskingConfig | None = None
 
     def get_stepper(self, dataset_info: DatasetInfo, device=None) -> Stepper:
         """Build the stepper on ``device`` (CUDA by default)."""
-        return Stepper(self.step.get_step(dataset_info, device=device))
+        step = self.step.get_step(dataset_info, device=device)
+        input_masker = None
+        if self.input_masking is not None:
+            normalizer = getattr(step, "normalizer", None)
+            input_masker = self.input_masking.build(
+                dataset_info.mask_provider,
+                means=getattr(normalizer, "means", None),
+            )
+        return Stepper(step, input_masker=input_masker)
 
     def get_state(self) -> dict:
-        return {"step": self.step.get_state()}
+        state = {"step": self.step.get_state()}
+        if self.input_masking is not None:
+            state["input_masking"] = to_dict(self.input_masking)
+        return state
 
     @classmethod
     def from_state(cls, state: dict) -> "StepperConfig":
-        return cls(
-            step=StepSelector.from_state(state["step"]),
-            input_masking=state.get("input_masking"),
-        )
+        input_masking = None
+        if state.get("input_masking") is not None:
+            input_masking = from_dict(StaticSpatialMaskingConfig,
+                                      state["input_masking"])
+        return cls(step=StepSelector.from_state(state["step"]),
+                   input_masking=input_masking)
 
 
 @dataclasses.dataclass

@@ -36,13 +36,18 @@ def _flatten(tree, prefix=()):
             yield path, value
 
 
+# a convolution's 4-D ``kernel`` (the port keeps flax's name): flax's [kh,
+# kw, in, out] to F.conv2d's [out, in, kh, kw], and back
+_CONV_TO_PORT = (3, 2, 0, 1)
+_CONV_TO_FLAX = (2, 3, 1, 0)
+
 # a spectral filter's ``filter/weight`` by its number of axes: the
 # permutation from flax's layout to the port's. 4-D: the dhconv weight
 # [in, out, l, 2] -> [2, l, in, out] (and a separable diagonal weight
 # [in, l, m, 2] -> [2, m, in, l]); 5-D: the diagonal weight [in, out, l,
 # m, 2] -> [2, l, m, in, out]. A separable dhconv weight (3-D) keeps
-# flax's layout, as every other leaf does (convolution kernels, CP
-# factors, LayerNorm2d's [H, W, 1], position embeddings).
+# flax's layout, as every other leaf does (CP factors, LayerNorm2d's [H,
+# W, 1], position embeddings).
 _FILTER_TO_PORT = {4: (3, 2, 0, 1), 5: (4, 2, 3, 0, 1)}
 _FILTER_TO_FLAX = {
     n: tuple(perm.index(i) for i in range(n))
@@ -64,7 +69,8 @@ def flax_params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
 
     Tree paths become dotted keys. A 2-D ``kernel`` (flax ``Dense``,
     ``[in, out]``) becomes ``weight`` transposed to ``nn.Linear``'s
-    ``[out, in]``; a spectral filter's 4-D or 5-D ``weight`` (flax ``[in,
+    ``[out, in]``, a 4-D one (flax ``Conv``, ``[kh, kw, in, out]``)
+    keeps its name in ``F.conv2d``'s ``[out, in, kh, kw]``; a spectral filter's 4-D or 5-D ``weight`` (flax ``[in,
     out, l, 2]``, ``[in, out, l, m, 2]``) becomes the port's ``[2, l, in,
     out]``, ``[2, l, m, in, out]`` (``_FILTER_TO_PORT``); every other leaf
     keeps its name and layout. Values keep their dtype.
@@ -82,6 +88,8 @@ def flax_params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
         name = path[-1]
         if name == "kernel" and value.dim() == 2:
             name, value = "weight", value.t().contiguous()
+        elif name == "kernel" and value.dim() == 4:
+            value = value.permute(_CONV_TO_PORT).contiguous()
         elif _is_spectral_filter(path, value):
             value = value.permute(_FILTER_TO_PORT[value.dim()]).contiguous()
         state[".".join(path[:-1] + (name,))] = value
@@ -91,8 +99,9 @@ def flax_params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
 def state_dict_to_flax_params(state: dict[str, torch.Tensor]) -> dict:
     """The inverse of :func:`flax_params_to_state_dict`: dotted keys become
     a nested tree, a 2-D ``weight`` (``nn.Linear``'s ``[out, in]``)
-    becomes a ``kernel`` ``[in, out]``, and a spectral filter's weight
-    flax's layout. Values become numpy
+    becomes a ``kernel`` ``[in, out]``, a convolution's 4-D ``kernel``
+    flax's ``[kh, kw, in, out]``, and a spectral filter's weight flax's
+    layout. Values become numpy
     arrays on the host, in their dtype (bfloat16 ones CPU tensors). Also
     maps gradients (``{name: p.grad}``, to compare them with ``jax.grad``
     in the flax layout) and the optimizer's moments."""
@@ -104,6 +113,8 @@ def state_dict_to_flax_params(state: dict[str, torch.Tensor]) -> dict:
             name, array = "kernel", array.t()
         elif _is_spectral_filter(path + [name], array):
             array = array.permute(_FILTER_TO_FLAX[array.dim()])
+        elif name == "kernel" and array.dim() == 4:
+            array = array.permute(_CONV_TO_FLAX)
         node = tree
         for part in path:
             node = node.setdefault(part, {})
@@ -140,12 +151,14 @@ def flax_name(key: str, value: torch.Tensor) -> str:
 
 def flax_view(key: str, value: torch.Tensor) -> torch.Tensor:
     """``value`` (the ``state_dict`` entry ``key``) as a view in flax's
-    layout: a 2-D weight transposed, a spectral filter's weight permuted
-    back to flax's axes; writing into the view writes into
+    layout: a 2-D weight transposed, a convolution's and a spectral
+    filter's weight permuted back to flax's axes; writing into the view writes into
     ``value``."""
     path = key.split(".")
     if path[-1] == "weight" and value.dim() == 2:
         return value.t()
     if _is_spectral_filter(path, value):
         return value.permute(_FILTER_TO_FLAX[value.dim()])
+    if path[-1] == "kernel" and value.dim() == 4:
+        return value.permute(_CONV_TO_FLAX)
     return value

@@ -119,6 +119,27 @@
      each; a 20-step rollout with the multi-call set through
      ``stepper_override``: 16 K1 a step, its suffixed outputs equal to a
      call of the wrapped step with CO2 x 4).
+   - path O, the uncoupled-ocean CM4 recipe
+     (``configs/baselines/cm4-piControl/uncoupled-ocean/``: Samudra at its
+     widths 200-400, float32, 180x360 at five days a step, 90 inputs and
+     80 outputs over 19 depth levels, the ocean corrector, input masking
+     and NaN-filled outputs over a land mask of 30% of the grid), after
+     reference phase O (a small Samudra of its shape, card against CPU over
+     3 steps in float32: the outputs with NaN on the same cells, the loss
+     and every gradient): O-R, the training entry over three synthetic
+     stores read through the YAML's ``merge`` lists with the cuts of
+     ``_ocean_config`` (batch 4, 4 batches, 1 validation batch, 4 inline
+     steps from 8 initial conditions, one epoch, then a resume that must
+     be bit-equal): finite losses, no launch, no sync in the batch loop,
+     the masked outputs NaN exactly on the dry cells and finite elsewhere,
+     the inputs finite after the input masking, the corrector's
+     ``force_positive_names`` >= 0 and the sea-ice fraction in [0, 1]; O-E,
+     the evaluator YAML over O-R's best checkpoint for 20 steps with every
+     aggregator flag (no launch, no sync in ``run_inference``, the
+     predictions within 1e-5 of ``Stepper.predict``, the derived ocean heat
+     content within 1e-6 of a float64 depth integral of the step's own
+     temperatures, the time-mean maps NaN on the dry cells, the global
+     means over the wet cells).
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -1436,6 +1457,8 @@ def _field_scale(name):
         "Q2m": (0.0, 5e-3, True),
         "UGRD10m": (0.0, 5.0, False),
         "VGRD10m": (0.0, 5.0, False),
+        "eastward_surface_wind_stress": (0.0, 0.1, False),
+        "northward_surface_wind_stress": (0.0, 0.1, False),
     }
     for prefix, value in table.items():
         if name == prefix or name.startswith(prefix + "_"):
@@ -3146,28 +3169,45 @@ def _reference_s_case(label, counters, device, dtype, builder, tols,
                                        **builder), dtype, inputs)
 
 
+def _sfno_zero_gradients(names):
+    """A block's output bias, but the last's (the next block's instance
+    norm removes it)."""
+    import re
+
+    blocks = {}
+    for k in names:
+        match = re.search(r"^(.*)block_(\d+)\.mlp\.fc2\.bias$", k)
+        if match:
+            blocks.setdefault(match.group(1), []).append(
+                (int(match.group(2)), k))
+    return {k for found in blocks.values() for i, k in found
+            if i < max(found)[0]}
+
+
 def _reference_case(label, counters, device, tols, make, dtype, inputs,
-                    prepare=None):
-    """A rollout and one train step (MSE, 2 forward steps) of the small
-    model of ``make(dtype) -> (StepperConfig, DatasetInfo)`` on ``device``
+                    prepare=None, n_steps=2,
+                    zero_gradients=_sfno_zero_gradients):
+    """A rollout and one train step (MSE, ``n_steps`` forward steps) of
+    the small model of ``make(dtype) -> (StepperConfig, DatasetInfo)`` on
+    ``device``
     and the CPU from the same weights (``flagship.draw_check_weights``) and
     inputs (``inputs(stepper, generator) -> (ic, forcing, batch)``, drawn
     on the CPU); ``prepare(train_stepper)`` runs on each side before.
 
     Each output is held within ``out_tol`` of its spatial anomaly plus
     1e-5 of its largest value (the dry-air target: a float32 global mean
-    of ~1e5 Pa rounds differently on the two devices). Each gradient is
+    of ~1e5 Pa rounds differently on the two devices), over the cells
+    where it is not NaN, which must be the same on both sides. Each
+    gradient is
     held within ``grad_tol`` of its norm plus 1e-6 of the largest
     gradient's norm plus, in bf16, twice its own distance on the CPU from
     the float32 model's gradient: the instance norms make some gradients
     sums whose terms cancel to a small fraction of them, which keep the
     bf16 rounding of those terms on the card and on the CPU alike. A
-    block's output bias, but the last's, adds a per-channel constant that
-    the next block's instance norm removes: its true gradient is zero, and
-    each side's is held below ``grad_tol`` of the largest gradient's
-    norm. Returns the card's launches."""
-    import re
-
+    bias that adds a per-channel constant which an instance norm removes
+    (``zero_gradients(names)``) has a true gradient of zero, and each
+    side's is held below ``grad_tol`` of the largest gradient's norm.
+    Returns the card's launches."""
     import torch
 
     from ace_tpu_torch import flagship
@@ -3179,7 +3219,7 @@ def _reference_case(label, counters, device, tols, make, dtype, inputs,
     def train_stepper(config, info, dev):
         return TrainStepper(
             config.get_stepper(info, device=dev),
-            StepperTrainConfig(n_forward_steps=2, loss=from_dict(
+            StepperTrainConfig(n_forward_steps=n_steps, loss=from_dict(
                 StepLossConfig, {"type": "MSE"})),
             OptimizationConfig(lr=1e-4, optimizer_type="AdamW"),
             EMAConfig())
@@ -3222,22 +3262,20 @@ def _reference_case(label, counters, device, tols, make, dtype, inputs,
     out_tol, loss_tol, grad_tol = tols
     ratios = {}
     for k, r in ref.items():
-        r = r.float()
-        anomaly = (r - r.mean((-2, -1), keepdim=True)).abs().amax((-2, -1))
-        err = (res[k].float().cpu() - r).abs().amax((-2, -1))
-        allowed = out_tol * anomaly + 1e-5 * r.abs().amax((-2, -1))
+        r, got = r.float(), res[k].float().cpu()
+        if not torch.equal(torch.isnan(r), torch.isnan(got)):
+            ratios[k] = math.inf
+            continue
+        anomaly = (r - r.nanmean((-2, -1), keepdim=True)).abs().nan_to_num(
+            0.0).amax((-2, -1))
+        err = (got - r).abs().nan_to_num(0.0).amax((-2, -1))
+        allowed = (out_tol * anomaly
+                   + 1e-5 * r.abs().nan_to_num(0.0).amax((-2, -1)))
         ratios[k] = float((err / allowed).max())
     worst_out = max(ratios, key=ratios.get)
     loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
     largest = max(float(r.double().norm()) for r in ref_grads.values())
-    blocks = {}
-    for k in ref_grads:
-        match = re.search(r"^(.*)block_(\d+)\.mlp\.fc2\.bias$", k)
-        if match:
-            blocks.setdefault(match.group(1), []).append(
-                (int(match.group(2)), k))
-    zero = {k for found in blocks.values() for i, k in found
-            if i < max(found)[0]}
+    zero = zero_gradients(ref_grads)
     gerrs = {k: float((grads[k].double().cpu() - r.double()).norm())
              / (grad_tol * float(r.double().norm()) + 1e-6 * largest
                 + 2 * noise[k])
@@ -4068,6 +4106,850 @@ def som_paths(counters, smi, sizes=None, device="cuda"):
     return out
 
 
+OCEAN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configs", "baselines", "cm4-piControl",
+                         "uncoupled-ocean")
+OCEAN_TRAIN = os.path.join(OCEAN_DIR, "train-config.yaml")
+OCEAN_EVALUATOR = os.path.join(OCEAN_DIR, "evaluator-config.yaml")
+# the three stores of the YAMLs' merge lists, in their order: the ocean
+# state with the depth coordinate and the masks, the sea ice and land
+# fraction, the atmosphere's surface fluxes
+O_SOURCES = ("coupled-ocean", "ocean", "atmosphere")
+O_ICE_NAMES = ("HI", "ocean_sea_ice_fraction", "land_fraction")
+O_LEVELS = 19
+O_TIMESTEP = 5 * 86400
+O_CALENDAR = "noleap"
+# the share of the grid the synthetic land mask covers
+O_LAND = 0.3
+# batch 4 for both loaders (the YAML: 16); the training files hold 20
+# five-daily times before the training subset's stop (16 windows of the
+# YAML's 4 forward steps: 4 batches, one epoch), the validation files 8
+# from its start (1 batch); the inline entry runs 4 steps (1440) from the
+# YAML's first initial condition and the 7 times after it (8 initial
+# conditions, as the YAML's 8 starts 20 years apart, which an evenly
+# spaced file would need 10,225 times to hold); path O-E 20 steps (2920)
+# from the evaluator's start
+O_BATCH = 4
+O_INFERENCE_STEPS = 4
+O_INFERENCE_STARTS = 8
+O_E_STEPS = 20
+O_SPLITS = (("train", 20, "0305-01-01"), ("valid", 8, "0306-01-01"),
+            ("inference", O_INFERENCE_STARTS + O_INFERENCE_STEPS,
+             "0151-01-06"),
+            ("evaluator", O_E_STEPS + 1, "0311-01-01"))
+# the ocean's synthetic draws by prefix: (mean, std, kind), the mean a
+# function of the cosine squared of the latitude ``c`` and, for the 3-D
+# fields, of the level's depth ``z`` (m); thetao in degC, sst in K
+O_DRAWS = {
+    "thetao": (lambda c, z: 1.5 + (28.0 * c - 1.0) * math.exp(-z / 800.0),
+               0.5, "normal"),
+    "so": (lambda c, z: 34.0 + 2.0 * c * math.exp(-z / 800.0), 0.2,
+           "positive"),
+    "uo": (lambda c, z: 0.0, 0.1, "normal"),
+    "vo": (lambda c, z: 0.0, 0.1, "normal"),
+    "sst": (lambda c, z: 271.5 + 30.0 * c, 1.0, "normal"),
+    "zos": (lambda c, z: 1.5 * c - 0.8, 0.1, "normal"),
+    "HI": (lambda c, z: 2.0 * (1.0 - c) ** 4, 0.2, "positive"),
+    "ocean_sea_ice_fraction": (lambda c, z: (1.0 - c) ** 4, 0.1,
+                               "fraction"),
+}
+
+
+def _ocean_names():
+    step = _yaml(OCEAN_TRAIN)["stepper"]["step"]["config"]
+    return sorted(set(step["in_names"]) | set(step["out_names"]))
+
+
+def ocean_grid_and_masks(nlat, nlon, seed=17):
+    """The synthetic ocean's grid (1 degree cell centres at 180x360), and
+    its depth coordinate and masks drawn from ``seed``: a smooth land mask
+    over ``O_LAND`` of the grid, the sea floor ``deptho`` (NaN over land)
+    uniform between the first interface below the surface and the last,
+    interfaces ``idepth`` from 0 to 5500 m, and the per-level ``mask_N``
+    (wet where the floor lies below the level's top: each level wet only
+    where the one above is) with ``mask_2d`` the surface's."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lat = np.linspace(-90 + 90 / nlat, 90 - 90 / nlat, nlat)
+    lon = (np.arange(nlon) + 0.5) * 360 / nlon
+    coarse = torch.from_numpy(rng.standard_normal(
+        (max(nlat // 10, 2), max(nlon // 10, 2))))
+    field = torch.nn.functional.interpolate(
+        coarse[None, None], size=(nlat, nlon), mode="bilinear",
+        align_corners=False)[0, 0].numpy()
+    ocean = field > np.quantile(field, O_LAND)
+    idepth = (5500.0 * (np.arange(O_LEVELS + 1) / O_LEVELS) ** 2)
+    floor = idepth[1] + (idepth[-1] - idepth[1]) * rng.random((nlat, nlon))
+    deptho = np.where(ocean, floor, np.nan).astype(np.float32)
+    masks = {f"mask_{k}": (ocean & (floor > idepth[k])).astype(np.float32)
+             for k in range(O_LEVELS)}
+    masks["mask_2d"] = masks["mask_0"]
+    return {"lat": lat, "lon": lon}, idepth.astype(np.float32), deptho, masks
+
+
+def _ocean_source(name):
+    """The store of ``O_SOURCES`` that holds ``name``."""
+    if name in O_ICE_NAMES:
+        return "ocean"
+    prefix, _, level = name.rpartition("_")
+    if (prefix if level.isdigit() else name) in O_DRAWS:
+        return "coupled-ocean"
+    return "atmosphere"
+
+
+def _ocean_draw(name, shape, generator, device, lat, idepth):
+    """A synthetic field of ``name`` on latitudes ``lat`` (degrees):
+    ``O_DRAWS``' draw for the ocean and ice (at the middle of the level's
+    layer of ``idepth`` for the 3-D fields), ``_draw``'s for the
+    fluxes."""
+    import numpy as np
+    import torch
+
+    prefix, _, level = name.rpartition("_")
+    key = prefix if level.isdigit() and prefix in O_DRAWS else name
+    if key not in O_DRAWS:
+        return _draw(name, shape, generator, device)
+    mean_of, std, kind = O_DRAWS[key]
+    depth = (0.5 * float(idepth[int(level)] + idepth[int(level) + 1])
+             if key != name else 0.0)
+    cos2 = np.cos(np.deg2rad(lat))[:, None] ** 2
+    mean = torch.as_tensor(
+        np.vectorize(lambda c: mean_of(c, depth))(cos2),
+        dtype=torch.float32).to(device)
+    v = torch.randn(shape, generator=generator, device=device) * std + mean
+    if kind == "positive":
+        return v.abs()
+    if kind == "fraction":
+        return v.clamp(0, 1)
+    return v
+
+
+def ocean_files(tmp, nlat, nlon, generator, device, splits=O_SPLITS,
+                single=False):
+    """The synthetic stores of the uncoupled-ocean YAMLs under ``tmp``:
+    for each split of ``splits`` (name, number of five-daily times, first
+    time) one netCDF file for each of ``O_SOURCES``, the ocean's with the
+    depth coordinate (``idepth_N``, ``deptho``) and the masks, its fields
+    NaN where their mask is 0; the ice's with the static land fraction;
+    the atmosphere's fluxes finite everywhere; and the two stats files
+    (from the training split, over the wet cells). Drawn from
+    ``generator`` on ``device``; ``single`` writes the same draws as one
+    file a split (what ``ace_tpu``'s loader reads: its merged loader
+    fails). Returns the paths (``paths[split][source]`` a directory) and
+    the masks."""
+    import numpy as np
+
+    from ace_tpu_torch.core.masking import MaskProvider
+    from ace_tpu_torch.data.store import write_h5
+    from ace_tpu_torch.data.time import TimeCoord
+
+    coords, idepth, deptho, masks = ocean_grid_and_masks(nlat, nlon)
+    provider = MaskProvider(masks)
+    by_source = {source: [n for n in _ocean_names()
+                          if _ocean_source(n) == source
+                          and n != "land_fraction"]
+                 for source in O_SOURCES}
+    paths, train = {}, {}
+    for split, n, start in splits:
+        time = TimeCoord.from_range(start, n, O_TIMESTEP, O_CALENDAR)
+        paths[split], combined, combined_dims = {}, {}, {}
+        for source in O_SOURCES:
+            data, dims = {}, {}
+            for name in by_source[source]:
+                v = _ocean_draw(name, (n, nlat, nlon), generator, device,
+                                coords["lat"], idepth).cpu().numpy()
+                key = provider.mask_key_for(name)
+                if source != "atmosphere" and key is not None:
+                    v = np.where(masks[key] != 0, v, np.nan).astype(
+                        np.float32)
+                data[name], dims[name] = v, ("time", "lat", "lon")
+            if split == "train":
+                train.update(data)
+            if source == "coupled-ocean":
+                for k, m in {**masks, "deptho": deptho}.items():
+                    data[k], dims[k] = m, ("lat", "lon")
+                for i, z in enumerate(idepth):
+                    data[f"idepth_{i}"], dims[f"idepth_{i}"] = z, ()
+            if source == "ocean":
+                land = 1.0 - masks["mask_2d"]
+                data["land_fraction"], dims["land_fraction"] = land, (
+                    "lat", "lon")
+                if split == "train":
+                    train["land_fraction"] = land[None]
+            if single:
+                combined.update(data)
+                combined_dims.update(dims)
+                data, dims = combined, combined_dims
+                if source != O_SOURCES[-1]:
+                    continue
+            directory = os.path.join(tmp, split,
+                                     "single" if single else source)
+            os.makedirs(directory)
+            write_h5(os.path.join(directory, "data.nc"), data, dims,
+                     coords=coords, time=time)
+            paths[split][source] = directory
+        if single:
+            paths[split] = dict.fromkeys(O_SOURCES, directory)
+    for label, stat in (("centering", np.nanmean),
+                        ("scaling-full-field", np.nanstd)):
+        paths[label] = os.path.join(tmp, f"{label}.nc")
+        values = {k: np.asarray(stat(v), np.float32) for k, v in train.items()}
+        write_h5(paths[label], values, {k: () for k in values})
+    return paths, masks
+
+
+def _ocean_dataset(entries, split_paths):
+    """Point each entry of a YAML's ``merge`` list at its synthetic store
+    (the YAMLs read zarr stores that are not in the repo)."""
+    for entry, source in zip(entries, O_SOURCES):
+        entry.update(data_path=split_paths[source], file_pattern="data.nc",
+                     engine="netcdf4")
+
+
+def _ocean_config(paths, experiment_dir, tmp, names, sizes=None):
+    """The shipped uncoupled-ocean training config with path O-R's cuts:
+    each merge entry reads its synthetic store, batch ``O_BATCH``, one
+    epoch, the stats files, the inline entry of ``O_INFERENCE_STEPS``
+    steps from ``O_INFERENCE_STARTS`` initial conditions, no Weights &
+    Biases; ``sizes`` (``ch_width``, ``dilation``) makes the small copies
+    the CPU runs."""
+    from ace_tpu_torch.data.time import TimeCoord, format_time
+
+    config = _yaml(OCEAN_TRAIN)
+    config["experiment_dir"] = experiment_dir
+    config["max_epochs"] = 1
+    config["logging"].update(log_to_wandb=False, log_to_screen=False)
+    for loader, split in (("train_loader", "train"),
+                          ("validation_loader", "valid")):
+        _ocean_dataset(config[loader]["dataset"]["merge"], paths[split])
+        config[loader]["batch_size"] = O_BATCH
+    step = config["stepper"]["step"]["config"]
+    step["normalization"]["network"] = {
+        "global_means_path": paths["centering"],
+        "global_stds_path": paths["scaling-full-field"]}
+    if sizes:
+        step["builder"]["config"].update(ch_width=sizes["ch_width"],
+                                         dilation=sizes["dilation"])
+    (entry,) = config["inference"]
+    entry.update(n_forward_steps=O_INFERENCE_STEPS,
+                 forward_steps_in_memory=O_INFERENCE_STEPS)
+    loader = entry["loader"]
+    _ocean_dataset(loader["dataset"]["merge"], paths["inference"])
+    first = loader["start_indices"]["times"][0]
+    starts = TimeCoord.from_range(first, O_INFERENCE_STARTS, O_TIMESTEP,
+                                  O_CALENDAR)
+    loader["start_indices"]["times"] = [
+        format_time(t, O_CALENDAR) for t in starts.values]
+    return config
+
+
+def _ocean_probes(records, limit=8):
+    """A context in which the first ``limit`` calls of every output masker
+    (``MaskProvider.build_output_masker``'s) and every input masker
+    (``StaticSpatialMaskingConfig.build``'s) a stepper builds append to
+    ``records`` device counts, made without waiting for the device: for
+    each masked output its cells whose NaN does not match a dry cell of
+    its mask (or that are infinite), its negative cells for the
+    corrector's ``force_positive_names`` and those outside [0, 1] for the
+    sea-ice fraction (``("out", name, count)``); for each input after the
+    input masking its non-finite cells (``("in", name, count)``)."""
+    import contextlib
+
+    import torch
+
+    from ace_tpu_torch.core.masking import (
+        MaskProvider,
+        StaticSpatialMaskingConfig,
+    )
+
+    step = _yaml(OCEAN_TRAIN)["stepper"]["step"]["config"]
+    positive = set(step["corrector"]["config"]["force_positive_names"])
+    ice = step["corrector"]["config"]["sea_ice_fraction_correction"][
+        "sea_ice_fraction_name"]
+    build_out, build_in = (MaskProvider.build_output_masker,
+                           StaticSpatialMaskingConfig.build)
+    calls = {"out": 0, "in": 0}
+
+    def output_masker(self, *args, **kwargs):
+        masker = build_out(self, *args, **kwargs)
+
+        def recorded(data):
+            out = masker(data)
+            calls["out"] += 1
+            if calls["out"] <= limit:
+                with torch.no_grad():
+                    for name, v in out.items():
+                        key = self.mask_key_for(name)
+                        if key is None:
+                            continue
+                        dry = ~self.on_device(key, "wet", v.device)
+                        bad = (torch.isnan(v) != dry) | torch.isinf(v)
+                        if name in positive:
+                            bad = bad | (v < 0)
+                        if name == ice:
+                            bad = bad | (v < 0) | (v > 1)
+                        records.append(("out", name, bad.sum()))
+            return out
+        return recorded
+
+    def input_masker(self, *args, **kwargs):
+        masker = build_in(self, *args, **kwargs)
+
+        def recorded(data):
+            out = masker(data)
+            calls["in"] += 1
+            if calls["in"] <= limit:
+                with torch.no_grad():
+                    for name, v in out.items():
+                        records.append(("in", name,
+                                        (~torch.isfinite(v)).sum()))
+            return out
+        return recorded
+
+    @contextlib.contextmanager
+    def context():
+        MaskProvider.build_output_masker = output_masker
+        StaticSpatialMaskingConfig.build = input_masker
+        try:
+            yield
+        finally:
+            MaskProvider.build_output_masker = build_out
+            StaticSpatialMaskingConfig.build = build_in
+
+    return context()
+
+
+def _check_ocean_probes(label, records):
+    """The gates of ``_ocean_probes``' counts (read once, after the run)."""
+    import torch
+
+    if not records:
+        raise AssertionError(f"{label}: no masker was called")
+    counts = torch.stack([c for _, _, c in records]).cpu().tolist()
+    bad = sorted({(kind, name) for (kind, name, _), n in zip(records, counts)
+                  if n})
+    n_out = sum(kind == "out" for kind, _, _ in records)
+    print(f"{label}: {n_out} masked outputs checked (NaN exactly on the dry "
+          f"cells, finite elsewhere, force_positive_names >= 0, the sea-ice "
+          f"fraction in [0, 1]) and {len(records) - n_out} masked inputs "
+          f"(finite); failing: {bad[:10]}")
+    if bad:
+        raise AssertionError(f"{label}: masking gates fail for {bad[:10]}")
+
+
+def ocean_train_path(counters, device="cuda", sizes=None, then=None):
+    """Path O-R: ``python -m ace_tpu_torch.train``'s ``main`` on
+    ``configs/baselines/cm4-piControl/uncoupled-ocean/train-config.yaml``
+    (Samudra, the ocean corrector, input masking, FusedAdam with weight
+    decay) with the cuts of ``_ocean_config`` (at its full width, 180x360,
+    float32, unless ``sizes`` gives ``nlat``, ``nlon``, ``ch_width`` and
+    ``dilation``) over ``ocean_files``' three merged stores of its 90
+    variables: one epoch, then ``--override max_epochs=2``, which must
+    resume at epoch 1 with its state bit for bit. Checks finite losses,
+    the checkpoint files, no kernel launch, no sync in the batch loop (on
+    the card), and ``_ocean_probes``' masking gates; prints the loop's
+    rate, the phases, the checkpoints' bytes and seconds and the peak.
+    ``then(paths, config, best)`` runs after the gates inside the context
+    that holds the files. Returns the launches and the loop's rates."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.train.train import main as train_main
+
+    label = "path O-R"
+    sizes = sizes or {}
+    nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
+    cuda = torch.device(device).type == "cuda"
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as tmp, files:
+        paths, masks = ocean_files(tmp, nlat, nlon,
+                                   torch.Generator(device).manual_seed(11),
+                                   device)
+        names = _ocean_names()
+        out_dir = os.path.join(tmp, "experiment")
+        config = _ocean_config(paths, out_dir, tmp, names, sizes)
+        path = _write_yaml(os.path.join(tmp, "ocean.yaml"), config)
+        builder = config["stepper"]["step"]["config"]["builder"]["config"]
+        wet = {k: float(m.mean()) for k, m in masks.items()}
+        print(f"{label}: {OCEAN_TRAIN} at {nlat}x{nlon}, {len(names)} "
+              f"variables in 3 merged stores, Samudra ch_width "
+              f"{builder['ch_width']}, dilation {builder['dilation']}, batch "
+              f"{O_BATCH}; wet share of mask_0 {wet['mask_0']:.3f}, of "
+              f"mask_{O_LEVELS - 1} {wet[f'mask_{O_LEVELS - 1}']:.3f}")
+        launches, rates, restored, records, runs, probes = (
+            {}, [], {}, [], [], [])
+        for argv in ([path], [path, "--override", "max_epochs=2"]):
+            GlobalTimer.reset()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            with (_phase_probes(counters, launches, rates, cuda, restored),
+                  _record_checkpoints(records, lambda stepper, kwargs: None),
+                  _ocean_probes(probes)):
+                trainer = train_main(argv, device=device)
+            if cuda:
+                torch.cuda.synchronize()
+            runs.append({
+                "start_epoch": trainer.start_epoch,
+                "num_batches_seen": trainer.num_batches_seen,
+                "phases": GlobalTimer.get_instance().get_durations(),
+                "peak": (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                         else 0.0),
+                "state": _state_checksums(trainer),
+            })
+            n_params = sum(p.numel()
+                           for p in trainer.stepper.module.parameters())
+            del trainer
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        _check_ocean_probes(label, probes)
+        ckpt_dir = os.path.join(out_dir, "training_checkpoints")
+        files_found = sorted(os.listdir(ckpt_dir))
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        first, second = runs
+        for name, run in (("epoch 1", first), ("resume", second)):
+            phases = {k: round(v, 4) for k, v in sorted(run["phases"].items())}
+            print(f"{label} ({name}): phases {phases}; peak device memory "
+                  f"{run['peak']:.2f} GB")
+        for kind, name, seconds, size in records:
+            print(f"{label}: {kind} {name}: {size} bytes in {seconds:.3f} s")
+        nonfinite = sorted(k for line in lines for k, v in line.items()
+                           if not math.isfinite(v))
+        print(f"{label}: {n_params} parameters; batch loop "
+              f"{rates[0]:.4f} (epoch 1) and {rates[1]:.4f} (epoch 2) train "
+              f"steps/s at batch {O_BATCH} ({rates[1] * O_BATCH:.4f} "
+              f"samples/s); losses by epoch: train "
+              f"{[line['train/loss'] for line in lines]}, validation "
+              f"{[line['val/loss'] for line in lines]}; {len(lines[-1])} "
+              f"metrics, not finite (as in ace_tpu: a field without a wet "
+              f"neighbour pair, a spectrum of zeros): {nonfinite[:6]}")
+        losses = [line[k] for line in lines for k in line
+                  if k.startswith(("train/loss", "val/loss"))]
+        if len(lines) != 2 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{label}: losses not finite or epochs "
+                                 f"missing")
+        want_files = {"ckpt.msgpack", "best_ckpt.msgpack", "ema_ckpt.msgpack",
+                      "best_inference_ckpt.msgpack"}
+        if not want_files <= set(files_found):
+            raise AssertionError(f"{label}: checkpoint files {files_found}")
+        if second["start_epoch"] != 1:
+            raise AssertionError(f"{label}: the second run started at epoch "
+                                 f"{second['start_epoch']}, not 1")
+        differ = [k for k, v in first["state"].items()
+                  if restored.get(k) != v]
+        print(f"{label}: resumed state against the first run's end: "
+              f"{len(first['state']) - len(differ)} of {len(first['state'])} "
+              f"checksums equal")
+        if differ:
+            raise AssertionError(f"{label}: the resumed state differs: "
+                                 f"{differ[:5]}")
+        none = {c.__name__: 0 for c in counters}
+        for phase, counts in launches.items():
+            print(f"{label}: launches per {phase} call {counts} (want none)")
+            if any(c != none for c in counts):
+                raise AssertionError(f"{label}: launches in {phase}")
+        if then is not None:
+            then(paths, config, os.path.join(ckpt_dir, "best_ckpt.msgpack"))
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates
+
+
+# path O-E: every aggregator flag that needs no reference file (the YAML
+# turns on the histograms)
+O_E_FLAGS = {"log_histograms": True, "log_enso_index": True,
+             "log_seasonal_means": True, "log_near_zero_fraction": True,
+             "log_video": True, "log_extended_video": True,
+             "log_trends": True, "log_annual_means": True,
+             "log_step_means": [{"step": O_E_STEPS // 2}]}
+# path O-E's gates: the predictions against Stepper.predict (of each
+# channel's spatial std over the wet cells), the derived heat content
+# against float64 (of its largest value), the global means (of the
+# field's largest value)
+O_E_PREDICT_TOL = 1e-5
+O_E_OHC_TOL = 1e-6
+O_E_MEAN_TOL = 1e-6
+
+
+def _read_merged(split_paths, names):
+    """``names``' arrays from a split's stores (static ones as stored)."""
+    from ace_tpu_torch.data.store import open_file_dataset
+
+    out = {}
+    for source in O_SOURCES:
+        ds = open_file_dataset(os.path.join(split_paths[source], "data.nc"))
+        out.update({k: ds[k].read(()) for k in names
+                    if k in ds.keys() and k not in out})
+    return out
+
+
+def _masked_nan_errors(got, want):
+    """Each variable's largest error on the wet cells over its spatial std
+    there, and the variables whose NaN cells differ."""
+    import numpy as np
+
+    errs, nan_differs = {}, []
+    for k, w in want.items():
+        g = np.asarray(got[k], np.float64)
+        w = np.asarray(w, np.float64)
+        if not np.array_equal(np.isnan(g), np.isnan(w)):
+            nan_differs.append(k)
+            continue
+        wet = ~np.isnan(w)
+        scale = float(np.std(w[wet])) if wet.any() else 1.0
+        errs[k] = (float(np.abs(g[wet] - w[wet]).max()) / max(scale, 1e-30)
+                   if wet.any() else 0.0)
+    return errs, nan_differs
+
+
+def _video_drains_allowed(drains):
+    """A context in which the video aggregator's drains (copies to the
+    host once its pending windows pass a size: they wait for the device,
+    by design) may synchronize inside a sync-checked loop; each drain
+    appends its seconds to ``drains``."""
+    import contextlib
+
+    import torch
+
+    from ace_tpu_torch.aggregator.video import VideoAggregator
+
+    drain = VideoAggregator._drain
+
+    def allowed(self):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        t0 = time.perf_counter()
+        try:
+            return drain(self)
+        finally:
+            drains.append(time.perf_counter() - t0)
+            torch.cuda.set_sync_debug_mode(mode)
+
+    @contextlib.contextmanager
+    def context():
+        VideoAggregator._drain = allowed
+        try:
+            yield
+        finally:
+            VideoAggregator._drain = drain
+
+    return context()
+
+
+def ocean_evaluator_path(counters, paths, ckpt, device="cuda",
+                         n_steps=O_E_STEPS):
+    """Path O-E: ``python -m ace_tpu_torch.evaluator``'s ``main`` on
+    ``configs/baselines/cm4-piControl/uncoupled-ocean/evaluator-config.yaml``
+    over path O-R's ``ckpt`` as shipped but for ``n_steps`` steps (2920)
+    over ``ocean_files``' evaluator stores from its start, Weights & Biases
+    off, and every aggregator flag of ``O_E_FLAGS``. Checks no launch, no
+    synchronizing call in ``run_inference`` (on the card; the histograms'
+    wait on the window before and the video's drains, which wait for the
+    device by design, allowed and counted), the predictions the aggregators
+    see within ``O_E_PREDICT_TOL`` of one ``Stepper.predict`` with NaN on
+    the same cells, the derived ``ocean_heat_content`` within
+    ``O_E_OHC_TOL`` of a float64 depth integral of the step's own
+    ``thetao`` times rho c_p, the written time-mean maps NaN exactly on the
+    dry cells, and the global-mean series the area-weighted means over
+    the wet cells (float64, within ``O_E_MEAN_TOL``). Returns the
+    launches, the summary, the phases and the peak."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.aggregator.inference import (
+        InferenceEvaluatorAggregator,
+    )
+    from ace_tpu_torch.core.constants import (
+        DENSITY_OF_SEA_WATER_CM4,
+        SPECIFIC_HEAT_OF_SEA_WATER_CM4,
+    )
+    from ace_tpu_torch.core.coordinates import dz_from_idepth
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.data.store import open_file_dataset
+    from ace_tpu_torch.inference import evaluator
+    from ace_tpu_torch.stepper.checkpoint import load_stepper
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    label = "path O-E"
+    cuda = torch.device(device).type == "cuda"
+    config = _yaml(OCEAN_EVALUATOR)
+    records, waits, drains = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "evaluator")
+        config.update(experiment_dir=out_dir, checkpoint_path=ckpt,
+                      n_forward_steps=n_steps)
+        config["logging"].update(log_to_wandb=False, log_to_screen=False)
+        _ocean_dataset(config["loader"]["dataset"]["merge"],
+                       paths["evaluator"])
+        config["aggregator"].update(O_E_FLAGS)
+        path = _write_yaml(os.path.join(tmp, "evaluator.yaml"), config)
+        GlobalTimer.reset()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        guard = (no_sync_in_run_inference(evaluator, event_waits=waits)
+                 if cuda else contextlib.nullcontext())
+        allowed = (_video_drains_allowed(drains) if cuda
+                   else contextlib.nullcontext())
+        with guard, allowed, _recording(
+                InferenceEvaluatorAggregator, "record_batch", records):
+            summary, launches = counted(
+                counters, lambda: evaluator.main([path], device=device))
+        phases = GlobalTimer.get_instance().get_durations()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+        time_mean = open_file_dataset(os.path.join(
+            out_dir, "diagnostics", "time_mean_diagnostics.nc"))
+        maps = {k[len("gen_map-"):]: np.asarray(time_mean[k].read(()))
+                for k in time_mean.keys() if k.startswith("gen_map-")}
+        series = open_file_dataset(os.path.join(
+            out_dir, "diagnostics", "mean_diagnostics.nc"))
+        gen_series = {k[len("gen_series-"):]: np.asarray(series[k].read(()))
+                      for k in series.keys() if k.startswith("gen_series-")}
+
+    stepper = load_stepper(ckpt, device=device)
+    info = stepper.dataset_info
+    provider, depth = info.mask_provider, info.depth_coordinate
+    gen = {k: torch.cat([args[0][k] for args, _ in records], dim=1)
+           for k in records[0][0][0]}
+    data = _read_merged(paths["evaluator"], sorted(
+        set(stepper.prognostic_names) | set(stepper.forcing_window_names)))
+    shape = next(v.shape for v in data.values() if v.ndim == 3)
+
+    def series_of(k):
+        v = np.asarray(data[k], np.float32)
+        return torch.as_tensor(np.broadcast_to(v, shape).copy())[None].to(
+            device)
+
+    ic = PrognosticState(data={k: series_of(k)[:, :1]
+                               for k in stepper.prognostic_names})
+    forcing = {k: series_of(k)[:, :n_steps + 1]
+               for k in stepper.forcing_window_names}
+    outputs, _ = stepper.predict(ic, forcing, n_forward=n_steps)
+    host = {k: v.detach().double().cpu().numpy() for k, v in gen.items()}
+    errs, nan_differs = _masked_nan_errors(
+        host, {k: v.double().cpu().numpy() for k, v in outputs.items()})
+    worst = max(errs, key=errs.get)
+
+    # the heat content from the step's own temperatures, in float64
+    dz = dz_from_idepth(depth.idepth.astype(np.float64),
+                        depth.mask.astype(np.float64),
+                        None if depth.deptho is None
+                        else depth.deptho.astype(np.float64))
+    thetao = np.stack([host[f"thetao_{k}"] for k in range(dz.shape[-1])], -1)
+    ohc = (np.nan_to_num(thetao * dz).sum(-1) * DENSITY_OF_SEA_WATER_CM4
+           * SPECIFIC_HEAT_OF_SEA_WATER_CM4)
+    ohc = np.where(depth.mask[..., 0] > 0, ohc, np.nan)
+    got = host["ocean_heat_content"]
+    ohc_nan_equal = np.array_equal(np.isnan(got), np.isnan(ohc))
+    ohc_err = float(np.nanmax(np.abs(got - ohc)) / np.nanmax(np.abs(ohc)))
+
+    # the time-mean maps: NaN exactly where the variable's mask is 0
+    map_bad = [k for k, m in maps.items()
+               if provider.mask_key_for(k) is not None and not np.array_equal(
+                   np.isnan(m), provider.get_mask_for(k) == 0)]
+    # the global-mean series: the mean over the wet cells, in float64
+    area = info.horizontal_coordinates.area_weights.astype(np.float64)
+    mean_errs = {}
+    for k, values in gen_series.items():
+        key = provider.mask_key_for(k)
+        w = area * (provider.masks[key] if key is not None else 1.0)
+        x = host[k][0]
+        want = (np.where(w > 0, np.nan_to_num(x), 0.0) * w).sum((-2, -1)) / (
+            w.sum())
+        mean_errs[k] = float(np.abs(values - want).max()
+                             / max(np.abs(want).max(), 1e-30))
+    worst_mean = max(mean_errs, key=mean_errs.get)
+    logs = summary["logs"]
+    nonfinite = sorted(k for k, v in logs.items() if not np.isfinite(v))
+    rate = summary["total_steps_per_second"]
+    print(f"{label}: {OCEAN_EVALUATOR} at {info.img_shape}, {n_steps} steps "
+          f"from {config['loader']['start_indices']['times'][0]} at batch 1: "
+          f"{rate:.4f} steps/s; histograms filled in "
+          f"{summary['histogram_host_seconds']:.3f} s of host time; phases "
+          f"{ {k: round(v, 4) for k, v in sorted(phases.items())} }; peak "
+          f"device memory {peak:.2f} GB; waits on the window before "
+          f"{len(waits)}; video drains {len(drains)} in "
+          f"{sum(drains):.3f} s; launches {launches}; {len(logs)} logs, "
+          f"not finite "
+          f"(as in ace_tpu: a mean without mask weights over NaN cells) "
+          f"{len(nonfinite)}")
+    print(f"{label}: predictions vs one {n_steps}-step Stepper.predict: "
+          f"largest error {errs[worst]:.3g} of the channel's wet std "
+          f"({worst}; tol {O_E_PREDICT_TOL}), NaN cells differ for "
+          f"{nan_differs[:5]}; ocean_heat_content vs float64 depth_integral "
+          f"x rho c_p: {ohc_err:.3g} of its largest value (tol "
+          f"{O_E_OHC_TOL}), NaN cells equal {ohc_nan_equal}; time-mean maps "
+          f"not NaN exactly on the dry cells: {map_bad[:5]}; global-mean "
+          f"series vs the float64 mean over the wet cells: "
+          f"{mean_errs[worst_mean]:.3g} ({worst_mean}; tol {O_E_MEAN_TOL})")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"{label}: launches {launches}")
+    if not (errs[worst] <= O_E_PREDICT_TOL and not nan_differs):
+        raise AssertionError(f"{label}: the predictions disagree with "
+                             "Stepper.predict")
+    if not (ohc_err <= O_E_OHC_TOL and ohc_nan_equal):
+        raise AssertionError(f"{label}: ocean_heat_content disagrees with "
+                             "its float64 depth integral")
+    if map_bad or not mean_errs[worst_mean] <= O_E_MEAN_TOL:
+        raise AssertionError(f"{label}: the aggregated fields are not "
+                             "masked")
+    if cuda and waits:
+        raise AssertionError(f"{label}: {len(waits)} waits on a CUDA event "
+                             "in the window loop (one window)")
+    return launches, summary, phases, peak
+
+
+# reference phase O: Samudra at widths 16-32 on 16x32, 3 steps; 3 levels
+# (a 2x4 bottleneck: a fourth level's 1x2, normalized over 2 cells, turns
+# float32 rounding into 2e-5 of the outputs on either side)
+O_REFERENCE_SIZES = {"nlat": 16, "nlon": 32, "ch_width": [16, 24, 32],
+                     "dilation": [1, 2, 2]}
+O_REFERENCE_STEPS = 3
+
+
+def ocean_stepper_config(nlat=16, nlon=32, ch_width=(16, 20, 24, 32),
+                         dilation=(1, 2, 2, 2)):
+    """The uncoupled-ocean YAML's stepper (Samudra, the ocean corrector,
+    input masking) at ``ch_width`` and ``dilation``, normalized by the
+    synthetic draws' statistics, and the dataset info of
+    ``ocean_grid_and_masks``' grid, depth coordinate and masks at five
+    days a step."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.coordinates import (
+        DepthCoordinate,
+        LatLonCoordinates,
+    )
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.core.masking import MaskProvider
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    coords, idepth, deptho, masks = ocean_grid_and_masks(nlat, nlon)
+    provider = MaskProvider(masks)
+    stepper = _yaml(OCEAN_TRAIN)["stepper"]
+    step = stepper["step"]["config"]
+    step["builder"]["config"].update(ch_width=list(ch_width),
+                                     dilation=list(dilation))
+    sample = ocean_inputs(sorted(set(step["in_names"])
+                                 | set(step["out_names"])),
+                          (2, nlat, nlon), torch.Generator().manual_seed(0),
+                          coords["lat"], idepth, provider)
+    step["normalization"] = {"network": {
+        "means": {k: float(np.nanmean(v)) for k, v in sample.items()},
+        "stds": {k: float(np.nanstd(v)) for k, v in sample.items()}}}
+    info = DatasetInfo(
+        horizontal_coordinates=LatLonCoordinates(lat=coords["lat"],
+                                                 lon=coords["lon"]),
+        vertical_coordinate=DepthCoordinate(
+            idepth=idepth, deptho=deptho,
+            mask=np.stack([masks[f"mask_{k}"] for k in range(O_LEVELS)],
+                          -1)),
+        timestep=datetime.timedelta(seconds=O_TIMESTEP),
+        mask_provider=provider)
+    return from_dict(StepperConfig, stepper), info
+
+
+def ocean_inputs(names, shape, generator, lat, idepth, provider):
+    """``_ocean_draw``'s fields of ``names`` (``[..., lat, lon]`` CPU
+    tensors), NaN on the dry cells of each ocean field's mask; the land
+    fraction 1 on the surface's dry cells, 0 elsewhere."""
+    import torch
+
+    out = {}
+    for name in names:
+        if name == "land_fraction":
+            dry = provider.masks["mask_2d"] == 0
+            out[name] = torch.as_tensor(dry, dtype=torch.float32).expand(
+                shape).clone()
+            continue
+        v = _ocean_draw(name, shape, generator, "cpu", lat, idepth)
+        if _ocean_source(name) != "atmosphere":
+            wet = provider.on_device(provider.mask_key_for(name), "wet",
+                                     "cpu")
+            v = torch.where(wet, v, torch.full((), float("nan")))
+        out[name] = v
+    return out
+
+
+def _samudra_zero_gradients(names):
+    """The biases of a ConvNeXt block's two wide convolutions: each adds a
+    per-channel constant that the instance norm after it removes."""
+    return {k for k in names if k.endswith((".conv1.bias", ".conv2.bias"))}
+
+
+def reference_ocean_phase(counters, device="cuda"):
+    """Reference phase O: a small copy of path O's stepper
+    (``ocean_stepper_config`` at ``O_REFERENCE_SIZES``, float32) on
+    ``device`` against the CPU: a ``O_REFERENCE_STEPS``-step rollout from
+    an initial condition with NaN on the dry cells, and one train step of
+    as many steps, within reference S's float32 limits, with no kernel
+    launch."""
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    sizes = O_REFERENCE_SIZES
+    n = O_REFERENCE_STEPS
+
+    def inputs(stepper, gen):
+        info = stepper.dataset_info
+        lat = info.horizontal_coordinates.lat
+        idepth = info.vertical_coordinate.idepth
+        provider = info.mask_provider
+        step = stepper.step
+        shape = (2, n + 1, sizes["nlat"], sizes["nlon"])
+        names = sorted(set(step.input_names) | set(step.output_names))
+        batch = ocean_inputs(names, shape, gen, lat, idepth, provider)
+        ic = PrognosticState(data={k: batch[k][:, :1]
+                                   for k in stepper.prognostic_names})
+        forcing = {k: batch[k] for k in stepper.forcing_window_names}
+        return ic, forcing, batch
+
+    launches = _reference_case(
+        "reference O (Samudra, f32)", counters, device,
+        (S_F32_TOL, S_F32_LOSS_TOL, S_F32_GRAD_TOL),
+        lambda dtype: ocean_stepper_config(
+            sizes["nlat"], sizes["nlon"], sizes["ch_width"],
+            sizes["dilation"]),
+        "float32", inputs, n_steps=n,
+        zero_gradients=_samudra_zero_gradients)
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"reference O: launches {launches}")
+    return launches
+
+
+def ocean_paths(counters, smi, sizes=None, device="cuda"):
+    """Reference phase O, then paths O-R and O-E: the launches of each
+    path. ``sizes`` (``nlat``, ``nlon``, ``ch_width``, ``dilation``) makes
+    the small copies the CPU runs."""
+    t0 = time.perf_counter()
+    reference_ocean_phase(counters, device)
+    out = {}
+    print(smi)
+
+    def then(paths, config, best):
+        print(smi)
+        out["O-E"], _, _, _ = ocean_evaluator_path(counters, paths, best,
+                                                   device=device)
+
+    out["O-R"], _ = ocean_train_path(counters, device=device, sizes=sizes,
+                                     then=then)
+    print(f"path O (reference O, O-R, O-E): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _entry_paths(counters, keep, none, smi, rate_t):
     """Paths I, E (with phase E-agg), R and F (with reference phases R
     and F): the launches of each."""
@@ -4273,6 +5155,12 @@ def main() -> int:
     # recipe (the multi-call step over the slab-ocean step; K1, 1b and 1c
     # only in M-bf16, 2 calls of the wrapped step a step)
     by_path.update(som_paths(counters, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # reference phase O and paths O-R, O-E: the uncoupled-ocean CM4
+    # recipe (Samudra, masks, the ocean corrector; no kernel of the port)
+    by_path.update(ocean_paths(counters, smi))
 
     own_path = {"dhconv_filter": "0", "fused_block_tail": "A",
                 "fused_sht": "B", "dhconv_filter_dx": "T",

@@ -569,3 +569,61 @@ def test_last_step_only_holds_one_step_of_activations(cuda, keep_graphs):
           f"peak 1 step {peaks[1]:.3f} GB, 6 steps {peaks[6]:.3f} GB, "
           f"{extra:.3f} GB above (gate 3 GB)")
     assert (extra > 3.0) == keep_graphs, extra
+
+
+@pytest.mark.parametrize("zonally_periodic", [False, True])
+def test_samudra_on_card_matches_cpu(cuda, zonally_periodic):
+    """A small Samudra (widths 16-32, 3 levels) at an odd grid, 22x45 (the
+    decoder pads each upsampled level to its skip's shape), on the card
+    with TF32 off against the CPU from the same weights, within reference
+    S's float32 limits: the outputs within 1e-4 of their largest value,
+    each gradient within 1e-3 of its norm plus 1e-6 of the largest
+    gradient's norm, but the wide convolutions' biases, whose true
+    gradient is zero (the instance norm after them removes them): those
+    within 1e-3 of the largest gradient's norm on both sides. Prints the
+    readings (``-s``)."""
+    from ace_tpu_torch.models.layers import init_weights
+    from ace_tpu_torch.models.samudra import Samudra
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    models = [Samudra(7, 5, ch_width=(16, 24, 32), dilation=(1, 2, 2),
+                      zonally_periodic_upsample=zonally_periodic)
+              for _ in range(2)]
+    init_weights(models[0], gen)
+    models[1].load_state_dict(models[0].state_dict())
+    models[1].to(cuda)
+    x = torch.randn(2, 22, 45, 7, generator=gen)
+    target = torch.randn(2, 22, 45, 5, generator=gen)
+    outs, grads = [], []
+    for model, dev in zip(models, ("cpu", cuda)):
+        out = model(x.to(dev))
+        ((out - target.to(dev)) ** 2).mean().backward()
+        outs.append(out.detach().cpu())
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
+    ref, got = outs
+    out_err = float((got - ref).abs().max() / ref.abs().max())
+    largest = max(g.norm() for g in grads[0].values())
+    errs = {}
+    for k, r in grads[0].items():
+        g = grads[1][k]
+        if k.endswith((".conv1.bias", ".conv2.bias")):
+            errs[k] = float(max(r.norm(), g.norm()) / (1e-3 * largest))
+        else:
+            errs[k] = float((g - r).norm()
+                            / (1e-3 * r.norm() + 1e-6 * largest))
+    worst = max(errs, key=errs.get)
+    print(f"Samudra card vs CPU: outputs {out_err:.3g} of the largest; "
+          f"gradients {errs[worst]:.3g} of the allowed ({worst})")
+    assert out_err <= 1e-4
+    assert errs[worst] <= 1
+
+
+def test_reference_o_runs_on_the_card(cuda):
+    """``chip_smoke.py``'s reference phase O: a small copy of path O's
+    stepper (Samudra, masks, the ocean corrector) over 3 steps, card
+    against CPU, within reference S's float32 limits."""
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    chip_smoke.reference_ocean_phase([dhconv_filter])
