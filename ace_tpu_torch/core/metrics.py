@@ -75,3 +75,26 @@ def gradient_magnitude_percent_diff(truth, predicted, weights=None,
     pred_grad = weighted_nanmean(gradient_magnitude(predicted, dim), weights,
                                  dim)
     return 100.0 * (pred_grad - truth_grad) / truth_grad
+
+
+def _all_dims_if_empty(tensor, dim):
+    """``dim`` as a tuple; ``()`` means every dim, as the JAX package's
+    reductions read it."""
+    dim = (dim,) if isinstance(dim, int) else tuple(dim)
+    return dim or tuple(range(tensor.dim()))
+
+
+def weighted_mean_bias(truth, predicted, weights=None, dim=()):
+    """The weighted mean of ``predicted - truth`` over ``dim`` (every dim
+    by default)."""
+    diff = predicted - truth
+    return weighted_mean(diff, weights=weights,
+                         dim=_all_dims_if_empty(diff, dim))
+
+
+def root_mean_squared_error(truth, predicted, weights=None, dim=()):
+    """The square root of the weighted mean squared error over ``dim``
+    (every dim by default)."""
+    sq = (predicted - truth) ** 2
+    return torch.sqrt(weighted_mean(sq, weights=weights,
+                                    dim=_all_dims_if_empty(sq, dim)))

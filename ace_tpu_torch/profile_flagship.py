@@ -5,7 +5,8 @@ GPU.
                                              [--fused-block-tail]
                                              [--train | --inference |
                                               --evaluator | --shield |
-                                              --som | --ocean]
+                                              --som | --ocean |
+                                              --coupled]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -59,8 +60,15 @@ and its depth coordinate): its train step as path O-R runs it (batch 4, 4
 forward steps, FusedAdam with weight decay, EMA: ``N`` untraced, default
 5, then 2 traced), then its rollout at batch 1 as path O-E runs it (20
 untraced, 3 traced; ``ocean_train_trace.json``,
-``ocean_rollout_trace.json``). Convolutions run with TF32 off, as every
-profile here.
+``ocean_rollout_trace.json``). ``--coupled`` profiles path C, the CM4
+coupled recipe (``configs/baselines/cm4-piControl/train-config.yaml``: the
+frozen SFNO at embed 384 coupled to Samudra at its widths, float32,
+180x360, data made in memory): a train step as path C-R's batch loop runs
+it (batch 1, 4 coupled steps of 20 atmosphere steps: ``N`` untraced,
+default 2, then 1 traced), then a coupled rollout window as path C-E
+runs it (2 coupled steps: ``N`` untraced, then 1 traced;
+``coupled_train_trace.json``, ``coupled_rollout_trace.json``).
+Convolutions run with TF32 off, as every profile here.
 Writes the Chrome trace to
 ``DIR/flagship_trace.json`` (``flagship_train_trace.json``,
 ``flagship_inference_trace.json``, ``flagship_evaluator_trace.json``;
@@ -181,6 +189,9 @@ def main(argv=None):
     mode.add_argument("--ocean", action="store_true",
                       help="path O: the uncoupled-ocean recipe's train "
                            "step, then its rollout")
+    mode.add_argument("--coupled", action="store_true",
+                      help="path C: the CM4 coupled recipe's train step "
+                           "(batch 1), then a coupled rollout window")
     mode.add_argument("--som", action="store_true",
                       help="profile path M: the ACE2-SOM recipe's rollout "
                            "(f32, batch 4), then its bf16 multi-call train "
@@ -194,7 +205,8 @@ def main(argv=None):
         print_tables(device_events(args.read), args.traced_steps)
         return
     if args.steps is None:
-        args.steps = (5 if args.train or args.shield or args.som
+        args.steps = (2 if args.coupled else 5
+                      if args.train or args.shield or args.som
                       or args.ocean else 100
                       if args.evaluator else 20)
 
@@ -223,6 +235,18 @@ def main(argv=None):
         print("path M-bf16 train step (batch 1, 2 forward steps of 2 calls):")
         _profile(train, args.steps, TRACED_TRAIN_STEPS,
                  os.path.join(args.out, "som_train_trace.json"))
+        return
+    if args.coupled:
+        train, rollout = _coupled_runners(device)
+        print("path C-R train step (batch 1, 4 coupled steps: 80 atmosphere "
+              "steps and 4 ocean steps, f32, the atmosphere frozen):")
+        _profile(train, args.steps, 1,
+                 os.path.join(args.out, "coupled_train_trace.json"))
+        print(f"path C rollout window (batch 1, {COUPLED_WINDOW} coupled "
+              f"steps: {COUPLED_WINDOW * 20} atmosphere steps and "
+              f"{COUPLED_WINDOW} ocean steps, f32):")
+        _profile(rollout, args.steps, 1,
+                 os.path.join(args.out, "coupled_rollout_trace.json"))
         return
     if args.ocean:
         train, rollout = _ocean_runners(device)
@@ -571,19 +595,10 @@ def _ocean_runners(device, nlat=180, nlon=360, ch_width=None,
     ``OCEAN_BATCH`` (returns their metrics); ``rollout(n)`` an ``n``-step
     rollout at batch 1 (returns its outputs). Weights from a seed;
     ``ch_width`` and ``dilation`` make a small copy."""
-    import datetime
-
-    import numpy as np
     import yaml
 
     from ace_tpu_torch.core.config import from_dict
-    from ace_tpu_torch.core.coordinates import (
-        DepthCoordinate,
-        LatLonCoordinates,
-    )
-    from ace_tpu_torch.core.dataset_info import DatasetInfo
     from ace_tpu_torch.core.loss import StepLossConfig
-    from ace_tpu_torch.core.masking import MaskProvider
     from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
     from ace_tpu_torch.stepper.stepper import PrognosticState, StepperConfig
     from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
@@ -597,24 +612,7 @@ def _ocean_runners(device, nlat=180, nlon=360, ch_width=None,
     if ch_width is not None:
         step["builder"]["config"].update(ch_width=ch_width,
                                          dilation=dilation)
-    rng = np.random.default_rng(0)
-    levels = 19
-    idepth = 5500.0 * (np.arange(levels + 1) / levels) ** 2
-    ocean = rng.random((nlat, nlon)) > 0.3
-    floor = idepth[1] + (idepth[-1] - idepth[1]) * rng.random((nlat, nlon))
-    layer = np.stack([ocean & (floor > idepth[k]) for k in range(levels)],
-                     -1).astype(np.float32)
-    masks = {f"mask_{k}": layer[..., k] for k in range(levels)}
-    masks["mask_2d"] = masks["mask_0"]
-    info = DatasetInfo(
-        horizontal_coordinates=LatLonCoordinates(
-            lat=np.linspace(-90 + 90 / nlat, 90 - 90 / nlat, nlat),
-            lon=(np.arange(nlon) + 0.5) * 360 / nlon),
-        vertical_coordinate=DepthCoordinate(
-            idepth=idepth, mask=layer,
-            deptho=np.where(ocean, floor, np.nan)),
-        timestep=datetime.timedelta(days=5),
-        mask_provider=MaskProvider(masks))
+    info = _ocean_info(nlat, nlon)
     stepper = from_dict(StepperConfig, config["stepper"]).get_stepper(
         info, device=device)
     training = config["stepper_training"]
@@ -656,6 +654,168 @@ def _ocean_runners(device, nlat=180, nlon=360, ch_width=None,
                                     for k, v in forcing.items()})[0]
 
     rollout.module = stepper.module
+    return train, rollout
+
+
+def _ocean_info(nlat, nlon, days=5):
+    """The dataset info of path O's synthetic ocean at ``nlat`` x
+    ``nlon``: a random land mask of 30% of the grid with nested per-level
+    masks, 19 levels down to 5500 m, ``days`` a step."""
+    import datetime
+
+    import numpy as np
+
+    from ace_tpu_torch.core.coordinates import (
+        DepthCoordinate,
+        LatLonCoordinates,
+    )
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.core.masking import MaskProvider
+
+    rng = np.random.default_rng(0)
+    levels = 19
+    idepth = 5500.0 * (np.arange(levels + 1) / levels) ** 2
+    ocean = rng.random((nlat, nlon)) > 0.3
+    floor = idepth[1] + (idepth[-1] - idepth[1]) * rng.random((nlat, nlon))
+    layer = np.stack([ocean & (floor > idepth[k]) for k in range(levels)],
+                     -1).astype(np.float32)
+    masks = {f"mask_{k}": layer[..., k] for k in range(levels)}
+    masks["mask_2d"] = masks["mask_0"]
+    return DatasetInfo(
+        horizontal_coordinates=LatLonCoordinates(
+            lat=np.linspace(-90 + 90 / nlat, 90 - 90 / nlat, nlat),
+            lon=(np.arange(nlon) + 0.5) * 360 / nlon),
+        vertical_coordinate=DepthCoordinate(
+            idepth=idepth, mask=layer,
+            deptho=np.where(ocean, floor, np.nan)),
+        timestep=datetime.timedelta(days=days),
+        mask_provider=MaskProvider(masks))
+
+
+COUPLED_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "configs", "baselines", "cm4-piControl", "train-config.yaml")
+# coupled steps of a rollout window (path C-E's windows; the evaluator
+# YAML's are 20)
+COUPLED_WINDOW = 2
+
+
+def _coupled_runners(device, nlat=180, nlon=360, embed=None, layers=None,
+                     ch_width=None, dilation=None, n_inner=20):
+    """``(train, rollout)`` of the CM4 coupled training recipe
+    (``COUPLED_CONFIG``: the SFNO frozen and coupled to Samudra, 4 coupled
+    steps, the ocean fraction predicted, the ocean's loss, Adam with weight
+    decay, EMA; statistics of the draws' scale in place of its files,
+    weights from a seed) at ``nlat`` x ``nlon`` over ``_ocean_info``'s
+    masks, data made in memory (``MemoryDataset``), through the port's
+    ``CoupledTrainer``: ``train(n)`` ``n`` train steps at batch 1 on one
+    batch (returns their metrics), as path C-R's batch loop runs them;
+    ``rollout(n)`` ``n`` coupled rollouts of ``COUPLED_WINDOW`` coupled
+    steps from the same state at batch 1, a window of path C-E (returns
+    the last one's outputs). ``embed``, ``layers``, ``ch_width``,
+    ``dilation`` and ``n_inner`` (atmosphere steps an ocean step) make a
+    small copy."""
+    import datetime
+
+    import numpy as np
+    import yaml
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.coordinates import (
+        HybridSigmaPressureCoordinate,
+    )
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.coupled.stepper import CoupledPrognosticState
+    from ace_tpu_torch.coupled.train import CoupledTrainConfig, CoupledTrainer
+    from ace_tpu_torch.data.dataset import MemoryDataset
+    from ace_tpu_torch.data.time import TimeCoord
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    with open(COUPLED_CONFIG) as f:
+        config = yaml.safe_load(f)
+    config.update(experiment_dir=os.path.join("build", "profiles"),
+                  train_loader={"atmosphere": {"data_path": "memory"},
+                                "ocean": {"data_path": "memory"},
+                                "batch_size": 1})
+    config.pop("validation_loader")
+    config["logging"]["log_to_wandb"] = False
+    scales = {"PRESsfc": (1.0e5, 100.0)}
+    names, shapes = {}, {}
+    for component, sizes in (("atmosphere", {"embed_dim": embed,
+                                             "num_layers": layers}),
+                             ("ocean", {"ch_width": ch_width,
+                                        "dilation": dilation})):
+        step = config["stepper"][component]["stepper"]["step"]["config"]
+        names[component] = sorted(set(step["in_names"])
+                                  | set(step["out_names"]))
+        step["normalization"] = {"network": {
+            "means": {k: scales.get(k, (0.0, 1.0))[0]
+                      for k in names[component]},
+            "stds": {k: scales.get(k, (0.0, 1.0))[1]
+                     for k in names[component]}}}
+        step["builder"]["config"].update(
+            {k: v for k, v in sizes.items() if v is not None})
+        config["stepper_training"][component]["parameter_init"][
+            "weights_path"] = None
+    config["stepper"]["ocean"]["timedelta"] = f"{n_inner * 6}h"
+    ocean_info = _ocean_info(nlat, nlon, days=n_inner / 4)
+    nz = 8
+    atmos_info = DatasetInfo(
+        horizontal_coordinates=ocean_info.horizontal_coordinates,
+        vertical_coordinate=HybridSigmaPressureCoordinate(
+            ak=np.concatenate([np.linspace(100.0, 5000.0, nz // 2),
+                               np.linspace(5000.0, 0.0, nz // 2 + 1)]),
+            bk=np.linspace(0.0, 1.0, nz + 1)),
+        timestep=datetime.timedelta(hours=6))
+    n_outer = config["stepper_training"]["n_coupled_steps"]
+    rng = np.random.default_rng(1)
+    provider = ocean_info.mask_provider
+    land = 1.0 - provider.masks["mask_2d"]
+    datasets = []
+    for component, info, n_times, seconds in (
+            ("atmosphere", atmos_info, n_outer * n_inner + 1, 21600),
+            ("ocean", ocean_info, n_outer + 1, n_inner * 21600)):
+        fields = {}
+        for k in names[component]:
+            mean, std = scales.get(k, (0.0, 1.0))
+            v = (mean + std * rng.standard_normal(
+                (n_times, nlat, nlon))).astype(np.float32)
+            if "fraction" in k:
+                v = np.broadcast_to(land if k == "land_fraction"
+                                    else np.clip(np.abs(v), 0, 1) * (1 - land),
+                                    v.shape).astype(np.float32)
+            key = provider.mask_key_for(k)
+            if component == "ocean" and key is not None and k != "land_fraction":
+                v = np.where(provider.masks[key] != 0, v, np.nan).astype(
+                    np.float32)
+            fields[k] = v
+        datasets.append(MemoryDataset(fields, TimeCoord.from_range(
+            "0151-01-06", n_times, seconds, "noleap"), info))
+    trainer = CoupledTrainer(from_dict(CoupledTrainConfig, config),
+                             device=device, datasets=tuple(datasets))
+    trainer.init_weights()
+    atmos_batch, ocean_batch = trainer._batch([0])
+    coupled = trainer.coupled
+    ic = CoupledPrognosticState(
+        atmosphere_data=PrognosticState(data={
+            k: atmos_batch[k][:, :1]
+            for k in coupled.atmosphere.prognostic_names}),
+        ocean_data=PrognosticState(data={
+            k: ocean_batch[k][:, :1] for k in coupled.ocean.prognostic_names}))
+    atmos_forcing = {k: v[:, :COUPLED_WINDOW * n_inner + 1]
+                     for k, v in atmos_batch.items()}
+    ocean_forcing = {k: v[:, :COUPLED_WINDOW + 1]
+                     for k, v in ocean_batch.items()}
+
+    def train(n):
+        return [trainer.train_step(atmos_batch, ocean_batch)
+                for _ in range(n)]
+
+    def rollout(n):
+        for _ in range(n):
+            outputs = coupled.predict(ic, atmos_forcing, ocean_forcing)
+        return outputs
+
     return train, rollout
 
 

@@ -140,6 +140,34 @@
      content within 1e-6 of a float64 depth integral of the step's own
      temperatures, the time-mean maps NaN on the dry cells, the global
      means over the wet cells).
+   - path C, the SamudrACE CM4 coupled recipes
+     (``configs/baselines/cm4-piControl/{train,finetune,evaluator}-config.yaml``:
+     the CM4 atmosphere, the SFNO at embed 384 with 8 layers at 6 hours,
+     coupled to path O's Samudra at 5 days, 20 atmosphere steps an ocean
+     step, float32), after reference phase C (a small coupled system of
+     its shape, card against CPU over 2 ocean steps of 4 atmosphere steps:
+     both components' outputs, the coupled loss and every ocean gradient):
+     C-R, ``python -m ace_tpu_torch.coupled``'s ``main`` on the training
+     YAML over two merged atmosphere stores (``coupled_files``: 58
+     variables at 180x360, every atmosphere time 20 i at ocean time i) and
+     path O's ocean stores, from seeded component checkpoints
+     (``coupled_checkpoints``: the uncoupled-atmosphere YAML's stepper and
+     the ocean's), with the cuts of ``_coupled_config`` (batch 1, 2
+     batches and 1 validation pair, one epoch; 4 coupled steps, the ocean
+     fraction predicted, the atmosphere frozen): finite losses with an
+     atmosphere loss of 0, the atmosphere bit-equal to its checkpoint, the
+     ocean changed, no launch, no sync in the batch loop, the atmosphere's
+     state and inputs finite after every exchange, the predicted ocean
+     fraction within 1e-6 of float64, the fluxes the ocean receives within
+     1e-6 of the float64 mean of the atmosphere's outputs, a restart
+     loading weights bit-equal to the files; C-F, the finetune YAML from
+     C-R's checkpoints (2 coupled steps, both components trained: the
+     learning rate of each update ``CosineAnnealingLR``'s); C-E, the
+     evaluator YAML over them (4 coupled steps in windows of 2: no launch,
+     no sync in the window loop, the predictions within 1e-5 of one
+     ``CoupledStepper.predict``); C-bf16, C-R's config with the
+     atmosphere in bfloat16 (2 coupled steps: exactly 480 K1, 160 1b and no
+     1c a train step, 160 K1 a rollout of one outer step).
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -1591,12 +1619,8 @@ def _write_yaml(path, config):
 
 
 def _state_checksums(trainer):
-    """Per-tensor checksums, computed on the device, of the trainer's
-    weights, Adam moments and EMA (two int64 sums of each tensor's bits,
-    one weighted by position), with the update count and the batches
-    seen."""
-    import torch
-
+    """``_tensor_checksums`` of the trainer's weights, Adam moments and
+    EMA, with the update count and the batches seen."""
     ts = trainer.train_stepper
     opt = ts.optimization
     tensors = {}
@@ -1604,15 +1628,7 @@ def _state_checksums(trainer):
                          ("nu", opt.nu), ("ema", ts.ema.ema_params)):
         for name, t in zip(ts.parameter_names(), group):
             tensors[f"{label}/{name}"] = t
-    sums = []
-    for t in tensors.values():
-        bits = t.detach().contiguous().view(
-            torch.int16 if t.element_size() == 2 else torch.int32
-        ).reshape(-1).to(torch.int64)
-        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
-        sums.append(torch.stack([bits.sum(), (bits * weight).sum()]))
-    values = torch.stack(sums).cpu().tolist()
-    out = dict(zip(tensors, map(tuple, values)))
+    out = _tensor_checksums(tensors)
     out["count"] = opt.count
     out["num_batches_seen"] = trainer.num_batches_seen
     return out
@@ -1658,22 +1674,26 @@ def _record_checkpoints(records, before_first_write):
     return context()
 
 
-def _phase_probes(counters, launches, rates, check_sync, restored):
-    """A context that wraps the trainer's phases: the launches of each
-    call of the batch loop, ``validate`` and ``inference_one_epoch`` into
-    ``launches`` (by phase), the batch loop's steps/s (host clock, ending
-    in a synchronize) into ``rates``, no synchronizing call allowed
-    inside the batch loop (``check_sync``), and the state checksums just
-    after ``restore`` into ``restored``."""
+def _phase_probes(counters, launches, rates, check_sync, restored,
+                  trainer_cls=None,
+                  phases=("_train_batches", "validate", "inference_one_epoch")):
+    """A context that wraps a trainer's phases (``trainer_cls``, the
+    training entry's ``Trainer`` by default): the launches of each call of
+    each of ``phases`` into ``launches`` (by phase), the batch loop's
+    (``_train_batches``, which returns its batch count second) steps/s
+    (host clock, ending in a synchronize) into ``rates``, no synchronizing
+    call allowed inside the batch loop (``check_sync``), and (unless
+    ``restored`` is None) the state checksums just after ``restore`` into
+    ``restored``."""
     import contextlib
 
     import torch
 
-    from ace_tpu_torch.train.trainer import Trainer
+    if trainer_cls is None:
+        from ace_tpu_torch.train.trainer import Trainer as trainer_cls
 
-    originals = {name: getattr(Trainer, name) for name in
-                 ("_train_batches", "validate", "inference_one_epoch",
-                  "restore")}
+    hooked = phases if restored is None else (*phases, "restore")
+    originals = {name: getattr(trainer_cls, name) for name in hooked}
 
     def counted_phase(name):
         def wrapped(self, *args, **kwargs):
@@ -1702,14 +1722,15 @@ def _phase_probes(counters, launches, rates, check_sync, restored):
 
     @contextlib.contextmanager
     def context():
-        for name in ("_train_batches", "validate", "inference_one_epoch"):
-            setattr(Trainer, name, counted_phase(name))
-        Trainer.restore = restore
+        for name in phases:
+            setattr(trainer_cls, name, counted_phase(name))
+        if restored is not None:
+            trainer_cls.restore = restore
         try:
             yield
         finally:
             for name, fn in originals.items():
-                setattr(Trainer, name, fn)
+                setattr(trainer_cls, name, fn)
 
     return context()
 
@@ -4227,7 +4248,7 @@ def _ocean_draw(name, shape, generator, device, lat, idepth):
 
 
 def ocean_files(tmp, nlat, nlon, generator, device, splits=O_SPLITS,
-                single=False):
+                single=False, timestep=O_TIMESTEP):
     """The synthetic stores of the uncoupled-ocean YAMLs under ``tmp``:
     for each split of ``splits`` (name, number of five-daily times, first
     time) one netCDF file for each of ``O_SOURCES``, the ocean's with the
@@ -4237,8 +4258,8 @@ def ocean_files(tmp, nlat, nlon, generator, device, splits=O_SPLITS,
     (from the training split, over the wet cells). Drawn from
     ``generator`` on ``device``; ``single`` writes the same draws as one
     file a split (what ``ace_tpu``'s loader reads: its merged loader
-    fails). Returns the paths (``paths[split][source]`` a directory) and
-    the masks."""
+    fails). ``timestep`` is the seconds between times. Returns the paths
+    (``paths[split][source]`` a directory) and the masks."""
     import numpy as np
 
     from ace_tpu_torch.core.masking import MaskProvider
@@ -4253,7 +4274,7 @@ def ocean_files(tmp, nlat, nlon, generator, device, splits=O_SPLITS,
                  for source in O_SOURCES}
     paths, train = {}, {}
     for split, n, start in splits:
-        time = TimeCoord.from_range(start, n, O_TIMESTEP, O_CALENDAR)
+        time = TimeCoord.from_range(start, n, timestep, O_CALENDAR)
         paths[split], combined, combined_dims = {}, {}, {}
         for source in O_SOURCES:
             data, dims = {}, {}
@@ -4824,19 +4845,29 @@ def ocean_stepper_config(nlat=16, nlon=32, ch_width=(16, 20, 24, 32),
     synthetic draws' statistics, and the dataset info of
     ``ocean_grid_and_masks``' grid, depth coordinate and masks at five
     days a step."""
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    stepper, info = ocean_stepper_dict(nlat, nlon, ch_width, dilation)
+    return from_dict(StepperConfig, stepper), info
+
+
+def ocean_stepper_dict(nlat=16, nlon=32, ch_width=(16, 20, 24, 32),
+                       dilation=(1, 2, 2, 2), timestep=O_TIMESTEP):
+    """``ocean_stepper_config``'s stepper as a config dict (what either
+    package's ``from_dict`` reads), and the port's dataset info at
+    ``timestep`` seconds a step."""
     import datetime
 
     import numpy as np
     import torch
 
-    from ace_tpu_torch.core.config import from_dict
     from ace_tpu_torch.core.coordinates import (
         DepthCoordinate,
         LatLonCoordinates,
     )
     from ace_tpu_torch.core.dataset_info import DatasetInfo
     from ace_tpu_torch.core.masking import MaskProvider
-    from ace_tpu_torch.stepper.stepper import StepperConfig
 
     coords, idepth, deptho, masks = ocean_grid_and_masks(nlat, nlon)
     provider = MaskProvider(masks)
@@ -4858,9 +4889,9 @@ def ocean_stepper_config(nlat=16, nlon=32, ch_width=(16, 20, 24, 32),
             idepth=idepth, deptho=deptho,
             mask=np.stack([masks[f"mask_{k}"] for k in range(O_LEVELS)],
                           -1)),
-        timestep=datetime.timedelta(seconds=O_TIMESTEP),
+        timestep=datetime.timedelta(seconds=timestep),
         mask_provider=provider)
-    return from_dict(StepperConfig, stepper), info
+    return stepper, info
 
 
 def ocean_inputs(names, shape, generator, lat, idepth, provider):
@@ -4948,6 +4979,1167 @@ def ocean_paths(counters, smi, sizes=None, device="cuda"):
                                      then=then)
     print(f"path O (reference O, O-R, O-E): {time.perf_counter() - t0:.1f} s")
     return out
+
+
+C_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                     "baselines", "cm4-piControl")
+C_TRAIN = os.path.join(C_DIR, "train-config.yaml")
+C_FINETUNE = os.path.join(C_DIR, "finetune-config.yaml")
+C_EVALUATOR = os.path.join(C_DIR, "evaluator-config.yaml")
+C_ATMOS_TRAIN = os.path.join(C_DIR, "uncoupled-atmos", "train-config.yaml")
+# the two atmosphere stores of the YAMLs' merge lists, in their order: the
+# coupled run's atmosphere (its state, fluxes and fractions, and the
+# vertical coordinate), and the land and forcing fields
+C_SOURCES = ("coupled-atmosphere", "atmosphere-land")
+C_LAND_NAMES = ("land_fraction", "lake_fraction", "HGTsfc", "DSWRFtoa")
+C_STATIC_NAMES = ("land_fraction", "lake_fraction", "HGTsfc")
+C_ATMOS_TIMESTEP = 6 * 3600
+C_INNER = O_TIMESTEP // C_ATMOS_TIMESTEP
+# batch 1 for both loaders (the YAMLs: 16); ocean times per split, each
+# atmosphere time 20 i at ocean time i: the training files 6 (2 pairs of
+# the YAML's 4 coupled steps: 2 batches an epoch), the validation files 5
+# (1 pair), the evaluator's 5 (4 coupled steps from its start)
+C_BATCH = 1
+C_SPLITS = (("train", 6, "0151-01-06"), ("valid", 5, "0306-01-01"),
+            ("evaluator", 5, "0311-01-01"))
+# path C-F: 2 coupled steps (4), the training subset cut to its first 2
+# ocean starts (2 pairs); path C-E: 4 coupled steps (2920) in windows of
+# 2 (20); path C-bf16: 2 coupled steps, train steps after the warm-up
+C_F_COUPLED_STEPS = 2
+C_E_STEPS = 4
+C_E_IN_MEMORY = 2
+C_BF16_COUPLED_STEPS = 2
+C_BF16_STEPS = 2
+# path C-R's exchange gates: the predicted ocean fraction against float64
+# (absolute), the fluxes the ocean receives against the float64 mean of
+# the atmosphere's outputs (of the field's largest value); path C-E's
+# predictions against CoupledStepper.predict (of the variable's largest
+# value)
+C_FRACTION_TOL = 1e-6
+C_FLUX_TOL = 1e-6
+C_E_PREDICT_TOL = 1e-5
+# reference phase C: the SFNO at embed 32 with 2 layers, Samudra at widths
+# 16-32 over 3 levels, 16x32, 4 atmosphere steps an ocean step, 2 ocean
+# steps
+C_REFERENCE_SIZES = {"nlat": 16, "nlon": 32, "embed": 32, "layers": 2,
+                     "ch_width": [16, 24, 32], "dilation": [1, 2, 2],
+                     "n_inner": 4}
+C_REFERENCE_OUTER = 2
+# reference phase C's limit for the atmosphere corrector's moisture-budget
+# fields, of each one's largest value: the correction divides by float32
+# global means that the card and the CPU sum in other orders (the CPU
+# tests hold ace_tpu and the port within the same 1e-3 of these two
+# fields, ROADMAP Queue 3)
+C_BUDGET_TOL = 1e-3
+C_BUDGET_NAMES = ("PRATEsfc", "tendency_of_total_water_path_due_to_advection")
+
+
+def _coupled_atmos_names():
+    step = _yaml(C_TRAIN)["stepper"]["atmosphere"]["stepper"]["step"][
+        "config"]
+    return sorted(set(step["in_names"]) | set(step["out_names"]))
+
+
+def _coupled_draw(name, shape, generator, device, land):
+    """A synthetic atmosphere field: ``_draw``'s, a lake fraction in [0,
+    0.05] off the land, the land fraction ``land`` (1 on the ocean's dry
+    cells), the sea-ice fraction of the ocean's draw (0 on land) and the
+    ocean fraction ``clip(1 - land - ice, 0)``."""
+    import numpy as np
+    import torch
+
+    land = torch.as_tensor(land, dtype=torch.float32, device=device)
+    if name == "land_fraction":
+        return land.expand(shape).clone()
+    if name == "lake_fraction":
+        return 0.05 * torch.rand(shape, generator=generator,
+                                 device=device) * (1 - land)
+    if name in ("sea_ice_fraction", "ocean_fraction"):
+        lat = np.linspace(-90 + 90 / shape[-2], 90 - 90 / shape[-2],
+                          shape[-2])
+        ice = _ocean_draw("ocean_sea_ice_fraction", shape, generator, device,
+                          lat, None) * (land < 1)
+        if name == "sea_ice_fraction":
+            return ice
+        return (1 - land - ice).clamp(min=0)
+    return _draw(name, shape, generator, device)
+
+
+def coupled_files(tmp, nlat, nlon, generator, device, splits=C_SPLITS,
+                  n_inner=C_INNER, single=False):
+    """The synthetic stores of the CM4 coupled YAMLs under ``tmp``: for
+    each split of ``splits`` (name, number of ocean times, first time)
+    ``ocean_files``' ocean stores at ``n_inner`` six-hourly steps a time,
+    and the atmosphere's two stores (``C_SOURCES``; ``single``: one file
+    holding both, what ``ace_tpu``'s loader reads) of its variables at
+    ``(n - 1) n_inner + 1`` six-hourly times from the same first time,
+    with the 8-level vertical coordinate, the land, lake and surface
+    height static; and each component's stats files (from the training
+    split). Drawn from ``generator`` on ``device``. Returns the paths:
+    ``paths["ocean"]`` as ``ocean_files`` gives them,
+    ``paths["atmosphere"][split][source]`` a directory and
+    ``paths["atmosphere"][label]`` a stats file."""
+    import numpy as np
+
+    from ace_tpu_torch.data.store import write_h5
+    from ace_tpu_torch.data.time import TimeCoord
+
+    ocean, masks = ocean_files(os.path.join(tmp, "ocean"), nlat, nlon,
+                               generator, device, splits=splits,
+                               single=single,
+                               timestep=n_inner * C_ATMOS_TIMESTEP)
+    coords, _, _, _ = ocean_grid_and_masks(nlat, nlon)
+    land = 1.0 - masks["mask_2d"]
+    nz = 8
+    ak = np.concatenate([np.linspace(100.0, 5000.0, nz // 2),
+                         np.linspace(5000.0, 0.0, nz // 2 + 1)])
+    bk = np.linspace(0.0, 1.0, nz + 1)
+    names = _coupled_atmos_names()
+    static = {name: _coupled_draw(name, (nlat, nlon), generator, device,
+                                  land).cpu().numpy()
+              for name in C_STATIC_NAMES}
+    atmos, train = {}, {}
+    for split, n, start in splits:
+        n_atmos = (n - 1) * n_inner + 1
+        time = TimeCoord.from_range(start, n_atmos, C_ATMOS_TIMESTEP,
+                                    O_CALENDAR)
+        by_source = {source: ({}, {}) for source in C_SOURCES}
+        for name in names:
+            source = C_SOURCES[name in C_LAND_NAMES]
+            data, dims = by_source[source]
+            if name in static:
+                data[name], dims[name] = static[name], ("lat", "lon")
+            else:
+                data[name] = _coupled_draw(name, (n_atmos, nlat, nlon),
+                                           generator, device,
+                                           land).cpu().numpy()
+                dims[name] = ("time", "lat", "lon")
+            if split == splits[0][0]:
+                train[name] = data[name]
+        data, dims = by_source[C_SOURCES[0]]
+        for i, (a, b) in enumerate(zip(ak, bk)):
+            data[f"ak_{i}"], data[f"bk_{i}"] = np.float32(a), np.float32(b)
+            dims[f"ak_{i}"] = dims[f"bk_{i}"] = ()
+        if single:
+            for source in C_SOURCES[1:]:
+                data.update(by_source[source][0])
+                dims.update(by_source[source][1])
+            by_source = {"single": (data, dims)}
+        atmos[split] = {}
+        for source, (data, dims) in by_source.items():
+            directory = os.path.join(tmp, "atmosphere", split, source)
+            os.makedirs(directory)
+            write_h5(os.path.join(directory, "data.nc"), data, dims,
+                     coords=coords, time=time)
+            atmos[split][source] = directory
+        if single:
+            atmos[split] = dict.fromkeys(C_SOURCES, directory)
+    stats = {
+        "centering": {k: np.mean(v) for k, v in train.items()},
+        "scaling-full-field": {k: np.std(v) for k, v in train.items()},
+        "scaling-residual": {k: np.std(np.diff(v, axis=0))
+                             for k, v in train.items()},
+    }
+    for label, values in stats.items():
+        atmos[label] = os.path.join(tmp, "atmosphere", f"{label}.nc")
+        write_h5(atmos[label], {k: np.asarray(v, np.float32)
+                                for k, v in values.items()},
+                 {k: () for k in values})
+    return {"ocean": ocean, "atmosphere": atmos}, masks
+
+
+def _coupled_dataset(entries, split_paths, sources):
+    """Point each entry of a YAML's ``merge`` list at its synthetic store
+    (the YAMLs read zarr stores that are not in the repo)."""
+    for entry, source in zip(entries, sources):
+        entry.update(data_path=split_paths[source], file_pattern="data.nc",
+                     engine="netcdf4")
+
+
+def _coupled_normalization(stepper, paths, component, sizes):
+    """Point a component stepper's stats at the synthetic files and apply
+    ``sizes``' widths (``embed`` and ``layers`` for the SFNO, ``ch_width``
+    and ``dilation`` for Samudra)."""
+    step = stepper["step"]["config"]
+    norm = step["normalization"]
+    builder = step["builder"]["config"]
+    if component == "atmosphere":
+        stats = paths["atmosphere"]
+        norm["network"] = {"global_means_path": stats["centering"],
+                           "global_stds_path": stats["scaling-full-field"]}
+        norm["residual"] = {"global_means_path": stats["centering"],
+                            "global_stds_path": stats["scaling-residual"]}
+        if "embed" in sizes:
+            builder.update(embed_dim=sizes["embed"],
+                           num_layers=sizes["layers"])
+    else:
+        stats = paths["ocean"]
+        norm["network"] = {"global_means_path": stats["centering"],
+                           "global_stds_path": stats["scaling-full-field"]}
+        if "ch_width" in sizes:
+            builder.update(ch_width=list(sizes["ch_width"]),
+                           dilation=list(sizes["dilation"]))
+
+
+def coupled_checkpoints(tmp, paths, device, sizes=None):
+    """The component checkpoints the coupled training YAML starts from,
+    written by ``save_stepper`` with weights drawn from a seed: the
+    uncoupled-atmosphere YAML's stepper and the coupled YAML's ocean
+    stepper (the uncoupled-ocean YAML's), over the training split's
+    merged stores and the stats files. Returns their paths."""
+    import torch
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.data.dataset import MergeDatasetConfig
+    from ace_tpu_torch.stepper.checkpoint import save_stepper
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    sizes = sizes or {}
+    generator = torch.Generator(device).manual_seed(5)
+    stores = {
+        "atmosphere": (_yaml(C_ATMOS_TRAIN)["stepper"],
+                       paths["atmosphere"]["train"], C_SOURCES),
+        "ocean": (_yaml(C_TRAIN)["stepper"]["ocean"]["stepper"],
+                  paths["ocean"]["train"], O_SOURCES[:2]),
+    }
+    out = {}
+    for component, (stepper, split_paths, sources) in stores.items():
+        _coupled_normalization(stepper, paths, component, sizes)
+        info = from_dict(MergeDatasetConfig, {"merge": [
+            {"data_path": split_paths[s], "file_pattern": "data.nc"}
+            for s in sources]}).build().dataset_info
+        config = from_dict(StepperConfig, stepper)
+        built = config.get_stepper(info, device=device)
+        built.init_params(generator)
+        out[component] = os.path.join(tmp, f"{component}_base.msgpack")
+        save_stepper(out[component], built, config)
+        del built
+    return out
+
+
+def _stop_after_first(start, timestep):
+    """The date of the time one ``timestep`` (s) after ``start``: a subset
+    ending there holds 2 ocean starts."""
+    from ace_tpu_torch.data.time import TimeCoord, format_time
+
+    second = TimeCoord.from_range(start, 2, timestep, O_CALENDAR).values[1]
+    return format_time(second, O_CALENDAR)[:10]
+
+
+def _coupled_config(paths, experiment_dir, sizes=None, source=C_TRAIN,
+                    weights=None, checkpoint_path=None, n_coupled_steps=None,
+                    first_pairs=False):
+    """A CM4 coupled training YAML (``source``: the train or the finetune
+    YAML) with path C-R's cuts: each merge entry reads its synthetic
+    store, batch ``C_BATCH``, one epoch, the stats files, no Weights &
+    Biases; ``weights`` (the train YAML) the component checkpoints,
+    ``checkpoint_path`` (the finetune YAML) a coupled trainer's
+    ``training_checkpoints``; ``n_coupled_steps`` in place of the YAML's;
+    ``first_pairs`` cuts the training subset to its first 2 ocean starts.
+    ``sizes`` (``embed``, ``layers``, ``ch_width``, ``dilation`` and
+    ``n_inner``, the atmosphere steps an ocean step, in the ocean's
+    ``timedelta``) makes the small copies the CPU runs."""
+    sizes = sizes or {}
+    n_inner = sizes.get("n_inner", C_INNER)
+    config = _yaml(source)
+    config["experiment_dir"] = experiment_dir
+    config["max_epochs"] = 1
+    config["logging"].update(log_to_wandb=False, log_to_screen=False)
+    for loader, split in (("train_loader", "train"),
+                          ("validation_loader", "valid")):
+        config[loader]["batch_size"] = C_BATCH
+        dataset = config[loader]["dataset"]
+        _coupled_dataset(dataset["ocean"]["merge"], paths["ocean"][split],
+                         O_SOURCES)
+        _coupled_dataset(dataset["atmosphere"]["merge"],
+                         paths["atmosphere"][split], C_SOURCES)
+        if first_pairs and split == "train":
+            for component in ("ocean", "atmosphere"):
+                for entry in dataset[component]["merge"]:
+                    entry["subset"]["stop_time"] = _stop_after_first(
+                        entry["subset"]["start_time"],
+                        n_inner * C_ATMOS_TIMESTEP)
+    stepper = config["stepper"]
+    for component in ("atmosphere", "ocean"):
+        _coupled_normalization(stepper[component]["stepper"], paths,
+                               component, sizes)
+    if n_inner != C_INNER:
+        stepper["ocean"]["timedelta"] = f"{n_inner * 6}h"
+    training = config["stepper_training"]
+    if n_coupled_steps is not None:
+        training["n_coupled_steps"] = n_coupled_steps
+    for component, path in (weights or {}).items():
+        training[component]["parameter_init"]["weights_path"] = path
+    if checkpoint_path is not None:
+        training["parameter_init"]["checkpoint_path"] = checkpoint_path
+    return config
+
+
+def _coupled_evaluator_config(paths, checkpoint_path, experiment_dir,
+                              n_steps=C_E_STEPS, in_memory=C_E_IN_MEMORY):
+    """The CM4 coupled evaluator YAML over a coupled trainer's
+    ``training_checkpoints``, ``n_steps`` coupled steps (2920) in windows
+    of ``in_memory`` (20) from its start over the evaluator stores, no
+    Weights & Biases."""
+    config = _yaml(C_EVALUATOR)
+    config.update(experiment_dir=experiment_dir,
+                  checkpoint_path=checkpoint_path, n_coupled_steps=n_steps,
+                  coupled_steps_in_memory=in_memory)
+    config["logging"].update(log_to_wandb=False, log_to_screen=False)
+    dataset = config["loader"]["dataset"]
+    _coupled_dataset(dataset["ocean"]["merge"], paths["ocean"]["evaluator"],
+                     O_SOURCES)
+    _coupled_dataset(dataset["atmosphere"]["merge"],
+                     paths["atmosphere"]["evaluator"], C_SOURCES)
+    return config
+
+
+def _tensor_checksums(tensors):
+    """Two int64 sums of each tensor's bits (one weighted by position),
+    computed on the tensors' device, by name."""
+    import torch
+
+    sums = []
+    for t in tensors.values():
+        bits = t.detach().contiguous().view(
+            torch.int16 if t.element_size() == 2 else torch.int32
+        ).reshape(-1).to(torch.int64)
+        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        sums.append(torch.stack([bits.sum(), (bits * weight).sum()]))
+    if not sums:
+        return {}
+    values = torch.stack(sums).cpu().tolist()
+    return dict(zip(tensors, map(tuple, values)))
+
+
+def _file_checksums(path, device):
+    """``_tensor_checksums`` of a checkpoint file's weights, on
+    ``device``."""
+    from ace_tpu_torch.stepper.parameter_init import read_base_weights
+
+    weights, _ = read_base_weights(path)
+    return _tensor_checksums({k: v.to(device) for k, v in weights.items()})
+
+
+def _exchange_probes(records):
+    """A context in which every call of ``CoupledStepper.exchange_pre``
+    and ``exchange_post`` appends to ``records`` device counts and errors,
+    made without waiting for the device and without gradients: the
+    non-finite cells of the atmosphere's forcing window and initial
+    condition after the exchange (``("finite", count)``), the predicted
+    ocean fraction's largest error against ``clip(1 - land -
+    nan_to_num(ice), 0)`` in float64, zero on the dry cells
+    (``("fraction", error)``), and for each flux the ocean receives its
+    largest error against the float64 mean of the atmosphere's outputs
+    over the inner steps, of that mean's largest value, both times of the
+    window (``("flux", name, error)``)."""
+    import contextlib
+
+    import torch
+
+    from ace_tpu_torch.coupled.stepper import CoupledStepper
+
+    pre, post = CoupledStepper.exchange_pre, CoupledStepper.exchange_post
+
+    def probe_pre(self, ocean_data, atmos_window, atmos_ic):
+        win, new_ic = pre(self, ocean_data, atmos_window, atmos_ic)
+        with torch.no_grad():
+            records.append(("finite", sum(
+                (~torch.isfinite(v)).sum()
+                for v in (*win.values(), *new_ic.values()))))
+            ofrac = self.config.ocean_fraction_prediction
+            if ofrac is not None:
+                ice = torch.nan_to_num(
+                    ocean_data[ofrac.sea_ice_fraction_name].double())
+                land = atmos_window[ofrac.land_fraction_name].double()
+                want = (1 - land - ice).clamp(min=0)
+                provider = self.ocean.dataset_info.mask_provider
+                key = provider.mask_key_for(self.ocean_fraction_name)
+                want = torch.where(provider.on_device(key, "wet",
+                                                      want.device),
+                                   want, 0.0)
+                got = win[self.ocean_fraction_name].double()
+                records.append(("fraction", (got - want).abs().max()))
+        return win, new_ic
+
+    def probe_post(self, a_out, shared_window, ocean_window):
+        win = post(self, a_out, shared_window, ocean_window)
+        with torch.no_grad():
+            for k in self._atmosphere_to_ocean_forcing_names:
+                want = a_out[k].double().mean(1, keepdim=True)
+                err = (win[k].double() - want).abs().max()
+                records.append(("flux", k, err / want.abs().max()))
+        return win
+
+    @contextlib.contextmanager
+    def context():
+        CoupledStepper.exchange_pre = probe_pre
+        CoupledStepper.exchange_post = probe_post
+        try:
+            yield
+        finally:
+            CoupledStepper.exchange_pre = pre
+            CoupledStepper.exchange_post = post
+
+    return context()
+
+
+def _check_exchange_probes(label, records):
+    """The gates of ``_exchange_probes``' records (read once, after the
+    run)."""
+    import torch
+
+    if not records:
+        raise AssertionError(f"{label}: no exchange was made")
+    values = torch.stack([r[-1].double() for r in records]).cpu().tolist()
+    nonfinite = sum(v for r, v in zip(records, values) if r[0] == "finite")
+    fraction = max((v for r, v in zip(records, values)
+                    if r[0] == "fraction"), default=0.0)
+    fluxes = {}
+    for r, v in zip(records, values):
+        if r[0] == "flux":
+            fluxes[r[1]] = max(fluxes.get(r[1], 0.0), v)
+    worst = max(fluxes, key=fluxes.get)
+    n_pre = sum(r[0] == "finite" for r in records)
+    print(f"{label}: {n_pre} exchanges: non-finite cells in the "
+          f"atmosphere's state and inputs after the exchange "
+          f"{int(nonfinite)}; predicted ocean fraction vs float64 "
+          f"clip(1 - land - nan_to_num(ice), 0): {fraction:.3g} (tol "
+          f"{C_FRACTION_TOL}); fluxes to the ocean vs the float64 mean of "
+          f"the atmosphere's outputs: {fluxes[worst]:.3g} of the largest "
+          f"value ({worst}; tol {C_FLUX_TOL}) over {len(fluxes)} fluxes")
+    if nonfinite or not (fraction <= C_FRACTION_TOL
+                         and fluxes[worst] <= C_FLUX_TOL):
+        raise AssertionError(f"{label}: the exchange gates fail")
+
+
+def _timed_saves(records):
+    """A context in which the coupled trainer's checkpoint writes are
+    timed into ``records`` (file, seconds, bytes)."""
+    import contextlib
+
+    from ace_tpu_torch.coupled import train as coupled_train
+
+    save = coupled_train.save_stepper
+
+    def timed(path, *args, **kwargs):
+        t0 = time.perf_counter()
+        save(path, *args, **kwargs)
+        records.append((os.path.basename(path), time.perf_counter() - t0,
+                        os.path.getsize(path)))
+
+    @contextlib.contextmanager
+    def context():
+        coupled_train.save_stepper = timed
+        try:
+            yield
+        finally:
+            coupled_train.save_stepper = save
+
+    return context()
+
+
+def _learning_rates(records):
+    """A context in which each optimizer update appends its learning rate
+    (the schedule at the update count) to ``records``."""
+    import contextlib
+
+    from ace_tpu_torch.core.optimization import Optimization
+
+    update = Optimization._update
+
+    def recorded(self, *args, **kwargs):
+        records.append(self.schedule(self.schedule_count) * self.lr_scale)
+        return update(self, *args, **kwargs)
+
+    @contextlib.contextmanager
+    def context():
+        Optimization._update = recorded
+        try:
+            yield
+        finally:
+            Optimization._update = update
+
+    return context()
+
+
+def _coupled_run(label, counters, path, device, main):
+    """``main([path], device=device)`` with the coupled trainer's phases
+    probed (``_phase_probes``: launches, the batch loop's rate, no sync
+    there on the card), its checkpoint writes timed and its exchanges
+    probed; returns the trainer, the launches by phase, the batch loop's
+    rates, the write records, the exchange records, the phases and the
+    peak memory."""
+    import torch
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.coupled.train import CoupledTrainer
+
+    cuda = torch.device(device).type == "cuda"
+    launches, rates, saves, exchanges = {}, [], [], []
+    GlobalTimer.reset()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with (_phase_probes(counters, launches, rates, cuda, None,
+                        trainer_cls=CoupledTrainer,
+                        phases=("_train_batches", "_validate")),
+          _timed_saves(saves), _exchange_probes(exchanges)):
+        trainer = main([path], device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    phases = GlobalTimer.get_instance().get_durations()
+    none = {c.__name__: 0 for c in counters}
+    for phase, counts in launches.items():
+        print(f"{label}: launches per {phase} call {counts} (want none)")
+        if any(c != none for c in counts):
+            raise AssertionError(f"{label}: launches in {phase}")
+    for name, seconds, size in saves:
+        print(f"{label}: write {name}: {size} bytes in {seconds:.3f} s")
+    return trainer, launches, rates, saves, exchanges, phases, peak
+
+
+def _coupled_losses(label, experiment_dir, atmosphere_active):
+    """metrics.jsonl's one line: finite losses, and an atmosphere loss of
+    0 when its loss is off."""
+    with open(os.path.join(experiment_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    (line,) = lines
+    keys = ("loss", "atmosphere_loss", "ocean_loss", "val_loss")
+    print(f"{label}: " + ", ".join(f"{k} {line[k]:.6g}" for k in keys))
+    if not all(math.isfinite(line[k]) for k in keys):
+        raise AssertionError(f"{label}: losses not finite")
+    if (line["atmosphere_loss"] != 0) != atmosphere_active:
+        raise AssertionError(f"{label}: atmosphere_loss "
+                             f"{line['atmosphere_loss']}")
+    return line
+
+
+def coupled_train_path(counters, device="cuda", sizes=None, then=None):
+    """Path C-R: ``python -m ace_tpu_torch.coupled``'s ``main`` on
+    ``configs/baselines/cm4-piControl/train-config.yaml`` (the frozen CM4
+    atmosphere, the SFNO at embed 384 and 8 layers, coupled to Samudra at
+    widths 200-400, 4 coupled steps of 20 atmosphere steps, the ocean
+    fraction predicted, the ocean alone in the loss) with the cuts of
+    ``_coupled_config`` (at its full width, 180x360, float32, unless
+    ``sizes`` gives the small sizes) over ``coupled_files``' merged
+    stores, from ``coupled_checkpoints``' component weights. Checks
+    finite losses with an atmosphere loss of 0; the atmosphere's weights
+    bit-equal to its checkpoint after the epoch, in the trainer and in
+    the written file; the ocean's changed; no launch and (on the card) no
+    sync in the batch loop; ``_exchange_probes``' gates; and a restart (a
+    second trainer on the same directory) loading weights bit-equal to
+    the files it finds. Prints the loop's rate, the phases, the
+    checkpoints' bytes and seconds and the peak. ``then(paths,
+    checkpoints, ckpt_dir)`` runs after the gates inside the context that
+    holds the files. Returns the launches and the loop's rate."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.coupled.train import CoupledTrainConfig, CoupledTrainer
+    from ace_tpu_torch.coupled.train import main as coupled_main
+    from ace_tpu_torch.stepper.parameter_init import read_base_weights
+
+    label = "path C-R"
+    sizes = sizes or {}
+    nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
+    n_inner = sizes.get("n_inner", C_INNER)
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as tmp, files:
+        t0 = time.perf_counter()
+        paths, _ = coupled_files(tmp, nlat, nlon,
+                                 torch.Generator(device).manual_seed(11),
+                                 device, n_inner=n_inner)
+        base = coupled_checkpoints(tmp, paths, device, sizes)
+        print(f"{label}: synthetic stores and component checkpoints in "
+              f"{time.perf_counter() - t0:.1f} s")
+        out_dir = os.path.join(tmp, "experiment")
+        config = _coupled_config(paths, out_dir, sizes, weights=base)
+        path = _write_yaml(os.path.join(tmp, "coupled.yaml"), config)
+        trainer, launches, rates, saves, exchanges, phases, peak = (
+            _coupled_run(label, counters, path, device, coupled_main))
+        _check_exchange_probes(label, exchanges)
+        line = _coupled_losses(label, out_dir, atmosphere_active=False)
+        ckpt_dir = os.path.join(out_dir, "training_checkpoints")
+        files_found = sorted(os.listdir(ckpt_dir))
+        coupled = trainer.coupled
+        n_params = {c: sum(p.numel() for p in getattr(coupled, c).module
+                           .parameters()) for c in ("atmosphere", "ocean")}
+        # the frozen atmosphere: bit-equal to its checkpoint, in the
+        # trainer and in the file the trainer wrote
+        base_atmos, _ = read_base_weights(base["atmosphere"])
+        differ = [k for k, v in coupled.atmosphere.module.state_dict().items()
+                  if not torch.equal(v.cpu(), base_atmos[k])]
+        written, _ = read_base_weights(os.path.join(
+            ckpt_dir, "atmosphere_ckpt.msgpack"))
+        differ += [f"file:{k}" for k, v in written.items()
+                   if not torch.equal(v, base_atmos[k])]
+        base_ocean, _ = read_base_weights(base["ocean"])
+        changed = [k for k, v in coupled.ocean.module.state_dict().items()
+                   if not torch.equal(v.cpu(), base_ocean[k])]
+        del trainer, coupled, base_atmos, written
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        # a restart: a second trainer on the same directory starts from
+        # the files it finds
+        second = CoupledTrainer(from_dict(CoupledTrainConfig, config),
+                                device=device)
+        second.init_weights()
+        restarted = {c: _tensor_checksums(
+            getattr(second.coupled, c).module.state_dict())
+            for c in ("atmosphere", "ocean")}
+        del second
+        gc.collect()
+        on_disk = {c: _file_checksums(os.path.join(
+            ckpt_dir, f"{c}_ckpt.msgpack"), device)
+            for c in ("atmosphere", "ocean")}
+        restart_differ = [f"{c}/{k}" for c in on_disk
+                          for k, v in on_disk[c].items()
+                          if restarted[c].get(k) != v]
+        print(f"{label}: {C_TRAIN} at {nlat}x{nlon}, {n_inner} atmosphere "
+              f"steps an ocean step, {config['stepper_training']['n_coupled_steps']} "
+              f"coupled steps a sample, batch {C_BATCH}; parameters "
+              f"{n_params}; batch loop {rates[0]:.4f} train steps/s; phases "
+              f"{ {k: round(v, 4) for k, v in sorted(phases.items())} }; "
+              f"peak device memory {peak:.2f} GB; files {files_found}")
+        print(f"{label}: the atmosphere's weights differing from its "
+              f"checkpoint: {differ[:5]} (want none); the ocean's changed: "
+              f"{len(changed)} of {len(base_ocean)} tensors; restart: "
+              f"{sum(len(v) for v in on_disk.values()) - len(restart_differ)}"
+              f" of {sum(len(v) for v in on_disk.values())} checksums equal "
+              f"to the files")
+        want_files = {f"{c}{s}.msgpack" for c in ("atmosphere", "ocean")
+                      for s in ("_ckpt", "_ema_ckpt")}
+        if set(files_found) != want_files:
+            raise AssertionError(f"{label}: checkpoint files {files_found}")
+        if differ or not changed:
+            raise AssertionError(f"{label}: the atmosphere moved or the "
+                                 "ocean did not")
+        if restart_differ:
+            raise AssertionError(f"{label}: the restart's weights differ "
+                                 f"from the files: {restart_differ[:5]}")
+        if then is not None:
+            then(paths, base, ckpt_dir)
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates[0], line
+
+
+def coupled_finetune_path(counters, paths, ckpt_dir, device="cuda",
+                          sizes=None):
+    """Path C-F: the coupled trainer's ``main`` on
+    ``configs/baselines/cm4-piControl/finetune-config.yaml`` (both
+    components trained, the atmosphere's loss over its first 2 steps,
+    ``CosineAnnealingLR``) from path C-R's ``training_checkpoints`` as its
+    ``parameter_init.checkpoint_path``, with C-R's cuts, 2 coupled steps
+    and the training subset's first 2 ocean starts. Checks finite losses
+    (the atmosphere's active), both components' weights changed, each
+    update's learning rate that of ``ace_tpu``'s ``CosineAnnealingLR``
+    (T_max the epochs, stepped per update), no launch and (on the card) no
+    sync in the batch loop. Returns the launches and the loop's rate."""
+    import tempfile
+
+    import torch
+
+    from ace_tpu_torch.coupled.train import main as coupled_main
+    from ace_tpu_torch.stepper.parameter_init import read_base_weights
+
+    label = "path C-F"
+    lrs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "finetune")
+        config = _coupled_config(paths, out_dir, sizes, source=C_FINETUNE,
+                                 checkpoint_path=ckpt_dir,
+                                 n_coupled_steps=C_F_COUPLED_STEPS,
+                                 first_pairs=True)
+        path = _write_yaml(os.path.join(tmp, "finetune.yaml"), config)
+        with _learning_rates(lrs):
+            trainer, launches, rates, _, exchanges, phases, peak = (
+                _coupled_run(label, counters, path, device, coupled_main))
+        _check_exchange_probes(label, exchanges)
+        line = _coupled_losses(label, out_dir, atmosphere_active=True)
+        unchanged = {}
+        for c in ("atmosphere", "ocean"):
+            before, _ = read_base_weights(os.path.join(
+                ckpt_dir, f"{c}_ckpt.msgpack"))
+            state = getattr(trainer.coupled, c).module.state_dict()
+            unchanged[c] = all(torch.equal(v.cpu(), before[k])
+                               for k, v in state.items())
+        del trainer
+        gc.collect()
+    opt = config["optimization"]
+    t_max = opt["scheduler"].get("kwargs", {}).get("T_max",
+                                                   config["max_epochs"])
+    want = [opt["lr"] * 0.5 * (1 + math.cos(math.pi * min(i, t_max) / t_max))
+            for i in range(len(lrs))]
+    print(f"{label}: {C_FINETUNE}, {C_F_COUPLED_STEPS} coupled steps; batch "
+          f"loop {rates[0]:.4f} train steps/s; phases "
+          f"{ {k: round(v, 4) for k, v in sorted(phases.items())} }; peak "
+          f"device memory {peak:.2f} GB; learning rate by update {lrs} "
+          f"(CosineAnnealingLR: {want}); unchanged components "
+          f"{[c for c, u in unchanged.items() if u]}")
+    if any(unchanged.values()):
+        raise AssertionError(f"{label}: a component did not train")
+    if not lrs or any(abs(a - b) > 1e-12 * opt["lr"]
+                      for a, b in zip(lrs, want)):
+        raise AssertionError(f"{label}: the learning rates differ from "
+                             "CosineAnnealingLR")
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates[0], line
+
+
+def _no_sync_in(owner, name):
+    """A context in which ``owner.<name>`` raises at any synchronizing
+    call on the card; returns the seconds of each call (host clock, ending
+    in a synchronize) in a list."""
+    import contextlib
+
+    import torch
+
+    fn = getattr(owner, name)
+    seconds = []
+
+    def checked(*args, **kwargs):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            result = fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return result
+
+    @contextlib.contextmanager
+    def context():
+        setattr(owner, name, checked)
+        try:
+            yield seconds
+        finally:
+            setattr(owner, name, fn)
+
+    return context()
+
+
+def coupled_evaluator_path(counters, paths, ckpt_dir, device="cuda",
+                           sizes=None):
+    """Path C-E: ``python -m ace_tpu_torch.coupled.evaluator``'s ``main``
+    on ``configs/baselines/cm4-piControl/evaluator-config.yaml`` over path
+    C-R's ``training_checkpoints``, ``C_E_STEPS`` coupled steps (2920) in
+    windows of ``C_E_IN_MEMORY`` (20) from ``0311-01-01`` over the
+    evaluator stores. Checks no launch, no sync in the window loop (on the
+    card), each window's predictions against one ``CoupledStepper.predict``
+    over all the coupled steps from the same initial condition and forcing
+    (within ``C_E_PREDICT_TOL`` of each variable's largest value, NaN on
+    the same cells), finite ``inference/atmosphere/*`` logs and
+    ``inference/ocean/*`` NaN exactly for the masked variables (every
+    ocean output: a mean of a NaN-filled field, as in ``ace_tpu``). Returns
+    the launches and the atmosphere steps/s."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.coupled import evaluator
+    from ace_tpu_torch.coupled import inference as coupled_inference
+    from ace_tpu_torch.coupled.stepper import CoupledStepper
+
+    label = "path C-E"
+    cuda = torch.device(device).type == "cuda"
+    n_inner = (sizes or {}).get("n_inner", C_INNER)
+    calls = []
+    predict = CoupledStepper.predict
+
+    def recorded(self, state, atmos_forcing, ocean_forcing, *args, **kw):
+        out = predict(self, state, atmos_forcing, ocean_forcing, *args, **kw)
+        calls.append((self, state, atmos_forcing, ocean_forcing, out))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "evaluator")
+        config = _coupled_evaluator_config(paths, ckpt_dir, out_dir)
+        path = _write_yaml(os.path.join(tmp, "evaluator.yaml"), config)
+        GlobalTimer.reset()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        guard = (_no_sync_in(coupled_inference, "run_windows") if cuda
+                 else contextlib.nullcontext([]))
+        CoupledStepper.predict = recorded
+        try:
+            with guard as loop_seconds:
+                logs, launches = counted(
+                    counters, lambda: evaluator.main([path], device=device))
+        finally:
+            CoupledStepper.predict = predict
+        phases = GlobalTimer.get_instance().get_durations()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    coupled, state = calls[0][0], calls[0][1]
+    atmos_forcing = {k: torch.cat([calls[0][2][k]] + [c[2][k][:, 1:]
+                                                      for c in calls[1:]], 1)
+                     for k in calls[0][2]}
+    ocean_forcing = {k: torch.cat([calls[0][3][k]] + [c[3][k][:, 1:]
+                                                      for c in calls[1:]], 1)
+                     for k in calls[0][3]}
+    a_ref, o_ref, _ = coupled.predict(state, atmos_forcing, ocean_forcing)
+    errs, nan_differs = {}, []
+    for i, ref in enumerate((a_ref, o_ref)):
+        for k, r in ref.items():
+            got = torch.cat([c[4][i][k] for c in calls], 1)
+            if not torch.equal(torch.isnan(got), torch.isnan(r)):
+                nan_differs.append(k)
+            scale = r.abs().nan_to_num(0.0).max().clamp_min(1e-30)
+            errs[k] = float((got - r).abs().nan_to_num(0.0).max() / scale)
+    worst = max(errs, key=errs.get)
+    provider = coupled.ocean.dataset_info.mask_provider
+    atmos_logs = {k: v for k, v in logs.items()
+                  if k.startswith("inference/atmosphere/")}
+    ocean_logs = {k: v for k, v in logs.items()
+                  if k.startswith("inference/ocean/")}
+    bad_atmos = [k for k, v in atmos_logs.items() if not math.isfinite(v)]
+    bad_ocean = [k for k, v in ocean_logs.items()
+                 if math.isnan(v) != (provider.mask_key_for(
+                     k.rsplit("/", 1)[-1]) is not None)]
+    n_atmos_steps = C_E_STEPS * n_inner
+    rate = (n_atmos_steps / loop_seconds[0] if loop_seconds
+            else float("nan"))
+    print(f"{label}: {C_EVALUATOR} over C-R's checkpoints, {C_E_STEPS} "
+          f"coupled steps ({n_atmos_steps} atmosphere steps) in windows of "
+          f"{C_E_IN_MEMORY} at batch 1: window loop {rate:.4f} atmosphere "
+          f"steps/s; phases "
+          f"{ {k: round(v, 4) for k, v in sorted(phases.items())} }; peak "
+          f"device memory {peak:.2f} GB; launches {launches}")
+    print(f"{label}: predictions vs one CoupledStepper.predict: largest "
+          f"error {errs[worst]:.3g} of the variable's largest value ({worst};"
+          f" tol {C_E_PREDICT_TOL}), NaN cells differ for {nan_differs[:5]};"
+          f" {len(atmos_logs)} inference/atmosphere logs, not finite "
+          f"{bad_atmos[:5]}; {len(ocean_logs)} inference/ocean logs, NaN "
+          f"other than on the masked variables {bad_ocean[:5]}")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"{label}: launches {launches}")
+    if nan_differs or not errs[worst] <= C_E_PREDICT_TOL:
+        raise AssertionError(f"{label}: the predictions disagree with "
+                             "CoupledStepper.predict")
+    if bad_atmos or bad_ocean or not atmos_logs or not ocean_logs:
+        raise AssertionError(f"{label}: logs not as expected")
+    return launches, rate
+
+
+def coupled_bf16_path(counters, paths, base, device="cuda", sizes=None):
+    """Path C-bf16: path C-R's config with the atmosphere builder's
+    ``compute_dtype: bfloat16``, ``C_BF16_COUPLED_STEPS`` coupled steps
+    at batch 1: a warm-up train step, then ``C_BF16_STEPS`` train steps
+    on the same batch, each launching exactly, per atmosphere block, K1 in
+    the forward of every atmosphere step and again in the recompute of
+    every step after the first outer step, 1b in those steps' backward
+    and no 1c (the atmosphere is frozen; outer step 1 depends on data
+    alone), with no sync on the card and finite losses; then a coupled
+    rollout of 1 outer step (K1 in each block of each step). Returns the
+    launches and the train steps/s."""
+    import tempfile
+
+    import torch
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.coupled.stepper import CoupledPrognosticState
+    from ace_tpu_torch.coupled.train import CoupledTrainConfig, CoupledTrainer
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    label = "path C-bf16"
+    cuda = torch.device(device).type == "cuda"
+    sizes = sizes or {}
+    n_inner = sizes.get("n_inner", C_INNER)
+    with tempfile.TemporaryDirectory() as tmp:
+        config = _coupled_config(paths, tmp, sizes, weights=base,
+                                 n_coupled_steps=C_BF16_COUPLED_STEPS)
+        builder = config["stepper"]["atmosphere"]["stepper"]["step"][
+            "config"]["builder"]["config"]
+        builder["compute_dtype"] = "bfloat16"
+        trainer = CoupledTrainer(from_dict(CoupledTrainConfig, config),
+                                 device=device)
+        trainer.init_weights()
+        atmos_batch, ocean_batch = trainer._batch([0])
+        layers = builder["num_layers"]
+        none = {c.__name__: 0 for c in counters}
+        n_outer = C_BF16_COUPLED_STEPS
+        want_step = none if not cuda else {
+            **none, "dhconv_filter": (2 * n_outer - 1) * n_inner * layers,
+            "dhconv_filter_dx": (n_outer - 1) * n_inner * layers}
+        want_rollout = none if not cuda else {
+            **none, "dhconv_filter": n_inner * layers}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        warm, warm_launches = counted(
+            counters, lambda: trainer.train_step(atmos_batch, ocean_batch))
+        if cuda:
+            torch.cuda.synchronize()
+        steps, step_launches = [], []
+        t0 = time.perf_counter()
+        for _ in range(C_BF16_STEPS):
+            if cuda:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                metrics, launches = counted(
+                    counters,
+                    lambda: trainer.train_step(atmos_batch, ocean_batch))
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode("default")
+            steps.append(metrics)
+            step_launches.append(launches)
+        if cuda:
+            torch.cuda.synchronize()
+        rate = C_BF16_STEPS / (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+        coupled = trainer.coupled
+        ic = CoupledPrognosticState(
+            atmosphere_data=PrognosticState(data={
+                k: atmos_batch[k][:, :1]
+                for k in coupled.atmosphere.prognostic_names}),
+            ocean_data=PrognosticState(data={
+                k: ocean_batch[k][:, :1]
+                for k in coupled.ocean.prognostic_names}))
+        (a_out, o_out, _), rollout_launches = counted(
+            counters, lambda: coupled.predict(
+                ic, {k: v[:, :n_inner + 1] for k, v in atmos_batch.items()},
+                {k: v[:, :2] for k, v in ocean_batch.items()}))
+        finite = all(bool(torch.isfinite(v).all()) for v in a_out.values())
+        del trainer, coupled
+        gc.collect()
+    losses = [float(m["loss"]) for m in (warm, *steps)]
+    print(f"{label}: {C_TRAIN} with the atmosphere in bfloat16, "
+          f"{n_outer} coupled steps, batch 1: losses {losses}; "
+          f"{rate:.4f} train steps/s; peak device memory {peak:.2f} GB; "
+          f"launches: warm-up {warm_launches}, each step {step_launches} "
+          f"(want {want_step}), a rollout of 1 outer step "
+          f"{rollout_launches} (want {want_rollout}); the rollout's "
+          f"atmosphere finite {finite}")
+    if not all(map(math.isfinite, losses)) or not finite:
+        raise AssertionError(f"{label}: losses or outputs not finite")
+    if (warm_launches != want_step
+            or any(n != want_step for n in step_launches)
+            or rollout_launches != want_rollout):
+        raise AssertionError(f"{label}: launch counts")
+    total = {c.__name__: warm_launches[c.__name__]
+             + sum(n[c.__name__] for n in step_launches)
+             + rollout_launches[c.__name__] for c in counters}
+    return total, rate
+
+
+def coupled_stepper_dicts(nlat=16, nlon=32, embed=32, layers=2,
+                          ch_width=(16, 24, 32), dilation=(1, 2, 2),
+                          n_inner=4, compute_dtype="float32"):
+    """A small coupled stepper of the CM4 coupled YAML's shape, as a config
+    dict (what either package's ``from_dict`` reads: the YAML's stepper
+    block with the SFNO at ``embed`` and ``layers``, Samudra at
+    ``ch_width`` and ``dilation``, statistics of the synthetic draws and
+    no timedeltas) and the port's dataset infos of the two components
+    (the ocean's grid, depth coordinate and masks at ``n_inner``
+    six-hourly steps a step; the atmosphere's 8-level vertical
+    coordinate on the same grid)."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.core.coordinates import HybridSigmaPressureCoordinate
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+
+    stepper = _yaml(C_TRAIN)["stepper"]
+    ocean, ocean_info = ocean_stepper_dict(
+        nlat, nlon, ch_width, dilation,
+        timestep=n_inner * C_ATMOS_TIMESTEP)
+    stepper["ocean"] = {"stepper": ocean}
+    atmos = stepper["atmosphere"]["stepper"]
+    step = atmos["step"]["config"]
+    step["builder"]["config"].update(embed_dim=embed, num_layers=layers,
+                                     compute_dtype=compute_dtype)
+    names = sorted(set(step["in_names"]) | set(step["out_names"]))
+    land = 1.0 - ocean_info.mask_provider.masks["mask_2d"]
+    sample = {k: _coupled_draw(k, (4, nlat, nlon),
+                               torch.Generator().manual_seed(0), "cpu", land)
+              for k in names}
+    step["normalization"] = {"network": {
+        "means": {k: float(v.mean()) for k, v in sample.items()},
+        "stds": {k: float(v.std()) for k, v in sample.items()}}}
+    stepper["atmosphere"] = {"stepper": atmos}
+    nz = 8
+    atmos_info = DatasetInfo(
+        horizontal_coordinates=ocean_info.horizontal_coordinates,
+        vertical_coordinate=HybridSigmaPressureCoordinate(
+            ak=np.concatenate([np.linspace(100.0, 5000.0, nz // 2),
+                               np.linspace(5000.0, 0.0, nz // 2 + 1)]),
+            bk=np.linspace(0.0, 1.0, nz + 1)),
+        timestep=datetime.timedelta(seconds=C_ATMOS_TIMESTEP))
+    return stepper, atmos_info, ocean_info
+
+
+def coupled_inputs(coupled, n_outer, batch, generator):
+    """A random initial condition and forcing for ``coupled`` (CPU
+    tensors): the atmosphere's ``_coupled_draw`` fields and the ocean's
+    ``ocean_inputs`` (NaN on the dry cells) over ``n_outer`` outer steps;
+    returns the ``CoupledPrognosticState``, the forcing of each component
+    and each component's batch (every variable, ``[batch, T + 1, lat,
+    lon]``)."""
+    from ace_tpu_torch.coupled.stepper import CoupledPrognosticState
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    n_inner = coupled.n_inner_steps
+    a_info, o_info = (coupled.atmosphere.dataset_info,
+                      coupled.ocean.dataset_info)
+    nlat, nlon = a_info.img_shape
+    provider = o_info.mask_provider
+    land = 1.0 - provider.masks["mask_2d"]
+    atmos = {k: _coupled_draw(k, (batch, n_outer * n_inner + 1, nlat, nlon),
+                              generator, "cpu", land)
+             for k in coupled.all_atmosphere_names}
+    ocean = ocean_inputs(
+        coupled.all_ocean_names, (batch, n_outer + 1, nlat, nlon), generator,
+        o_info.horizontal_coordinates.lat,
+        o_info.vertical_coordinate.idepth, provider)
+    ic = CoupledPrognosticState(
+        atmosphere_data=PrognosticState(data={
+            k: atmos[k][:, :1] for k in coupled.atmosphere.prognostic_names}),
+        ocean_data=PrognosticState(data={
+            k: ocean[k][:, :1] for k in coupled.ocean.prognostic_names}))
+    atmos_forcing = {k: atmos[k] for k in coupled.atmosphere_forcing_window_names}
+    ocean_forcing = {k: ocean[k] for k in coupled.ocean_forcing_window_names}
+    return ic, atmos_forcing, ocean_forcing, atmos, ocean
+
+
+def reference_coupled_phase(counters, device="cuda"):
+    """Reference phase C: a small coupled system of the CM4 coupled YAML's
+    shape (``coupled_stepper_dicts`` at ``C_REFERENCE_SIZES``, float32, the
+    ocean fraction predicted, NaN on the dry cells) on ``device`` against
+    the CPU from the same weights and inputs: both components' outputs
+    over ``C_REFERENCE_OUTER`` outer steps (NaN on the same cells, within
+    reference S's float32 limits of each channel's anomaly plus 1e-5 of
+    its largest value, ``C_BUDGET_TOL`` for ``C_BUDGET_NAMES``), and the
+    coupled training loss (the ocean's MSE
+    over both ocean steps, the atmosphere frozen) and every ocean
+    gradient through ``predict_with_grad``, with no kernel launch."""
+    import torch
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.loss import StepLossConfig
+    from ace_tpu_torch.coupled.stepper import CoupledStepperConfig
+
+    label = "reference C (SFNO and Samudra, f32)"
+    sizes = dict(C_REFERENCE_SIZES)
+    stepper, a_info, o_info = coupled_stepper_dicts(**sizes)
+    config = from_dict(CoupledStepperConfig, stepper)
+    sides = [config.get_stepper(a_info, o_info, device=dev)
+             for dev in ("cpu", device)]
+    gen = torch.Generator().manual_seed(3)
+    sides[0].init_params(gen)
+    for c in ("atmosphere", "ocean"):
+        getattr(sides[1], c).load_state_dict(
+            getattr(sides[0], c).module.state_dict())
+    ic, af, of, _, ocean = coupled_inputs(sides[0], C_REFERENCE_OUTER, 2, gen)
+    results = []
+    for coupled in sides:
+        dev = coupled.device
+
+        def run():
+            moved = type(ic)(
+                atmosphere_data=type(ic.atmosphere_data)(data={
+                    k: v.to(dev) for k, v in ic.atmosphere_data.data.items()}),
+                ocean_data=type(ic.ocean_data)(data={
+                    k: v.to(dev) for k, v in ic.ocean_data.data.items()}))
+            a_f = {k: v.to(dev) for k, v in af.items()}
+            o_f = {k: v.to(dev) for k, v in of.items()}
+            a_out, o_out, _ = coupled.predict(moved, a_f, o_f)
+            for p in coupled.atmosphere.module.parameters():
+                p.requires_grad_(False)
+            params = dict(coupled.ocean.module.named_parameters())
+            for p in params.values():
+                p.grad = None
+            _, o_grad, _ = coupled.predict_with_grad(moved, a_f, o_f)
+            loss = StepLossConfig(type="MSE").build(
+                o_info.gridded_operations, out_names=coupled.ocean.out_names,
+                normalizer=coupled.ocean.step.config.normalization
+                .build_loss_normalizer(
+                    coupled.ocean.step.config._normalize_names))(
+                o_grad, {k: ocean[k][:, 1:].to(dev)
+                         for k in coupled.ocean.out_names}, 0).total
+            loss.backward()
+            grads = {k: p.grad.detach().cpu() for k, p in params.items()}
+            return {**a_out, **o_out}, loss.detach().cpu(), grads
+
+        results.append(counted(counters, run))
+    (ref, ref_loss, ref_grads), _ = results[0]
+    (got, loss, grads), launches = results[1]
+    ratios = {}
+    for k, r in ref.items():
+        g = got[k].cpu()
+        if not torch.equal(torch.isnan(r), torch.isnan(g)):
+            ratios[k] = math.inf
+            continue
+        anomaly = (r - r.nanmean((-2, -1), keepdim=True)).abs().nan_to_num(
+            0.0).amax((-2, -1))
+        err = (g - r).abs().nan_to_num(0.0).amax((-2, -1))
+        largest = r.abs().nan_to_num(0.0).amax((-2, -1))
+        allowed = (S_F32_TOL * anomaly
+                   + (C_BUDGET_TOL if k in C_BUDGET_NAMES else 1e-5)
+                   * largest)
+        ratios[k] = float((err / allowed).max())
+    worst_out = max(ratios, key=ratios.get)
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    largest = max(float(r.double().norm()) for r in ref_grads.values())
+    zero = _samudra_zero_gradients(ref_grads)
+    gerrs = {k: float((grads[k].double() - r.double()).norm())
+             / (S_F32_GRAD_TOL * float(r.double().norm()) + 1e-6 * largest)
+             for k, r in ref_grads.items() if k not in zero}
+    for k in zero:
+        gerrs[k] = max(float(g[k].double().norm())
+                       for g in (grads, ref_grads)) / (S_F32_GRAD_TOL * largest)
+    worst = max(gerrs, key=gerrs.get)
+    print(f"{label}: {device} vs CPU: outputs {ratios[worst_out]:.3g} of the "
+          f"allowed ({worst_out}); loss {float(loss):.6g} / "
+          f"{float(ref_loss):.6g}, relative error {loss_err:.3g} (tol "
+          f"{S_F32_LOSS_TOL}); ocean gradients {gerrs[worst]:.3g} of the "
+          f"allowed ({worst}) over {len(gerrs)} parameters; launches "
+          f"{launches}")
+    if not (ratios[worst_out] <= 1 and loss_err <= S_F32_LOSS_TOL
+            and gerrs[worst] <= 1):
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"reference C: launches {launches}")
+    return launches
+
+
+def coupled_paths(counters, smi, sizes=None, device="cuda"):
+    """Reference phase C, then paths C-R, C-F, C-E and C-bf16: the
+    launches of each path. ``sizes`` makes the small copies the CPU
+    runs."""
+    t0 = time.perf_counter()
+    reference_coupled_phase(counters, device)
+    out = {}
+    print(smi)
+
+    def then(paths, base, ckpt_dir):
+        print(smi)
+        out["C-F"], _, _ = coupled_finetune_path(counters, paths, ckpt_dir,
+                                                 device=device, sizes=sizes)
+        gc.collect()
+        out["C-E"], _ = coupled_evaluator_path(counters, paths, ckpt_dir,
+                                               device=device, sizes=sizes)
+        gc.collect()
+        out["C-bf16"], _ = coupled_bf16_path(counters, paths, base,
+                                             device=device, sizes=sizes)
+
+    out["C-R"], _, _ = coupled_train_path(counters, device=device,
+                                          sizes=sizes, then=then)
+    print(f"path C (reference C, C-R, C-F, C-E, C-bf16): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {k: out[k] for k in ("C-R", "C-F", "C-E", "C-bf16")}
 
 
 def _entry_paths(counters, keep, none, smi, rate_t):
@@ -5161,6 +6353,12 @@ def main() -> int:
     # reference phase O and paths O-R, O-E: the uncoupled-ocean CM4
     # recipe (Samudra, masks, the ocean corrector; no kernel of the port)
     by_path.update(ocean_paths(counters, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # reference phase C and paths C-R, C-F, C-E, C-bf16: the SamudrACE
+    # CM4 recipes (the SFNO coupled to Samudra; K1 and 1b only in C-bf16)
+    by_path.update(coupled_paths(counters, smi))
 
     own_path = {"dhconv_filter": "0", "fused_block_tail": "A",
                 "fused_sht": "B", "dhconv_filter_dx": "T",

@@ -627,3 +627,64 @@ def test_reference_o_runs_on_the_card(cuda):
 
     torch.backends.cudnn.allow_tf32 = False
     chip_smoke.reference_ocean_phase([dhconv_filter])
+
+
+def test_reference_c_runs_on_the_card(cuda):
+    """``chip_smoke.py``'s reference phase C: a small coupled system of the
+    CM4 recipes' shape (the SFNO and Samudra, 4 atmosphere steps an ocean
+    step, 2 ocean steps) card against CPU: both components' outputs, the
+    coupled loss and every ocean gradient, within reference S's float32
+    limits."""
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    chip_smoke.reference_coupled_phase([dhconv_filter])
+
+
+def test_coupled_bf16_launch_pattern_on_the_card(cuda):
+    """The coupled system with the atmosphere in bfloat16 (embed 32, 2
+    blocks, 4 atmosphere steps an ocean step, 2 ocean steps): a rollout
+    launches K1 in each block of each atmosphere step; a training rollout
+    with the atmosphere frozen launches K1 again in the recompute of each
+    step of the second outer step (the first depends on data alone), 1b in
+    those steps' backward and no 1c; the ocean's gradients finite."""
+    import chip_smoke
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.coupled.stepper import CoupledStepperConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    stepper, a_info, o_info = chip_smoke.coupled_stepper_dicts(
+        compute_dtype="bfloat16")
+    coupled = from_dict(CoupledStepperConfig, stepper).get_stepper(
+        a_info, o_info, device=cuda)
+    coupled.init_params(torch.Generator(cuda).manual_seed(0))
+    for p in coupled.atmosphere.module.parameters():
+        p.requires_grad_(False)
+    ic, af, of, _, _ = chip_smoke.coupled_inputs(
+        coupled, 2, 1, torch.Generator().manual_seed(1))
+
+    def on_card(state):
+        return type(state)(data={k: v.to(cuda) for k, v in state.data.items()})
+
+    ic = type(ic)(atmosphere_data=on_card(ic.atmosphere_data),
+                  ocean_data=on_card(ic.ocean_data))
+    af = {k: v.to(cuda) for k, v in af.items()}
+    of = {k: v.to(cuda) for k, v in of.items()}
+    counters = [dhconv_filter, dhconv_filter_dx, dhconv_filter_dw]
+    per_outer = 2 * coupled.n_inner_steps
+    _, launches = chip_smoke.counted(counters,
+                                     lambda: coupled.predict(ic, af, of))
+    assert launches == {"dhconv_filter": 2 * per_outer,
+                        "dhconv_filter_dx": 0, "dhconv_filter_dw": 0}
+
+    def train():
+        _, o_out, _ = coupled.predict_with_grad(ic, af, of)
+        loss = sum(v.nan_to_num().square().mean() for v in o_out.values())
+        loss.backward()
+
+    _, launches = chip_smoke.counted(counters, train)
+    assert launches == {"dhconv_filter": 3 * per_outer,
+                        "dhconv_filter_dx": per_outer,
+                        "dhconv_filter_dw": 0}
+    for p in coupled.ocean.module.parameters():
+        assert torch.isfinite(p.grad).all()
