@@ -1,6 +1,7 @@
 """Step types. Importing this package registers them with StepSelector."""
 
 from ace_tpu_torch.core.step import (  # noqa: F401
+    fcn3,
     multi_call,
     separate_radiation,
     single_module,

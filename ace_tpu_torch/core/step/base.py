@@ -25,7 +25,10 @@ class StepArgs:
     layers, which draw from ``generator``; the noise is drawn either way,
     as in the JAX package);
     ``corrector_disabled`` skips the post-step corrector (the train loop
-    sets it during the first ``corrector_disabled_epochs``)."""
+    sets it during the first ``corrector_disabled_epochs``); ``labels``
+    are one-hot dataset labels ``[batch, n_labels]`` (no ported model is
+    conditioned on them yet: the trainer refuses them, and the FCN3 step
+    refuses them as ``ace_tpu``'s does)."""
 
     input: TensorMapping
     next_step_input_data: TensorMapping
@@ -33,6 +36,7 @@ class StepArgs:
     generator: torch.Generator | None = None
     deterministic: bool = True
     corrector_disabled: bool = False
+    labels: torch.Tensor | None = None
 
 
 @dataclasses.dataclass

@@ -15,14 +15,14 @@ from ace_tpu_torch.coupled.inference import (
     CoupledInferenceConfig,
     run_coupled_inference,
 )
-from ace_tpu_torch.device import get_device
+from ace_tpu_torch.device import entry_device
 
 
 def main(argv=None, device=None) -> dict[str, float]:
     """The command line; ``device`` (when given) takes the place of
     ``--device``. Returns the logs."""
     args = get_parser().parse_args(argv)
-    device = get_device(device if device is not None else args.device)
+    device = entry_device(device if device is not None else args.device)
     data = prepare_config(args.yaml_config, args.override)
     data["evaluate"] = True
     config = from_dict(CoupledInferenceConfig, data)

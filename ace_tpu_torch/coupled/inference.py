@@ -55,7 +55,7 @@ from ace_tpu_torch.data.inference import (
     TimestampList,
 )
 from ace_tpu_torch.data.time import TimeCoord
-from ace_tpu_torch.device import get_device
+from ace_tpu_torch.device import entry_device
 from ace_tpu_torch.inference.data_writer import DataWriterConfig, H5DataWriter
 from ace_tpu_torch.stepper.checkpoint import (
     build_stepper_from_state,
@@ -284,7 +284,7 @@ def run_coupled_inference(config: CoupledInferenceConfig, device=None
                           ) -> dict[str, float]:
     """Run the coupled inference ``config`` describes on ``device`` (CUDA
     by default); returns the logs (empty unless ``evaluate``)."""
-    device = get_device(device)
+    device = entry_device(device)
     coupled = config.load_coupled_stepper(device=device)
     n_inner = coupled.n_inner_steps
     atmos_ds = config.initial_condition.build_atmosphere()
@@ -376,7 +376,7 @@ def main(argv=None, device=None) -> dict[str, float]:
     """The command line; ``device`` (when given) takes the place of
     ``--device``."""
     args = get_parser().parse_args(argv)
-    device = get_device(device if device is not None else args.device)
+    device = entry_device(device if device is not None else args.device)
     data = prepare_config(args.yaml_config, args.override)
     config = from_dict(CoupledInferenceConfig, data)
     prepare_directory(config.experiment_dir, data)

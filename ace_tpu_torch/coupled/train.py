@@ -48,7 +48,7 @@ from ace_tpu_torch.data.dataset import (
 )
 from ace_tpu_torch.data.loading import WindowDataset
 from ace_tpu_torch.data.requirements import DataRequirements
-from ace_tpu_torch.device import get_device
+from ace_tpu_torch.device import entry_device
 from ace_tpu_torch.stepper.checkpoint import save_stepper
 from ace_tpu_torch.stepper.parameter_init import (
     ParameterInitializationConfig,
@@ -231,7 +231,7 @@ class CoupledTrainer:
         """``datasets``: the (atmosphere, ocean) training datasets in place
         of the train loader's (data a program made, e.g. in memory)."""
         self.config = config
-        self.device = get_device(device)
+        self.device = entry_device(device)
         # per component (ParameterInitializationConfig, base weights on
         # the device) for the L2-SP term, set by init_weights
         self._l2sp: dict = {}
@@ -533,7 +533,7 @@ def main(argv=None, device=None) -> CoupledTrainer:
     """The command line; ``device`` (when given) takes the place of
     ``--device``. Returns the trainer."""
     args = get_parser().parse_args(argv)
-    device = get_device(device if device is not None else args.device)
+    device = entry_device(device if device is not None else args.device)
     data = prepare_config(args.yaml_config, args.override)
     config = from_dict(CoupledTrainConfig, data)
     prepare_directory(config.experiment_dir, data)

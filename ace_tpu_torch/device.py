@@ -28,6 +28,17 @@ def get_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def entry_device(device: str | torch.device | None = None) -> torch.device:
+    """:func:`get_device` for an entry point, with float32 pinned: TF32 off
+    for CUDA matmuls and cuDNN convolutions (PyTorch turns the latter on by
+    default), the precision that the parity tests and gates hold against
+    ``ace_tpu``. An entry calls it where it picks its device, whatever the
+    device."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return get_device(device)
+
+
 def cached_on_device(cache: dict, name: str, array: np.ndarray,
                      device: torch.device) -> torch.Tensor:
     """``array`` as a tensor on ``device``, made once per device and kept

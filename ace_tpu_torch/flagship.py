@@ -184,13 +184,14 @@ def draw_check_weights(stepper: Stepper, generator: torch.Generator):
     against CPU): the default draw, then the parts that start at or near
     zero made large enough that a wrong filter or conditioning shows in
     the outputs. The noise conditioning (zero-initialized) gets std 0.1;
-    the spectral filters (std 1/(in*out)) get std 1/sqrt(in)."""
+    the spectral filters (std 1/(in*out); an SFNO block's ``filter``,
+    FourCastNet3's ``global_conv``) get std 1/sqrt(in)."""
     stepper.init_params(generator)
     with torch.no_grad():
         for name, p in stepper.module.named_parameters():
             if "w_scale_2d" in name or "w_bias_2d" in name:
                 p.normal_(std=0.1, generator=generator)
-            elif name.endswith("filter.weight"):
+            elif name.endswith(("filter.weight", "global_conv.weight")):
                 # [2, L, I, O] (dhconv) or [2, L, M, I, O] (diagonal):
                 # the fan-in is I
                 p.normal_(std=p.shape[-2] ** -0.5, generator=generator)

@@ -26,7 +26,7 @@ from ace_tpu_torch.core.config import from_dict
 from ace_tpu_torch.core.timing import GlobalTimer
 from ace_tpu_torch.data.inference import InferenceDataLoaderConfig
 from ace_tpu_torch.data.time import TimeCoord
-from ace_tpu_torch.device import get_device
+from ace_tpu_torch.device import entry_device
 from ace_tpu_torch.inference.data_writer import DataWriterConfig
 from ace_tpu_torch.inference.loop import run_inference
 from ace_tpu_torch.stepper.checkpoint import load_stepper
@@ -75,7 +75,7 @@ def run_evaluator_from_config(config: EvaluatorConfig, device=None) -> dict:
     """Run the evaluation ``config`` describes on ``device`` (CUDA by
     default) and write its outputs; returns the loop's summary with the
     aggregators' ``logs``."""
-    device = get_device(device)
+    device = entry_device(device)
     config.logging.configure(config.experiment_dir)
     stepper = load_stepper(config.checkpoint_path,
                            override=config.stepper_override, device=device)
@@ -126,7 +126,7 @@ def main(argv=None, device=None):
     """The command line; ``device`` (when given) takes the place of
     ``--device``."""
     args = get_parser().parse_args(argv)
-    device = get_device(device if device is not None else args.device)
+    device = entry_device(device if device is not None else args.device)
     data = prepare_config(args.yaml_config, args.override)
     config = from_dict(EvaluatorConfig, data)
     prepare_directory(config.experiment_dir, data)
@@ -157,7 +157,7 @@ def run_dataset_comparison(config: DatasetComparisonConfig,
     """Feed both datasets' windows, on ``device`` (CUDA by default), to the
     aggregators and write their outputs; returns the ``logs`` and the
     number of windows."""
-    device = get_device(device)
+    device = entry_device(device)
     config.logging.configure(config.experiment_dir)
     loaders = [
         loader.build(

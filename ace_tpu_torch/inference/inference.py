@@ -31,7 +31,7 @@ from ace_tpu_torch.data.inference import (
     TimestampList,
 )
 from ace_tpu_torch.data.time import TimeCoord
-from ace_tpu_torch.device import get_device
+from ace_tpu_torch.device import entry_device
 from ace_tpu_torch.inference.data_writer import DataWriterConfig, save_restart
 from ace_tpu_torch.inference.loop import run_inference
 from ace_tpu_torch.stepper.checkpoint import load_stepper
@@ -146,7 +146,7 @@ def run_inference_from_config(config: InferenceConfig, device=None) -> dict:
     """Run the inference ``config`` describes on ``device`` (CUDA by
     default) and write its outputs; returns the loop's summary with the
     aggregators' ``logs``."""
-    device = get_device(device)
+    device = entry_device(device)
     config.logging.configure(config.experiment_dir)
     return _run_inference_impl(config, device)
 
@@ -284,7 +284,7 @@ def main(argv=None, device=None):
         help="run in N chained segments via restart files",
     )
     args = parser.parse_args(argv)
-    device = get_device(device if device is not None else args.device)
+    device = entry_device(device if device is not None else args.device)
     data = prepare_config(args.yaml_config, args.override)
     config = from_dict(InferenceConfig, data)
     prepare_directory(config.experiment_dir, data)

@@ -8,7 +8,9 @@ name ``kernel``; ``utils/convert.py`` maps them to and from flax's ``[kh,
 kw, in, out]``. Padding matches the JAX package: circular along longitude, zeros
 along latitude. The convolutions follow ``torch.backends.cudnn.allow_tf32``
 on the card (PyTorch's default is True; the JAX package has no such
-switch, and computes them in float32).
+switch, and computes them in float32): the entries pin float32
+(``device.entry_device`` turns TF32 off), so a user's run computes them
+as ``ace_tpu`` does.
 """
 
 from collections.abc import Sequence

@@ -6,7 +6,7 @@ GPU.
                                              [--train | --inference |
                                               --evaluator | --shield |
                                               --som | --ocean |
-                                              --coupled]
+                                              --coupled | --fcn3]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -68,6 +68,16 @@ it (batch 1, 4 coupled steps of 20 atmosphere steps: ``N`` untraced,
 default 2, then 1 traced), then a coupled rollout window as path C-E
 runs it (2 coupled steps: ``N`` untraced, then 1 traced;
 ``coupled_train_trace.json``, ``coupled_rollout_trace.json``).
+``--fcn3`` profiles path N, FourCastNet3's recipe (``configs/fcn3-train.yaml``:
+DISCO encoders and decoders at 180x360, 8 processor blocks at 45x90 over
+1184 channels, float32; statistics of its draws' scale in place of its
+files, weights from a seed): a train step as path N-R's batch loop runs
+it (batch 4, one forward step, MSE, AdamW, EMA: ``N`` untraced, default
+3, then 1 traced), then a rollout window as path N-I runs it (5 steps at
+batch 2: ``N`` untraced, then 1 traced; ``fcn3_train_trace.json``,
+``fcn3_rollout_trace.json``); its family table counts the DISCO
+contractions (``DiscoConvS2``'s forward and its backward) as a family of
+their own (``disco_relabel``).
 Convolutions run with TF32 off, as every profile here.
 Writes the Chrome trace to
 ``DIR/flagship_trace.json`` (``flagship_train_trace.json``,
@@ -144,16 +154,18 @@ def family(name: str) -> str:
     return "rest"
 
 
-def print_tables(events: list[dict], n: int, top: int = 30):
+def print_tables(events: list[dict], n: int, top: int = 30, relabel=None):
     """Device ms per step by kernel (the ``top`` largest) and by family,
-    over a trace of ``n`` steps."""
+    over a trace of ``n`` steps. ``relabel(event)`` may name an event's
+    family in place of ``FAMILIES`` (None keeps it)."""
     busy_s = busy_us(events) / 1e6
     by_name = collections.defaultdict(lambda: [0.0, 0])
     by_family = collections.defaultdict(float)
     for e in events:
         by_name[e["name"]][0] += e["dur"]
         by_name[e["name"]][1] += 1
-        by_family[family(e["name"])] += e["dur"]
+        label = relabel(e) if relabel is not None else None
+        by_family[label or family(e["name"])] += e["dur"]
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     print(f"{'device ms/step':>14} {'share':>6} {'calls/step':>10}  kernel")
     for name, (us, count) in rows[:top]:
@@ -192,6 +204,9 @@ def main(argv=None):
     mode.add_argument("--coupled", action="store_true",
                       help="path C: the CM4 coupled recipe's train step "
                            "(batch 1), then a coupled rollout window")
+    mode.add_argument("--fcn3", action="store_true",
+                      help="path N: FourCastNet3's train step (batch 4), "
+                           "then a rollout window (batch 2)")
     mode.add_argument("--som", action="store_true",
                       help="profile path M: the ACE2-SOM recipe's rollout "
                            "(f32, batch 4), then its bf16 multi-call train "
@@ -205,7 +220,7 @@ def main(argv=None):
         print_tables(device_events(args.read), args.traced_steps)
         return
     if args.steps is None:
-        args.steps = (2 if args.coupled else 5
+        args.steps = (2 if args.coupled else 3 if args.fcn3 else 5
                       if args.train or args.shield or args.som
                       or args.ocean else 100
                       if args.evaluator else 20)
@@ -247,6 +262,19 @@ def main(argv=None):
               f"{COUPLED_WINDOW} ocean steps, f32):")
         _profile(rollout, args.steps, 1,
                  os.path.join(args.out, "coupled_rollout_trace.json"))
+        return
+    if args.fcn3:
+        train, rollout = _fcn3_runners(device)
+        print(f"path N-R train step (batch {FCN3_BATCH}, 1 forward step, "
+              f"f32):")
+        _profile(train, args.steps, 1,
+                 os.path.join(args.out, "fcn3_train_trace.json"),
+                 relabel=disco_relabel)
+        print(f"path N-I rollout window (batch 2, {FCN3_WINDOW} steps, "
+              f"f32):")
+        _profile(rollout, args.steps, 1,
+                 os.path.join(args.out, "fcn3_rollout_trace.json"),
+                 relabel=disco_relabel)
         return
     if args.ocean:
         train, rollout = _ocean_runners(device)
@@ -295,11 +323,13 @@ def main(argv=None):
               f"{[round(a.elapsed_time(b), 4) for a, b in fills]}")
 
 
-def _profile(run, steps, n, trace_path, untraced=contextlib.nullcontext):
+def _profile(run, steps, n, trace_path, untraced=contextlib.nullcontext,
+             relabel=None):
     """Time ``run(1)`` (the first call), then ``run(steps)`` untraced (in
     the context ``untraced()``), then trace ``run(n)`` into
-    ``trace_path`` and print its tables. Returns the device's busy
-    seconds a step of the traced run."""
+    ``trace_path`` and print its tables (``relabel(trace_path)`` gives
+    ``print_tables``' ``relabel``). Returns the device's busy seconds a
+    step of the traced run."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run(1)
@@ -327,7 +357,8 @@ def _profile(run, steps, n, trace_path, untraced=contextlib.nullcontext):
           f"busy {busy_s / n * 1e3:.2f} ms/step ({100 * busy_s / wall_s:.1f}%), "
           f"idle {100 * (1 - busy_s / wall_s):.1f}%; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    print_tables(events, n)
+    print_tables(events, n,
+                 relabel=relabel(trace_path) if relabel is not None else None)
     return busy_s / n
 
 
@@ -817,6 +848,150 @@ def _coupled_runners(device, nlat=180, nlon=360, embed=None, layers=None,
         return outputs
 
     return train, rollout
+
+
+FCN3_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "configs", "fcn3-train.yaml")
+FCN3_BATCH = 4
+# a rollout window of path N-I, at its batch of 2 initial conditions
+FCN3_WINDOW = 5
+# the profiler range each DISCO contraction's forward runs in (--fcn3)
+DISCO_RANGE = "DiscoConvS2"
+
+
+def _fcn3_runners(device, nlat=180, nlon=360, embed=None, layers=None,
+                  scale_factor=None):
+    """``(train, rollout)`` of FourCastNet3's recipe (``FCN3_CONFIG``: its
+    network, step, loss and optimizer, the default EMA; statistics of unit
+    scale but for the surface pressure's and the water's, in place of its
+    files) at ``nlat`` x ``nlon`` on the Legendre-Gauss grid:
+    ``train(n)`` ``n`` train steps on one batch of ``FCN3_BATCH`` (returns
+    their metrics); ``rollout(n)`` ``n`` rollouts of ``FCN3_WINDOW`` steps
+    at batch 2 (returns the last one's outputs). Each
+    ``DiscoConvS2.forward`` runs in a profiler range ``DISCO_RANGE`` for
+    ``disco_relabel``. Weights from a seed; ``embed``, ``layers`` and
+    ``scale_factor`` make a small copy."""
+    import datetime
+
+    import numpy as np
+    import yaml
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.coordinates import (
+        LatLonCoordinates,
+        gaussian_latitudes,
+    )
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.core.loss import StepLossConfig
+    from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
+    from ace_tpu_torch.ops.disco import DiscoConvS2
+    from ace_tpu_torch.stepper.stepper import PrognosticState, StepperConfig
+    from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
+
+    with open(FCN3_CONFIG) as f:
+        config = yaml.safe_load(f)
+    step = config["stepper"]["step"]["config"]
+    levels = [f"{k}_{i}" for i in range(step["atmosphere_levels"])
+              for k in (step["atmosphere_prognostic_names"]
+                        + step["atmosphere_diagnostic_names"])]
+    names = sorted(levels + step["surface_prognostic_names"]
+                   + step["surface_diagnostic_names"] + step["forcing_names"])
+    stds = {n: 1e-3 if n.startswith("specific_total_water") else 1.0
+            for n in names}
+    step["normalization"] = {"network": {
+        "means": {n: 1.0e5 if n == "PRESsfc" else 0.0 for n in names},
+        "stds": {**stds, "PRESsfc": 100.0}}}
+    sizes = {"atmo_embed_dim": embed, "surf_embed_dim": embed,
+             "aux_embed_dim": embed, "num_layers": layers,
+             "scale_factor": scale_factor}
+    step["builder"]["config"].update(
+        {k: v for k, v in sizes.items() if v is not None})
+    info = DatasetInfo(
+        horizontal_coordinates=LatLonCoordinates(
+            lat=gaussian_latitudes(nlat),
+            lon=np.linspace(0, 360, nlon, endpoint=False)),
+        timestep=datetime.timedelta(hours=6))
+    stepper = from_dict(StepperConfig, config["stepper"]).get_stepper(
+        info, device=device)
+    training = config["stepper_training"]
+    ts = TrainStepper(
+        stepper,
+        StepperTrainConfig(
+            n_forward_steps=training["n_forward_steps"],
+            loss=from_dict(StepLossConfig, training["loss"])),
+        from_dict(OptimizationConfig, config["optimization"]), EMAConfig())
+    ts.init(torch.Generator(device).manual_seed(0))
+    batch = flagship.synthetic_batch(
+        stepper, FCN3_BATCH, n_forward_steps=training["n_forward_steps"],
+        generator=torch.Generator(device).manual_seed(1))
+    series = flagship.synthetic_batch(
+        stepper, 2, n_forward_steps=FCN3_WINDOW,
+        generator=torch.Generator(device).manual_seed(2))
+    ic = PrognosticState(data={k: series[k][:, :1]
+                               for k in stepper.prognostic_names})
+    forcing = {k: series[k] for k in stepper.forcing_window_names}
+    forward = DiscoConvS2.forward
+
+    def ranged(self, x):
+        with torch.profiler.record_function(DISCO_RANGE):
+            return forward(self, x)
+
+    if not hasattr(forward, "ranged"):
+        ranged.ranged = True
+        DiscoConvS2.forward = ranged
+
+    def train(n):
+        return [ts.train_step(batch, torch.Generator(device).manual_seed(3))
+                for _ in range(n)]
+
+    def rollout(n):
+        for _ in range(n):
+            outputs = stepper.predict(ic, forcing)[0]
+        return outputs
+
+    return train, rollout
+
+
+def disco_relabel(trace_path: str):
+    """``relabel(event)`` for ``print_tables``: "DISCO contractions" for
+    the device events launched by an operation inside a ``DISCO_RANGE``
+    range (a DISCO contraction's forward) or inside the autograd engine's
+    evaluation of the backward of such an operation (matched by its
+    sequence number), None for the rest."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+
+    def spans(selected):
+        out = collections.defaultdict(list)
+        for e in selected:
+            out[e["tid"]].append((e["ts"], e["ts"] + e["dur"]))
+        return out
+
+    def inside(e, by_tid):
+        return any(start <= e["ts"] < stop
+                   for start, stop in by_tid.get(e["tid"], ()))
+
+    forward = spans(e for e in events if e.get("cat") == "user_annotation"
+                    and e["name"] == DISCO_RANGE)
+    sequence = {e["args"]["Sequence number"] for e in ops
+                if "Sequence number" in e.get("args", {})
+                and inside(e, forward)}
+    backward = spans(e for e in ops
+                     if e["name"].startswith("autograd::engine::evaluate_")
+                     and e.get("args", {}).get("Sequence number") in sequence)
+    ids = {e["args"]["External id"] for e in ops
+           if "External id" in e.get("args", {})
+           and (inside(e, forward) or inside(e, backward))}
+
+    def relabel(event):
+        if event.get("args", {}).get("External id") in ids:
+            return "DISCO contractions"
+        return None
+
+    return relabel
 
 
 def convolution_flop(rollout) -> float:

@@ -15,7 +15,7 @@ import logging
 from ace_tpu_torch.core.cli import get_parser, prepare_config, prepare_directory
 from ace_tpu_torch.core.config import from_dict
 from ace_tpu_torch.core.timing import GlobalTimer
-from ace_tpu_torch.device import get_device
+from ace_tpu_torch.device import entry_device
 from ace_tpu_torch.train.trainer import Trainer, TrainConfig
 
 
@@ -31,7 +31,7 @@ def main(argv=None, device=None) -> Trainer:
     """The command line; ``device`` (when given) takes the place of
     ``--device``. Returns the trainer."""
     args = get_parser().parse_args(argv)
-    device = get_device(device if device is not None else args.device)
+    device = entry_device(device if device is not None else args.device)
     data = prepare_config(args.yaml_config, args.override)
     config = from_dict(TrainConfig, data)
     prepare_directory(config.experiment_dir, data)

@@ -33,7 +33,7 @@ from ace_tpu_torch.core.wandb import DiskMetricLogger, WandB
 from ace_tpu_torch.data.inference import InferenceDataLoaderConfig
 from ace_tpu_torch.data.loading import DataLoaderConfig, GriddedData
 from ace_tpu_torch.data.requirements import DataRequirements
-from ace_tpu_torch.device import get_device
+from ace_tpu_torch.device import entry_device
 from ace_tpu_torch.stepper.checkpoint import (
     read_train_checkpoint,
     save_train_checkpoint,
@@ -210,7 +210,7 @@ class TrainConfig:
 
     def build_trainer(self, device=None) -> "Trainer":
         """The trainer on ``device`` (CUDA by default)."""
-        device = get_device(device)
+        device = entry_device(device)
         if isinstance(self.stepper, CheckpointStepperConfig):
             # resolved once, so that the data requirements and the
             # checkpoints see the whole config

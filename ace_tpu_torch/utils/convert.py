@@ -55,10 +55,19 @@ _FILTER_TO_FLAX = {
 }
 
 
+# the names of a spectral filter's module: an SFNO block's ``filter``,
+# FourCastNet3's global block's ``global_conv``. Other 4-D ``weight``
+# leaves keep flax's layout: FourCastNet3's grouped DISCO weights
+# (``local_conv/weight``, an encoder's or decoder's ``conv/weight``, [K,
+# G, cin, cout])
+_FILTER_MODULES = frozenset({"filter", "global_conv"})
+
+
 def _is_spectral_filter(path, value) -> bool:
-    """A spectral filter's weight in another layout than flax's:
-    ``filter/weight`` of a block, 4-D or 5-D."""
-    return (tuple(path[-2:]) == ("filter", "weight")
+    """A spectral filter's weight in another layout than flax's: the
+    ``weight`` of a ``_FILTER_MODULES`` module, 4-D or 5-D."""
+    return (len(path) >= 2 and path[-1] == "weight"
+            and path[-2] in _FILTER_MODULES
             and value.dim() in _FILTER_TO_PORT)
 
 

@@ -168,6 +168,22 @@
      ``CoupledStepper.predict``); C-bf16, C-R's config with the
      atmosphere in bfloat16 (2 coupled steps: exactly 480 K1, 160 1b and no
      1c a train step, 160 K1 a rollout of one outer step).
+   - path N, FourCastNet3's recipe (``configs/fcn3-train.yaml``: DISCO
+     encoders and decoders at 180x360 on the Legendre-Gauss grid, a
+     processor of 8 blocks at 45x90 over 1184 channels, global dhconv
+     and local DISCO blocks in turn, float32, 37 variables over 8 levels),
+     after reference phase N (``DiscoConvS2`` at ragged shapes, then a
+     small FCN3 of its shape, 32x64, 2 levels with a diagnostic in each,
+     4 layers, card against CPU: one forward step and one MSE train step):
+     N-R, the training entry over synthetic files with the cuts of
+     ``_fcn3_config`` (batch 4, 4 batches, 1 validation batch, one epoch,
+     then a resume that must be bit-equal), TF32 turned on before each
+     run: both TF32 flags off after it, finite metrics, one
+     ``metrics.jsonl`` line per epoch, the checkpoint files, no launch, no
+     sync in the batch loop; N-I, the inference entry over N-R's best
+     checkpoint (20 steps from 2 initial conditions in windows of 5: TF32
+     off after it, no launch, no sync in ``run_inference``, within 1e-5
+     of ``Stepper.predict``).
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -1324,7 +1340,8 @@ def _check_written(label, stepper, series, written, starts, n_steps):
     """The written predictions against one ``Stepper.predict`` of the same
     initial conditions (``series`` at ``starts``), forcing and seed: each
     variable's largest error over its spatial std, and the dry-air mass's
-    largest drift from the initial condition's in Pa."""
+    largest drift from the initial condition's in Pa (None for a step
+    without a corrector)."""
     import numpy as np
     import torch
 
@@ -1349,6 +1366,8 @@ def _check_written(label, stepper, series, written, starts, n_steps):
         errs[k] = err / float(r.std(dim=(-2, -1)).mean()) if err else 0.0
     worst = max(errs, key=errs.get)
     corrector = stepper.step.corrector
+    if corrector is None:  # no dry-air target (FCN3's recipe)
+        return errs, worst, None
     target = corrector.init_state({k: v[:, 0] for k, v in ic.items()})
     drift = max(
         float((corrector.init_state({
@@ -4479,13 +4498,9 @@ def ocean_train_path(counters, device="cuda", sizes=None, then=None):
 
     import torch
 
-    from ace_tpu_torch.core.timing import GlobalTimer
-    from ace_tpu_torch.train.train import main as train_main
-
     label = "path O-R"
     sizes = sizes or {}
     nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
-    cuda = torch.device(device).type == "cuda"
     _, missing = inference_packages()
     files = h5py_in_memory() if "h5py" in missing else (
         contextlib.nullcontext())
@@ -4504,44 +4519,15 @@ def ocean_train_path(counters, device="cuda", sizes=None, then=None):
               f"{builder['ch_width']}, dilation {builder['dilation']}, batch "
               f"{O_BATCH}; wet share of mask_0 {wet['mask_0']:.3f}, of "
               f"mask_{O_LEVELS - 1} {wet[f'mask_{O_LEVELS - 1}']:.3f}")
-        launches, rates, restored, records, runs, probes = (
-            {}, [], {}, [], [], [])
-        for argv in ([path], [path, "--override", "max_epochs=2"]):
-            GlobalTimer.reset()
-            if cuda:
-                torch.cuda.reset_peak_memory_stats()
-            with (_phase_probes(counters, launches, rates, cuda, restored),
-                  _record_checkpoints(records, lambda stepper, kwargs: None),
-                  _ocean_probes(probes)):
-                trainer = train_main(argv, device=device)
-            if cuda:
-                torch.cuda.synchronize()
-            runs.append({
-                "start_epoch": trainer.start_epoch,
-                "num_batches_seen": trainer.num_batches_seen,
-                "phases": GlobalTimer.get_instance().get_durations(),
-                "peak": (torch.cuda.max_memory_allocated() / 1e9 if cuda
-                         else 0.0),
-                "state": _state_checksums(trainer),
-            })
-            n_params = sum(p.numel()
-                           for p in trainer.stepper.module.parameters())
-            del trainer
-            gc.collect()
-            if cuda:
-                torch.cuda.empty_cache()
+        probes = []
+        runs, launches, rates, restored, records, n_params = (
+            _epoch_then_resume(label, path, counters, device,
+                               lambda: [_ocean_probes(probes)]))
         _check_ocean_probes(label, probes)
         ckpt_dir = os.path.join(out_dir, "training_checkpoints")
         files_found = sorted(os.listdir(ckpt_dir))
         with open(os.path.join(out_dir, "metrics.jsonl")) as f:
             lines = [json.loads(line) for line in f]
-        first, second = runs
-        for name, run in (("epoch 1", first), ("resume", second)):
-            phases = {k: round(v, 4) for k, v in sorted(run["phases"].items())}
-            print(f"{label} ({name}): phases {phases}; peak device memory "
-                  f"{run['peak']:.2f} GB")
-        for kind, name, seconds, size in records:
-            print(f"{label}: {kind} {name}: {size} bytes in {seconds:.3f} s")
         nonfinite = sorted(k for line in lines for k, v in line.items()
                            if not math.isfinite(v))
         print(f"{label}: {n_params} parameters; batch loop "
@@ -4561,27 +4547,93 @@ def ocean_train_path(counters, device="cuda", sizes=None, then=None):
                       "best_inference_ckpt.msgpack"}
         if not want_files <= set(files_found):
             raise AssertionError(f"{label}: checkpoint files {files_found}")
-        if second["start_epoch"] != 1:
-            raise AssertionError(f"{label}: the second run started at epoch "
-                                 f"{second['start_epoch']}, not 1")
-        differ = [k for k, v in first["state"].items()
-                  if restored.get(k) != v]
-        print(f"{label}: resumed state against the first run's end: "
-              f"{len(first['state']) - len(differ)} of {len(first['state'])} "
-              f"checksums equal")
-        if differ:
-            raise AssertionError(f"{label}: the resumed state differs: "
-                                 f"{differ[:5]}")
-        none = {c.__name__: 0 for c in counters}
-        for phase, counts in launches.items():
-            print(f"{label}: launches per {phase} call {counts} (want none)")
-            if any(c != none for c in counts):
-                raise AssertionError(f"{label}: launches in {phase}")
+        _check_resume(label, runs, restored)
+        _check_no_launches(label, counters, launches)
         if then is not None:
             then(paths, config, os.path.join(ckpt_dir, "best_ckpt.msgpack"))
     total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
                              for n in calls) for c in counters}
     return total, rates
+
+
+def _epoch_then_resume(label, path, counters, device="cuda", extra=None):
+    """The training entry's ``main`` on the YAML ``path`` for its one
+    epoch, then again with ``--override max_epochs=2``, which resumes from
+    ``ckpt.msgpack``; ``extra()`` gives more contexts for each run. Each
+    run goes through ``_phase_probes`` (launches by phase, the batch
+    loop's rate, no sync in it on the card, the state just after
+    ``restore``) and ``_record_checkpoints``; prints each run's phases and
+    peak and each checkpoint's bytes and seconds. Returns each run's
+    start epoch, batches seen, phases, peak and end state, the launches,
+    the rates, the restored state, the checkpoint records and the number
+    of parameters."""
+    import contextlib
+
+    import torch
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.train.train import main as train_main
+
+    cuda = torch.device(device).type == "cuda"
+    launches, rates, restored, records, runs = {}, [], {}, [], []
+    for argv in ([path], [path, "--override", "max_epochs=2"]):
+        GlobalTimer.reset()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_phase_probes(counters, launches, rates, cuda,
+                                              restored))
+            stack.enter_context(_record_checkpoints(
+                records, lambda stepper, kwargs: None))
+            for context in (extra() if extra is not None else []):
+                stack.enter_context(context)
+            trainer = train_main(argv, device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        runs.append({
+            "start_epoch": trainer.start_epoch,
+            "num_batches_seen": trainer.num_batches_seen,
+            "phases": GlobalTimer.get_instance().get_durations(),
+            "peak": (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                     else 0.0),
+            "state": _state_checksums(trainer),
+        })
+        n_params = sum(p.numel() for p in trainer.stepper.module.parameters())
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    for name, run in zip(("epoch 1", "resume"), runs):
+        phases = {k: round(v, 4) for k, v in sorted(run["phases"].items())}
+        print(f"{label} ({name}): phases {phases}; peak device memory "
+              f"{run['peak']:.2f} GB")
+    for kind, name, seconds, size in records:
+        print(f"{label}: {kind} {name}: {size} bytes in {seconds:.3f} s")
+    return runs, launches, rates, restored, records, n_params
+
+
+def _check_resume(label, runs, restored):
+    """The second run of ``_epoch_then_resume`` started at epoch 1 from
+    the first run's end state, bit for bit."""
+    first, second = runs
+    if second["start_epoch"] != 1:
+        raise AssertionError(f"{label}: the second run started at epoch "
+                             f"{second['start_epoch']}, not 1")
+    differ = [k for k, v in first["state"].items() if restored.get(k) != v]
+    print(f"{label}: resumed state against the first run's end: "
+          f"{len(first['state']) - len(differ)} of {len(first['state'])} "
+          f"checksums equal")
+    if differ:
+        raise AssertionError(f"{label}: the resumed state differs: "
+                             f"{differ[:5]}")
+
+
+def _check_no_launches(label, counters, launches):
+    none = {c.__name__: 0 for c in counters}
+    for phase, counts in launches.items():
+        print(f"{label}: launches per {phase} call {counts} (want none)")
+        if any(c != none for c in counts):
+            raise AssertionError(f"{label}: launches in {phase}")
 
 
 # path O-E: every aggregator flag that needs no reference file (the YAML
@@ -6142,6 +6194,352 @@ def coupled_paths(counters, smi, sizes=None, device="cuda"):
     return {k: out[k] for k in ("C-R", "C-F", "C-E", "C-bf16")}
 
 
+FCN3_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "fcn3-train.yaml")
+# path N-R: the YAML's batch of 4 for both loaders, 4 training batches (16
+# windows of its one forward step: 17 six-hourly times) and 1 validation
+# batch (5 times); N-I reads a file of its own, N_STEPS steps from each of
+# its first two times
+N_BATCH = 4
+N_SPLITS = (("train", 17, "2000-01-01T00:00"),
+            ("valid", 5, "2001-01-01T00:00"),
+            ("inference", N_STEPS + 2, "2002-01-01T00:00"))
+N_WINDOW = 5
+N_PREDICT_TOL = 1e-5
+# reference N: a small FCN3 of the recipe's shape, float32, card against
+# CPU within reference S's float32 limits (its 4 layers: two global, two
+# local), with one atmosphere diagnostic (the recipe has none) so that
+# each level's group carries a diagnostic channel
+N_REFERENCE_SIZES = {"nlat": 32, "nlon": 64, "levels": 2, "embed": 8,
+                     "layers": 4, "scale_factor": 2}
+N_DIAGNOSTIC = "relative_humidity"
+# DISCO alone at ragged shapes (odd nlat, a downsampling), card against
+# CPU: within 1e-5 of the largest output
+N_RAGGED = (((45, 90), (45, 90), "piecewise linear"),
+            ((33, 66), (11, 22), "zernike"))
+N_DISCO_TOL = 1e-5
+
+
+def fcn3_step_dict(levels=8, diagnostic=False, stats=None, **builder):
+    """The step config of ``configs/fcn3-train.yaml`` with ``levels``
+    atmosphere levels, ``N_DIAGNOSTIC`` as an atmosphere diagnostic when
+    ``diagnostic``, the network's statistics from ``stats`` (the means and
+    stds files) or else ``_field_scale``'s draws, and ``builder``
+    overriding the network's fields."""
+    import copy
+
+    step = copy.deepcopy(_yaml(FCN3_CONFIG)["stepper"]["step"]["config"])
+    step["builder"]["config"].update(builder)
+    step["atmosphere_levels"] = levels
+    if diagnostic:
+        step["atmosphere_diagnostic_names"] = [N_DIAGNOSTIC]
+    if stats is not None:
+        step["normalization"]["network"] = {
+            "global_means_path": stats["centering"],
+            "global_stds_path": stats["scaling-full-field"]}
+    else:
+        names = _fcn3_names(step)
+        step["normalization"]["network"] = {
+            "means": {k: _field_scale(k)[0] for k in names},
+            "stds": {k: _field_scale(k)[1] for k in names}}
+    return step
+
+
+def _fcn3_names(step=None):
+    """Every variable of the FCN3 step config ``step`` (the YAML's by
+    default): 37 for the recipe."""
+    if step is None:
+        step = _yaml(FCN3_CONFIG)["stepper"]["step"]["config"]
+    per_level = (step["atmosphere_prognostic_names"]
+                 + step["atmosphere_diagnostic_names"])
+    return sorted([f"{k}_{i}" for i in range(step["atmosphere_levels"])
+                   for k in per_level]
+                  + step["surface_prognostic_names"]
+                  + step["surface_diagnostic_names"]
+                  + step["forcing_names"])
+
+
+def fcn3_stepper_config(nlat=32, nlon=64, levels=2, diagnostic=True,
+                        **builder):
+    """A stepper config of ``fcn3_step_dict`` and the dataset info of its
+    Legendre-Gauss grid."""
+    from datetime import timedelta
+
+    import numpy as np
+
+    from ace_tpu_torch.core.coordinates import (
+        LatLonCoordinates,
+        gaussian_latitudes,
+    )
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.core.step import StepSelector
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    step = fcn3_step_dict(levels, diagnostic, **builder)
+    info = DatasetInfo(
+        horizontal_coordinates=LatLonCoordinates(
+            lat=gaussian_latitudes(nlat),
+            lon=np.linspace(0, 360, nlon, endpoint=False)),
+        timestep=timedelta(hours=6))
+    return StepperConfig(step=StepSelector(type="FCN3", config=step)), info
+
+
+def fcn3_inputs(stepper, n_steps, batch, generator):
+    """An initial condition, ``n_steps + 1`` forcing times and a training
+    batch of as many times for an FCN3 stepper, ``_draw``n on the CPU from
+    ``generator``."""
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    nlat, nlon = stepper.dataset_info.img_shape
+    step = stepper.step
+    data = {k: _draw(k, (batch, n_steps + 1, nlat, nlon), generator, "cpu")
+            for k in sorted(set(step.input_names) | set(step.output_names))}
+    ic = PrognosticState(data={k: data[k][:, :1]
+                               for k in stepper.prognostic_names})
+    return ic, {k: data[k] for k in stepper.forcing_window_names}, data
+
+
+def _disco_ragged_phase(device):
+    """``DiscoConvS2`` alone at ``N_RAGGED``'s shapes (3x3, Legendre-Gauss,
+    3 samples of 5 channels), ``device`` against the CPU."""
+    import torch
+
+    from ace_tpu_torch.ops.disco import DiscoConvS2
+
+    gen = torch.Generator().manual_seed(5)
+    for in_shape, out_shape, basis in N_RAGGED:
+        x = torch.randn(3, *in_shape, 5, generator=gen)
+        conv = DiscoConvS2(in_shape, out_shape, (3, 3),
+                           grid_in="legendre-gauss",
+                           grid_out="legendre-gauss", basis_type=basis)
+        ref = conv(x)
+        got = conv.to(device)(x.to(device)).cpu()
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        print(f"reference N: DISCO {basis} {in_shape} -> {out_shape} "
+              f"(K {conv.kernel_size}), {device} vs CPU: {err:.3g} of the "
+              f"largest output (tol {N_DISCO_TOL})")
+        if not (got.shape == ref.shape and err <= N_DISCO_TOL):
+            raise AssertionError("reference N: DISCO disagrees with the CPU")
+
+
+def reference_fcn3_phase(counters, device="cuda"):
+    """Reference phase N: ``DiscoConvS2`` at ragged shapes, then a small
+    FCN3 of the recipe's shape (``N_REFERENCE_SIZES``, float32) on
+    ``device`` against the CPU from the same weights and inputs: one
+    forward step and one train step under MSE, within reference S's
+    float32 limits, with no kernel launch."""
+    _disco_ragged_phase(device)
+    sizes = dict(N_REFERENCE_SIZES)
+    nlat, nlon, levels = sizes.pop("nlat"), sizes.pop("nlon"), sizes.pop(
+        "levels")
+    builder = {"atmo_embed_dim": sizes["embed"],
+               "surf_embed_dim": sizes["embed"],
+               "aux_embed_dim": sizes["embed"],
+               "num_layers": sizes["layers"],
+               "scale_factor": sizes["scale_factor"]}
+    launches = _reference_case(
+        "reference N (FCN3, f32)", counters, device,
+        (S_F32_TOL, S_F32_LOSS_TOL, S_F32_GRAD_TOL),
+        lambda dtype: fcn3_stepper_config(nlat, nlon, levels, **builder),
+        "float32", lambda stepper, gen: fcn3_inputs(stepper, 1, 2, gen),
+        n_steps=1, zero_gradients=lambda names: set())
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"reference N: launches {launches}")
+    return launches
+
+
+def _fcn3_config(paths, experiment_dir, sizes=None):
+    """``configs/fcn3-train.yaml`` with path N-R's cuts: the synthetic
+    files for the placeholder data and stats paths, one epoch, no output
+    to the screen; ``sizes`` (``embed``, ``layers``, ``scale_factor``)
+    makes the small copies the CPU runs."""
+    config = _yaml(FCN3_CONFIG)
+    config["experiment_dir"] = experiment_dir
+    config["max_epochs"] = 1
+    config["logging"]["log_to_screen"] = False
+    for loader, split in (("train_loader", "train"),
+                          ("validation_loader", "valid")):
+        config[loader]["dataset"]["data_path"] = paths[split]
+    step = config["stepper"]["step"]["config"]
+    step["normalization"]["network"] = {
+        "global_means_path": paths["centering"],
+        "global_stds_path": paths["scaling-full-field"]}
+    if sizes:
+        step["builder"]["config"].update(
+            atmo_embed_dim=sizes["embed"], surf_embed_dim=sizes["embed"],
+            aux_embed_dim=sizes["embed"], num_layers=sizes["layers"],
+            scale_factor=sizes["scale_factor"])
+    return config
+
+
+def _tf32_probe(flags):
+    """A context that turns TF32 on for CUDA matmuls and cuDNN
+    convolutions (the latter PyTorch's default) before an entry runs, and
+    appends to ``flags`` what the entry left, ``(matmul, cudnn)``, as it
+    closes; then turns both off again."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def context():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            flags.append((torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32))
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+    return context()
+
+
+def _check_tf32_pinned(label, flags):
+    print(f"{label}: TF32 (matmul, cudnn) after each entry run, set on "
+          f"before it: {flags}")
+    if not flags or any(any(f) for f in flags):
+        raise AssertionError(f"{label}: an entry left TF32 on")
+
+
+def fcn3_train_path(counters, device="cuda", sizes=None, then=None):
+    """Path N-R: ``python -m ace_tpu_torch.train``'s ``main`` on
+    ``configs/fcn3-train.yaml`` with the cuts of ``_fcn3_config`` (at the
+    recipe's full width, 180x360 on the Legendre-Gauss grid, unless
+    ``sizes`` gives ``nlat``, ``nlon``, ``embed``, ``layers`` and
+    ``scale_factor``) over synthetic files of its 37 variables
+    (``N_SPLITS``): one epoch, then ``--override max_epochs=2``, which
+    must resume at epoch 1 with its state bit for bit. TF32 is turned on
+    before each run, and each must leave it off. Checks finite metrics,
+    one ``metrics.jsonl`` line per epoch, the checkpoint files, no kernel
+    launch, no sync in the batch loop (on the card); prints the loop's
+    rates, the phases, the checkpoints' bytes and seconds and the peak.
+    ``then(paths, best)`` runs after the gates inside the context that
+    holds the files. Returns the launches and the loop's rates."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    label = "path N-R"
+    sizes = sizes or {}
+    nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
+    names = _fcn3_names()
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as tmp, files:
+        paths = _training_files(tmp, names, nlat, nlon,
+                                torch.Generator(device).manual_seed(11),
+                                device, splits=N_SPLITS)
+        out_dir = os.path.join(tmp, "experiment")
+        config = _fcn3_config(paths, out_dir, sizes)
+        path = _write_yaml(os.path.join(tmp, "fcn3.yaml"), config)
+        builder = config["stepper"]["step"]["config"]["builder"]["config"]
+        print(f"{label}: {FCN3_CONFIG} at {nlat}x{nlon}, {len(names)} "
+              f"variables, {builder}, batch {N_BATCH}")
+        flags = []
+        runs, launches, rates, restored, _, n_params = _epoch_then_resume(
+            label, path, counters, device, lambda: [_tf32_probe(flags)])
+        ckpt_dir = os.path.join(out_dir, "training_checkpoints")
+        files_found = sorted(os.listdir(ckpt_dir))
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        print(f"{label}: {n_params} parameters; batch loop "
+              f"{rates[0]:.4f} (epoch 1) and {rates[1]:.4f} (epoch 2) train "
+              f"steps/s at batch {N_BATCH} ({rates[1] * N_BATCH:.4f} "
+              f"samples/s); losses by epoch: train "
+              f"{[line['train/loss'] for line in lines]}, validation "
+              f"{[line['val/loss'] for line in lines]}; {len(lines[-1])} "
+              f"metrics; checkpoint files {files_found}")
+        bad = [k for line in lines for k, v in line.items()
+               if not math.isfinite(v)]
+        if len(lines) != 2 or bad:
+            raise AssertionError(f"{label}: {len(lines)} metrics.jsonl "
+                                 f"lines, not finite: {bad[:5]}")
+        want_files = {"ckpt.msgpack", "best_ckpt.msgpack", "ema_ckpt.msgpack"}
+        if not want_files <= set(files_found):
+            raise AssertionError(f"{label}: checkpoint files {files_found}")
+        _check_tf32_pinned(label, flags)
+        _check_resume(label, runs, restored)
+        _check_no_launches(label, counters, launches)
+        if then is not None:
+            then(paths, os.path.join(ckpt_dir, "best_ckpt.msgpack"))
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates
+
+
+def fcn3_inference_path(counters, paths, ckpt, device="cuda",
+                        n_steps=N_STEPS, window=N_WINDOW):
+    """Path N-I: ``python -m ace_tpu_torch.inference``'s ``main`` over path
+    N-R's ``best_ckpt.msgpack`` on a YAML it writes: ``n_steps`` steps
+    from the first two times of N-R's inference file (2 initial
+    conditions, so batch 2) in windows of ``window``, writer off (then on,
+    for the predictions), TF32 turned on before. Checks finite outputs,
+    TF32 off after, no launch, no synchronizing call in ``run_inference``
+    (on the card) and the written predictions within ``N_PREDICT_TOL`` of
+    each channel's spatial std of one ``Stepper.predict``; prints steps/s
+    and the peak. Returns the launches and the rate."""
+    import tempfile
+
+    import torch
+
+    from ace_tpu_torch.stepper import checkpoint
+
+    label = "path N-I"
+    check_sync = torch.device(device).type == "cuda"
+    flags = []
+    with tempfile.TemporaryDirectory() as tmp, _tf32_probe(flags):
+        runs, written = _entry_from_files(
+            tmp, ckpt, None, None, None, counters, device, n_steps, window,
+            check_sync, data_dir=paths["inference"], starts=(0, 1),
+            label=label)
+    _check_tf32_pinned(label, flags)
+    stepper = checkpoint.load_stepper(ckpt, device=device)
+    names = sorted(set(stepper.prognostic_names)
+                   | set(stepper.forcing_window_names))
+    series = _read_series(paths["inference"], names)
+    errs, worst, _ = _check_written(label, stepper, series, written, [0, 1],
+                                    n_steps)
+    summary, launches, phases, peak = runs[False]
+    rate = summary["total_steps_per_second"]
+    print(f"{label}: {summary['total_steps']} steps at {rate:.4f} steps/s "
+          f"(batch 2, windows of {window}, writer off; "
+          f"{runs[True][0]['total_steps_per_second']:.4f} with it on); "
+          f"phases { {k: round(v, 4) for k, v in sorted(phases.items())} }; "
+          f"peak device memory {peak:.2f} GB; launches {launches}")
+    print(f"{label}: written predictions vs one {n_steps}-step predict: "
+          f"largest error {errs[worst]:.3g} of the channel's spatial std "
+          f"({worst}; tol {N_PREDICT_TOL})")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"{label}: launches {launches}")
+    if not errs[worst] <= N_PREDICT_TOL:
+        raise AssertionError(f"{label}: the written predictions disagree "
+                             "with Stepper.predict")
+    return launches, rate
+
+
+def fcn3_paths(counters, smi, sizes=None, device="cuda"):
+    """Reference phase N, then paths N-R and N-I: the launches of each
+    path. ``sizes`` makes the small copies the CPU runs."""
+    t0 = time.perf_counter()
+    reference_fcn3_phase(counters, device)
+    out = {}
+    print(smi)
+
+    def then(paths, best):
+        print(smi)
+        out["N-I"], _ = fcn3_inference_path(counters, paths, best,
+                                            device=device)
+
+    out["N-R"], _ = fcn3_train_path(counters, device=device, sizes=sizes,
+                                    then=then)
+    print(f"path N (reference N, N-R, N-I): {time.perf_counter() - t0:.1f} s")
+    return {k: out[k] for k in ("N-R", "N-I")}
+
+
 def _entry_paths(counters, keep, none, smi, rate_t):
     """Paths I, E (with phase E-agg), R and F (with reference phases R
     and F): the launches of each."""
@@ -6359,6 +6757,12 @@ def main() -> int:
     # reference phase C and paths C-R, C-F, C-E, C-bf16: the SamudrACE
     # CM4 recipes (the SFNO coupled to Samudra; K1 and 1b only in C-bf16)
     by_path.update(coupled_paths(counters, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # reference phase N and paths N-R, N-I: FourCastNet3's recipe (DISCO
+    # encoders and decoders, float32: no kernel of the port)
+    by_path.update(fcn3_paths(counters, smi))
 
     own_path = {"dhconv_filter": "0", "fused_block_tail": "A",
                 "fused_sht": "B", "dhconv_filter_dx": "T",

@@ -688,3 +688,93 @@ def test_coupled_bf16_launch_pattern_on_the_card(cuda):
                         "dhconv_filter_dw": 0}
     for p in coupled.ocean.module.parameters():
         assert torch.isfinite(p.grad).all()
+
+
+def test_an_entry_pins_samudra_to_the_gated_float32(cuda, tmp_path):
+    """A Samudra stepper's step (``chip_smoke.ocean_stepper_config`` at
+    reference O's widths, 32x64) with TF32 on (PyTorch's default for
+    cuDNN) differs from the gated float32 step (TF32 off, as
+    ``chip_smoke.py`` and the parity tests hold it); after the training
+    entry picks its device (its ``main``, stopped at a missing config),
+    the same step equals the gated one. Prints the readings (``-s``)."""
+    import chip_smoke
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+    from ace_tpu_torch.train.train import main
+
+    sizes = chip_smoke.O_REFERENCE_SIZES
+    nlat, nlon = 32, 64
+    config, info = chip_smoke.ocean_stepper_config(
+        nlat, nlon, sizes["ch_width"], sizes["dilation"])
+    stepper = config.get_stepper(info, device=cuda)
+    stepper.init_params(torch.Generator(cuda).manual_seed(0))
+    step = stepper.step
+    data = chip_smoke.ocean_inputs(
+        sorted(set(step.input_names) | set(step.output_names)),
+        (2, 2, nlat, nlon), torch.Generator().manual_seed(1),
+        info.horizontal_coordinates.lat, info.vertical_coordinate.idepth,
+        info.mask_provider)
+    ic = PrognosticState(data={k: data[k][:, :1].to(cuda)
+                               for k in stepper.prognostic_names})
+    forcing = {k: data[k].to(cuda) for k in stepper.forcing_window_names}
+
+    def one_step(tf32=None):
+        if tf32 is not None:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+        with torch.inference_mode():
+            out, _ = stepper.predict(ic, forcing)
+        return torch.stack([out[k] for k in sorted(out)]).nan_to_num(0.0)
+
+    gated = one_step(False)
+    tf32 = one_step(True)
+    with pytest.raises(FileNotFoundError):
+        main([str(tmp_path / "missing.yaml")], device="cuda")
+    entry = one_step()
+    scale = float(gated.abs().max())
+    errs = [float((x - gated).abs().max()) / scale for x in (tf32, entry)]
+    print(f"Samudra step, TF32 on vs off: {errs[0]:.3g} of the largest "
+          f"output; after the entry picked its device: {errs[1]:.3g}")
+    assert not torch.backends.cudnn.allow_tf32
+    assert errs[0] > 1e-5
+    assert errs[1] <= 1e-6
+
+
+def test_reference_n_runs_on_the_card(cuda):
+    """``chip_smoke.py``'s reference phase N: ``DiscoConvS2`` at ragged
+    shapes (odd nlat, a downsampling; piecewise linear and Zernike) and a
+    small FCN3 of the recipe's shape (32x64, 2 levels with a diagnostic in
+    each, 4 layers) card against CPU: one forward step and one MSE train
+    step within reference S's float32 limits, no kernel launch."""
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    chip_smoke.reference_fcn3_phase([dhconv_filter, dhconv_filter_dx,
+                                     dhconv_filter_dw])
+
+
+@pytest.mark.parametrize("basis", ["piecewise linear", "morlet",
+                                   "zernike"])
+def test_disco_on_card_matches_cpu(cuda, basis):
+    """``DiscoConvS2`` and its gradient with respect to the input at the
+    recipe's decoder shape cut to 2 channels (180x360 to itself, morlet
+    3x3) and at an odd downsampling: within 1e-5 of the largest value."""
+    from ace_tpu_torch.ops.disco import DiscoConvS2
+
+    gen = torch.Generator().manual_seed(2)
+    for in_shape, out_shape in (((180, 360), (180, 360)),
+                                ((45, 90), (15, 30))):
+        conv = DiscoConvS2(in_shape, out_shape, (3, 3),
+                           grid_in="legendre-gauss",
+                           grid_out="legendre-gauss", basis_type=basis)
+        x = torch.randn(2, *in_shape, 2, generator=gen)
+        w = torch.randn(2, *out_shape, conv.kernel_size, 2, generator=gen)
+        outs = []
+        for dev in ("cpu", cuda):
+            xd = x.detach().to(dev).requires_grad_()
+            out = conv.to(dev)(xd)
+            (out * w.to(dev)).sum().backward()
+            outs.append((out.detach().cpu(), xd.grad.cpu()))
+        for ref, got in zip(*outs):
+            assert got.shape == ref.shape
+            err = float((got - ref).abs().max() / ref.abs().max())
+            assert err <= 1e-5, (in_shape, err)

@@ -75,3 +75,43 @@ def test_stepper_needs_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         config.get_stepper(info)
     assert config.get_stepper(info, device="cpu").device.type == "cpu"
+
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 flags on (PyTorch's default for cuDNN) for the test, and
+    as they were after it."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+def test_entry_device_pins_float32(tf32_on):
+    from ace_tpu_torch.device import entry_device
+
+    assert entry_device("cpu") == torch.device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("entry", [
+    "ace_tpu_torch.train.train", "ace_tpu_torch.inference.inference",
+    "ace_tpu_torch.inference.evaluator", "ace_tpu_torch.coupled.train",
+    "ace_tpu_torch.coupled.inference", "ace_tpu_torch.coupled.evaluator",
+])
+def test_each_entry_pins_float32_where_it_picks_its_device(entry, tf32_on,
+                                                           tmp_path):
+    """Each entry's ``main`` turns TF32 off for CUDA matmuls and cuDNN
+    convolutions as it picks its device, before it reads its config (here
+    a missing file, so that it stops there), whatever the device."""
+    import importlib
+
+    main = importlib.import_module(entry).main
+    with pytest.raises(FileNotFoundError):
+        main([str(tmp_path / "missing.yaml")], device="cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
