@@ -26,9 +26,11 @@ class StepArgs:
     as in the JAX package);
     ``corrector_disabled`` skips the post-step corrector (the train loop
     sets it during the first ``corrector_disabled_epochs``); ``labels``
-    are one-hot dataset labels ``[batch, n_labels]`` (no ported model is
-    conditioned on them yet: the trainer refuses them, and the FCN3 step
-    refuses them as ``ace_tpu``'s does)."""
+    are one-hot dataset labels ``[batch, n_labels]``, passed to a module
+    with ``n_labels`` set (the FCN3 step refuses them, as ``ace_tpu``'s
+    does); ``data_mask`` maps a variable some samples lack to its
+    ``[batch]`` presence (1 present, 0 missing), None when all are
+    present."""
 
     input: TensorMapping
     next_step_input_data: TensorMapping
@@ -37,6 +39,7 @@ class StepArgs:
     deterministic: bool = True
     corrector_disabled: bool = False
     labels: torch.Tensor | None = None
+    data_mask: TensorMapping | None = None
 
 
 @dataclasses.dataclass
@@ -123,3 +126,15 @@ class StepSelector(Selector):
 
     def get_step(self, dataset_info, device=None):
         return self.instance.get_step(dataset_info, device=device)
+
+    @property
+    def allow_missing_variables(self) -> bool:
+        """Whether the loader may give presence masks for missing
+        variables: True if any of the step's module builders allows it
+        (port of ace_tpu/core/step/base.py:169)."""
+        for field in ("builder", "radiation_builder", "secondary_builder"):
+            builder = getattr(self.instance, field, None)
+            if builder is not None and getattr(
+                    builder, "allow_missing_variables", False):
+                return True
+        return False

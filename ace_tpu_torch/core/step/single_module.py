@@ -35,6 +35,7 @@ from ace_tpu_torch.core.step.base import (
 )
 from ace_tpu_torch.core.step.global_mean_removal import (
     GlobalMeanRemovalConfig,
+    extra_channel_source_field,
 )
 from ace_tpu_torch.core.step.secondary_decoder import SecondaryDecoderConfig
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
@@ -297,35 +298,62 @@ class SingleModuleStep(StepBase):
         return {name: presence[i]
                 for i, name in enumerate(self.in_packer.names)}
 
+    def data_presence(self, args: StepArgs) -> TensorDict:
+        """The dataset's ``[batch]`` presence of each packed input channel
+        that ``args.data_mask`` names, as bool; a global-mean-removal
+        channel shares its source field's."""
+        if args.data_mask is None:
+            return {}
+        presence = {}
+        for name in self.in_packer.names:
+            source = extra_channel_source_field(name)
+            lookup = source if source is not None else name
+            if lookup in args.data_mask:
+                presence[name] = torch.as_tensor(
+                    args.data_mask[lookup], device=self.device).bool()
+        return presence
+
     def _channel_masks(self, packed: torch.Tensor,
+                       data_presence: TensorMapping,
                        dropout_presence: TensorMapping | None
                        ) -> torch.Tensor:
-        """The presence channels, packed as the inputs: ones, times the
-        dropout presence (dataset masks are not ported)."""
+        """The presence channels, packed as the inputs: the dataset's
+        presence of each sample (ones where the data mask does not name
+        the channel) and input dropout's, joined."""
         batch, spatial = packed.shape[0], packed.shape[1:-1]
-        ones = torch.ones((), dtype=packed.dtype, device=packed.device)
         masks = {}
         for name in self.in_packer.names:
-            real = ones
+            real = torch.ones(batch, dtype=torch.bool, device=packed.device)
+            if name in data_presence:
+                real = data_presence[name]
             if dropout_presence is not None and name in dropout_presence:
-                real = dropout_presence[name].to(packed.dtype)
-            masks[name] = real.expand(batch, *spatial)
+                real = real & dropout_presence[name]
+            masks[name] = real.to(packed.dtype).reshape(
+                -1, *(1,) * len(spatial)).expand(batch, *spatial)
         return self.in_packer.pack(masks)
 
     def step(self, args: StepArgs) -> StepOutput:
         config = self.config
         dropout_presence = self.draw_input_dropout_presence(args)
+        data_presence = self.data_presence(args)
+        network_kwargs = {}
+        if getattr(self.network, "n_labels", 0):
+            network_kwargs["labels"] = args.labels
 
         def network_call(input_norm, generator):
+            if data_presence:
+                input_norm = apply_input_mask(input_norm, data_presence)
             if dropout_presence is not None:
                 input_norm = apply_input_mask(input_norm, dropout_presence)
             packed = self.in_packer.pack(input_norm)
             if config.include_channel_mask_inputs:
                 packed = torch.cat(
-                    [packed, self._channel_masks(packed, dropout_presence)],
+                    [packed, self._channel_masks(packed, data_presence,
+                                                 dropout_presence)],
                     dim=-1)
             out_packed = self.network(packed, generator=generator,
-                                      deterministic=args.deterministic)
+                                      deterministic=args.deterministic,
+                                      **network_kwargs)
             output = self.out_packer.unpack(out_packed)
             if self.secondary_decoder is not None:
                 output.update(self.secondary_decoder(

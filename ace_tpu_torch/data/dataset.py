@@ -445,6 +445,15 @@ class MemoryDataset:
                 self.all_time[window])
 
 
+def _with_all_labels(info: DatasetInfo, datasets) -> DatasetInfo:
+    """``info`` with the sorted union of ``datasets``' labels, the labels
+    the loader one-hot encodes."""
+    labels = set()
+    for ds in datasets:
+        labels.update(ds.dataset_info.all_labels)
+    return dataclasses.replace(info, all_labels=tuple(sorted(labels)))
+
+
 @dataclasses.dataclass
 class ConcatDatasetConfig:
     """Time-concatenation of separately configured datasets
@@ -504,7 +513,11 @@ class ConcatXarrayDataset:
 
     @property
     def dataset_info(self) -> DatasetInfo:
-        return self._datasets[0].dataset_info
+        """The first dataset's, with the union of every dataset's labels
+        (``ace_tpu`` keeps the first's labels only, so that a model built
+        from it takes fewer labels than its loader gives)."""
+        return _with_all_labels(self._datasets[0].dataset_info,
+                                self._datasets)
 
     def n_windows(self, n_timesteps: int) -> int:
         """Samples never span segment boundaries (reference XarrayConcat
@@ -609,7 +622,9 @@ class MergedXarrayDataset:
         for ds in self._datasets[1:]:
             for k, v in ds.variable_metadata.items():
                 metadata.setdefault(k, v)
-        return dataclasses.replace(info, variable_metadata=metadata)
+        return _with_all_labels(
+            dataclasses.replace(info, variable_metadata=metadata),
+            self._datasets)
 
     def get_window(self, start: int, n_timesteps: int, names: list[str]):
         out: dict[str, np.ndarray] = {}

@@ -135,9 +135,15 @@ def build_train_stepper(nlat=NLAT, nlon=NLON, nz=NZ, embed=EMBED,
     score 0.1), AdamW at lr 1e-4 with a bf16 first moment and gradient
     clipping at 1.0, and the default EMA. Weights not drawn yet: call
     ``init`` (or ``stepper.init_params``)."""
-    stepper = build_stepper(nlat, nlon, nz, embed, layers, device=device,
-                            fused_block_tail=fused_block_tail,
-                            checkpointing=1)
+    return train_recipe(build_stepper(nlat, nlon, nz, embed, layers,
+                                      device=device,
+                                      fused_block_tail=fused_block_tail,
+                                      checkpointing=1))
+
+
+def train_recipe(stepper: Stepper) -> TrainStepper:
+    """``stepper`` in the flagship pretraining recipe of
+    :func:`build_train_stepper` (its loss, optimizer and EMA)."""
     return TrainStepper(
         stepper,
         StepperTrainConfig(
@@ -185,7 +191,8 @@ def draw_check_weights(stepper: Stepper, generator: torch.Generator):
     zero made large enough that a wrong filter or conditioning shows in
     the outputs. The noise conditioning (zero-initialized) gets std 0.1;
     the spectral filters (std 1/(in*out); an SFNO block's ``filter``,
-    FourCastNet3's ``global_conv``) get std 1/sqrt(in)."""
+    FourCastNet3's ``global_conv``) get std 1/sqrt(in); the LoRA adapters
+    (one factor zero-initialized) std 1/sqrt(fan-in) in each factor."""
     stepper.init_params(generator)
     with torch.no_grad():
         for name, p in stepper.module.named_parameters():
@@ -195,6 +202,12 @@ def draw_check_weights(stepper: Stepper, generator: torch.Generator):
                 # [2, L, I, O] (dhconv) or [2, L, M, I, O] (diagonal):
                 # the fan-in is I
                 p.normal_(std=p.shape[-2] ** -0.5, generator=generator)
+            elif name.endswith(("filter.lora_a", "filter.lora_b")):
+                # a spectral filter's [in, r, L, 2] and [r, out, L, 2]
+                p.normal_(std=p.shape[0] ** -0.5, generator=generator)
+            elif name.endswith(("lora_a.weight", "lora_b.weight")):
+                # a LoRADense's [r, in] and [out, r]
+                p.normal_(std=p.shape[1] ** -0.5, generator=generator)
 
 
 def fixed_noise(stepper: Stepper, noise: torch.Tensor):
@@ -206,12 +219,13 @@ def fixed_noise(stepper: Stepper, noise: torch.Tensor):
 
 
 def train_gradients(train_stepper: TrainStepper, batch, generator=None,
-                    smooth=False
+                    smooth=False, labels=None
                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """The loss of ``batch`` and the gradient of every parameter (by
-    ``named_parameters`` name), without an update. ``smooth`` takes them
-    under an MSE of the same outputs, targets and normalizer in place of
-    the train stepper's loss (see ``TRAIN_GRAD_TOL``)."""
+    """The loss of ``batch`` (with its ``labels``) and the gradient of
+    every parameter (by ``named_parameters`` name), without an update.
+    ``smooth`` takes them under an MSE of the same outputs, targets and
+    normalizer in place of the train stepper's loss (see
+    ``TRAIN_GRAD_TOL``)."""
     params = dict(train_stepper.module.named_parameters())
     for p in params.values():
         p.grad = None
@@ -223,7 +237,7 @@ def train_gradients(train_stepper: TrainStepper, batch, generator=None,
             normalizer=step_loss.loss.normalizer,
         )
     try:
-        loss, _ = train_stepper.loss_fn(batch, generator)
+        loss, _ = train_stepper.loss_fn(batch, generator, labels=labels)
     finally:
         train_stepper.step_loss = step_loss
     loss.backward()

@@ -26,55 +26,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ace_tpu_torch.models.layers import MLP
-from ace_tpu_torch.models.localnet import compute_cutoff_radius
+from ace_tpu_torch.models.localnet import GroupedDiscoConv
 from ace_tpu_torch.models.sfno import _ACTIVATIONS, SpectralConvS2
-from ace_tpu_torch.ops.distributed_disco import build_disco
 from ace_tpu_torch.ops.resample import ResampleS2
 from ace_tpu_torch.ops.sht import build_isht, build_sht
-
-
-class GroupedDiscoConv(nn.Module):
-    """The DISCO contraction and the grouped ``[K, G, Cin/G, Cout/G]``
-    weight mixing (port of ace_tpu/models/fcn3.py:33)."""
-
-    def __init__(self, in_shape, out_shape, in_chans, out_chans,
-                 kernel_shape=(3, 3), grid_in="equiangular",
-                 grid_out="legendre-gauss", groups=1, use_bias=False,
-                 theta_cutoff_factor=1.0, weight_gain=1.0,
-                 basis_type="piecewise linear", device=None):
-        super().__init__()
-        theta_cutoff = theta_cutoff_factor * compute_cutoff_radius(
-            in_shape[0], kernel_shape, basis_type)
-        self.conv = build_disco(
-            in_shape=in_shape, out_shape=out_shape,
-            kernel_shape=tuple(kernel_shape), grid_in=grid_in,
-            grid_out=grid_out, theta_cutoff=theta_cutoff,
-            basis_type=basis_type, device=device,
-        )
-        self.groups, self.out_chans = groups, out_chans
-        self.cin_g, cout_g = in_chans // groups, out_chans // groups
-        k = self.conv.kernel_size
-        self.init_std = weight_gain * math.sqrt(1.0 / (k * self.cin_g))
-        self.weight = nn.Parameter(torch.empty(
-            k, groups, self.cin_g, cout_g, device=device))
-        self.bias = (nn.Parameter(torch.empty(out_chans, device=device))
-                     if use_bias else None)
-
-    def reset_parameters(self, generator: torch.Generator | None = None):
-        with torch.no_grad():
-            nn.init.normal_(self.weight, std=self.init_std,
-                            generator=generator)
-            if self.bias is not None:
-                self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x.float())  # [..., H, W, K, Cin]
-        y = y.reshape(*y.shape[:-1], self.groups, self.cin_g)
-        out = torch.einsum("...jkgc,kgco->...jgo", y, self.weight)
-        out = out.reshape(*out.shape[:-2], self.out_chans)
-        if self.bias is not None:
-            out = out + self.bias
-        return out.to(x.dtype)
 
 
 class DiscoEncoder(nn.Module):

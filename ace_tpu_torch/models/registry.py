@@ -8,6 +8,8 @@ nlon, n_out]`` (``deterministic`` False turns on dropout, drawn from
 builder keeps the JAX package's field surface, so a config dict (or the
 config embedded in an ``ace_tpu`` checkpoint) builds both packages;
 options the port does not implement yet raise ``NotImplementedError``.
+A conditional module's ``n_labels`` tells the step to pass it the batch's
+labels.
 """
 
 import abc
@@ -37,11 +39,31 @@ class ModuleConfig(abc.ABC):
               dataset_info: DatasetInfo, device=None) -> nn.Module: ...
 
 
+# builders that take label conditioning (the JAX package's
+# CONDITIONAL_BUILDERS, ace_tpu/models/registry.py:37)
+CONDITIONAL_BUILDERS = (
+    "NoiseConditionedSFNO",
+    "LocalNet",
+    "SwinTransformer",
+    "NoiseConditionedSwinTransformer",
+)
+# the JAX package's builders that the port has not yet
+_UNPORTED = ("SwinTransformer", "NoiseConditionedSwinTransformer",
+             "LandNet", "HEALPixUNet", "FloeNet", "GraphCast")
+
+
 @dataclasses.dataclass
 class ModuleSelector(Selector):
     """``{type, config}`` module selection (port of
-    ace_tpu/models/registry.py:46). Label-conditioned models and
-    missing-variable masks are not ported yet."""
+    ace_tpu/models/registry.py:46).
+
+    conditional: condition predictions on the batch's labels; the builder
+        must be one of ``CONDITIONAL_BUILDERS`` and the dataset must have
+        labels. When False the module is built as if the dataset had none.
+    allow_missing_variables: the loader may give NaN-filled placeholders
+        and presence masks for variables a dataset lacks (read through
+        ``StepSelector.allow_missing_variables``).
+    """
 
     conditional: bool = False
     allow_missing_variables: bool = False
@@ -49,14 +71,15 @@ class ModuleSelector(Selector):
     _registry: ClassVar[Registry] = Registry()
 
     def __post_init__(self):
-        if self.conditional:
+        if self.conditional and self.type not in CONDITIONAL_BUILDERS:
+            raise ValueError(
+                "Conditional predictions require a conditional builder, "
+                f"got {self.type} (available: {CONDITIONAL_BUILDERS})"
+            )
+        if self.type in _UNPORTED:
             raise NotImplementedError(
-                "conditional (label) models are not ported yet (ROADMAP "
-                'Queue 1, "The rest of the slice-1 modules")')
-        if self.allow_missing_variables:
-            raise NotImplementedError(
-                "allow_missing_variables is not ported yet (ROADMAP Queue 1, "
-                '"The rest of the slice-1 modules")')
+                f"{self.type} is not ported yet (ROADMAP Queue 1, "
+                '"Other models")')
         super().__post_init__()
 
     @classmethod
@@ -75,6 +98,11 @@ class ModuleSelector(Selector):
 
     def build(self, n_in_channels, n_out_channels, dataset_info,
               device=None) -> nn.Module:
+        if self.conditional and len(dataset_info.all_labels) == 0:
+            raise ValueError("Conditional predictions require labels")
+        if not self.conditional and dataset_info.all_labels:
+            # unconditional models ignore the dataset's labels
+            dataset_info = dataclasses.replace(dataset_info, all_labels=())
         return self.instance.build(
             n_in_channels, n_out_channels, dataset_info, device=device
         )
@@ -379,23 +407,11 @@ class NoiseConditionedSFNOBuilder(ModuleConfig):
             )
         if self.separable:
             raise ValueError("'separable' is not supported")
-        unported = {
-            "local_blocks": bool(self.local_blocks),
-            "lora_rank > 0": self.lora_rank > 0,
-            "spectral_ratio < 1": self.spectral_ratio < 1.0,
-            "global_layer_norm": self.global_layer_norm,
-        }
-        for option, requested in unported.items():
-            if requested:
-                raise NotImplementedError(
-                    f"NoiseConditionedSFNO option {option} is not ported yet"
-                )
         compute_dtype(self.compute_dtype)
 
     def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
         from ace_tpu_torch.models.conditional_sfno import NoiseConditionedSFNO
 
-        # unconditional models ignore dataset labels, as in ace_tpu
         return NoiseConditionedSFNO(
             img_shape=dataset_info.img_shape,
             in_chans=n_in_channels,
@@ -412,11 +428,109 @@ class NoiseConditionedSFNOBuilder(ModuleConfig):
             big_skip=self.big_skip,
             normalize_big_skip=self.normalize_big_skip,
             affine_norms=self.affine_norms,
+            global_layer_norm=self.global_layer_norm,
             filter_residual=self.filter_residual,
             filter_output=self.filter_output,
             residual_filter_factor=self.residual_filter_factor,
+            local_blocks=(tuple(self.local_blocks)
+                          if self.local_blocks is not None else None),
+            kernel_shape=tuple(self.kernel_shape),
+            basis_type=self.basis_type,
+            spectral_ratio=self.spectral_ratio,
+            lora_rank=self.lora_rank,
+            n_labels=len(dataset_info.all_labels),
+            label_embed_dim=self.label_embed_dim,
             data_grid=self.data_grid,
             checkpointing=self.checkpointing,
             dtype=compute_dtype(self.compute_dtype),
+            device=device,
+        )
+
+
+@ModuleSelector.register("LocalNet")
+@dataclasses.dataclass
+class LocalNetBuilder(ModuleConfig):
+    """LocalNet builder with the JAX package's fields and defaults (port
+    of ace_tpu/models/registry.py:715). The data grid is the dataset's;
+    the network computes in float32 and takes no labels."""
+
+    embed_dim: int = 256
+    kernel_shape: tuple[int, int] = (3, 3)
+    basis_type: str = "piecewise linear"
+    noise_embed_dim: int = 256
+    noise_type: str = "gaussian"
+    block_types: list[str] = dataclasses.field(
+        default_factory=lambda: [
+            "disco", "disco", "disco", "disco",
+            "conv1x1", "conv1x1", "conv1x1", "conv1x1",
+        ]
+    )
+    global_layer_norm: bool = False
+    use_mlp: bool = True
+    mlp_ratio: float = 2.0
+    activation_function: str = "gelu"
+    encoder_layers: int = 1
+    pos_embed: bool = True
+    big_skip: bool = True
+    normalize_big_skip: bool = True
+    affine_norms: bool = True
+    lora_rank: int = 0
+    lora_alpha: float | None = None
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        from ace_tpu_torch.models.localnet import LocalNet
+
+        return LocalNet(
+            img_shape=dataset_info.img_shape,
+            in_chans=n_in_channels,
+            out_chans=n_out_channels,
+            embed_dim=self.embed_dim,
+            kernel_shape=tuple(self.kernel_shape),
+            basis_type=self.basis_type,
+            noise_embed_dim=self.noise_embed_dim,
+            noise_type=self.noise_type,
+            block_types=tuple(self.block_types),
+            global_layer_norm=self.global_layer_norm,
+            use_mlp=self.use_mlp,
+            mlp_ratio=self.mlp_ratio,
+            activation_function=self.activation_function,
+            encoder_layers=self.encoder_layers,
+            pos_embed=self.pos_embed,
+            big_skip=self.big_skip,
+            normalize_big_skip=self.normalize_big_skip,
+            affine_norms=self.affine_norms,
+            lora_rank=self.lora_rank,
+            lora_alpha=self.lora_alpha,
+            data_grid=dataset_info.horizontal_coordinates.grid,
+            device=device,
+        )
+
+
+@ModuleSelector.register("AnkurLocalNet")
+@dataclasses.dataclass
+class AnkurLocalNetBuilder(ModuleConfig):
+    """AnkurLocalNet builder with the JAX package's fields and defaults
+    (port of ace_tpu/models/registry.py:643); the data grid is the
+    dataset's."""
+
+    embed_dim: int = 256
+    use_disco_encoder: bool = True
+    disco_kernel_size: int = 3
+    pos_embed: bool = False
+    activation_function: str = "gelu"
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        from ace_tpu_torch.models.localnet import AnkurLocalNet
+
+        return AnkurLocalNet(
+            img_shape=dataset_info.img_shape,
+            in_chans=n_in_channels,
+            out_chans=n_out_channels,
+            embed_dim=self.embed_dim,
+            use_disco_encoder=self.use_disco_encoder,
+            disco_kernel_size=self.disco_kernel_size,
+            pos_embed=self.pos_embed,
+            activation_function=self.activation_function,
+            data_grid=dataset_info.horizontal_coordinates.grid,
             device=device,
         )

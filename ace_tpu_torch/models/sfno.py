@@ -8,8 +8,8 @@ or the FFT pair (``ops/fft2.py``). ``FourierNeuralOperatorBlock`` and
 ``SphericalFourierNeuralOperatorNet`` are the SFNO of the ACE2 recipes
 outside ERA5, with instance or layer norms, dropout and drop-path, a
 learned grid or frequency position embedding, weight-shared repeats and
-per-block recompute. Not ported: LoRA adapters and ``spectral_ratio``
-bottlenecks (``NoiseConditionedSFNO``'s builder refuses them) and the
+per-block recompute. ``SpectralConvS2`` also takes the conditional SFNO's
+``spectral_ratio`` bottleneck and its LoRA adapters. Not ported: the
 distributed transforms.
 """
 
@@ -74,6 +74,15 @@ class SpectralConvS2(nn.Module):
     2]`` (flax's layout) per axis of the dense weight, expanded each call
     into the dense complex weight term by term as the JAX package does.
 
+    ``spectral_ratio < 1`` narrows the filter path to ``round(C *
+    spectral_ratio)`` channels: ``pre_proj`` before the transform,
+    ``post_proj`` after the inverse (float32 denses, as flax's without a
+    dtype); the residual keeps the full width. ``lora_rank > 0`` (dhconv)
+    adds two complex float32 contractions with ``lora_a`` ``[c_in, r, L,
+    2]`` and ``lora_b`` ``[r, c_out, L, 2]`` (flax's layout, ``lora_b``
+    zero-initialized) to the filter's output; a bf16 filter's output then
+    sums to float32, as in JAX.
+
     Arithmetic, as ace_tpu/models/sfno.py:273-293: float32 activations
     take four float32 einsums. bfloat16 activations on a (non-separable)
     dhconv go through ``ops/dhconv_filter.py`` (the kernels on CUDA
@@ -88,16 +97,30 @@ class SpectralConvS2(nn.Module):
 
     def __init__(self, forward_transform, inverse_transform, in_channels,
                  out_channels, operator_type="dhconv", separable=False,
-                 use_bias=False, factorization=None, rank=1.0, device=None):
+                 use_bias=False, factorization=None, rank=1.0,
+                 spectral_ratio=1.0, lora_rank=0, device=None):
         super().__init__()
         if (operator_type, separable) not in _CONTRACTIONS:
             raise ValueError(f"Unsupported operator type {operator_type}")
+        if not 0.0 < spectral_ratio <= 1.0:
+            raise ValueError("spectral_ratio must be in (0, 1]")
         self.forward_transform = forward_transform
         self.inverse_transform = inverse_transform
-        self.in_channels, self.out_channels = in_channels, out_channels
         self.operator_type, self.separable = operator_type, separable
         modes_lat = inverse_transform.lmax
         modes_lon = inverse_transform.mmax
+        self.use_proj = spectral_ratio < 1.0
+        if self.use_proj:
+            if separable:
+                raise ValueError(
+                    "spectral_ratio requires non-separable filter")
+            width = round(in_channels * spectral_ratio)
+            self.pre_proj = Linear(in_channels, width, bias=False,
+                                   device=device)
+            self.post_proj = Linear(width, out_channels, bias=False,
+                                    device=device)
+            in_channels = out_channels = width
+        self.in_channels, self.out_channels = in_channels, out_channels
         dims = [in_channels] if separable else [in_channels, out_channels]
         dims += [modes_lat] if operator_type == "dhconv" else [modes_lat,
                                                                modes_lon]
@@ -120,8 +143,16 @@ class SpectralConvS2(nn.Module):
         else:
             self.weight = nn.Parameter(torch.empty(
                 self._port_shape(dims), device=device))
+        self.lora_rank = lora_rank if operator_type == "dhconv" else 0
+        if self.lora_rank > 0:
+            self.lora_a = nn.Parameter(torch.empty(
+                in_channels, lora_rank, modes_lat, 2, device=device))
+            self.lora_b = nn.Parameter(torch.empty(
+                lora_rank, out_channels, modes_lat, 2, device=device))
         self.bias = (
-            nn.Parameter(torch.empty(out_channels, device=device))
+            nn.Parameter(torch.empty(
+                self.post_proj.out_features if self.use_proj
+                else out_channels, device=device))
             if use_bias else None
         )
         self._kernel_weights = None
@@ -148,6 +179,9 @@ class SpectralConvS2(nn.Module):
                 for f in self._factors():
                     nn.init.normal_(f, std=scale ** (1.0 / len(self.dims)),
                                     generator=generator)
+            if self.lora_rank > 0:
+                nn.init.normal_(self.lora_a, std=scale, generator=generator)
+                self.lora_b.zero_()
             if self.bias is not None:
                 self.bias.zero_()
 
@@ -232,26 +266,45 @@ class SpectralConvS2(nn.Module):
         ein = functools.partial(torch.einsum, eq)
         return ein(xr, wr) - ein(xi, wi), ein(xr, wi) + ein(xi, wr)
 
+    def _lora(self, xr, xi):
+        """The adapter's two complex contractions, float32."""
+        la_r, la_i = self.lora_a[..., 0], self.lora_a[..., 1]
+        lb_r, lb_i = self.lora_b[..., 0], self.lora_b[..., 1]
+        ein_a = functools.partial(torch.einsum, "...lmi,irl->...lmr")
+        ein_b = functools.partial(torch.einsum, "...lmr,rol->...lmo")
+        ar = ein_a(xr, la_r) - ein_a(xi, la_i)
+        ai = ein_a(xr, la_i) + ein_a(xi, la_r)
+        return (ein_b(ar, lb_r) - ein_b(ai, lb_i),
+                ein_b(ar, lb_i) + ein_b(ai, lb_r))
+
     def forward(self, x: torch.Tensor):
         in_dtype = x.dtype
         ft, it = self.forward_transform, self.inverse_transform
         modes_lat, modes_lon = it.lmax, it.mmax
         use_pair = hasattr(ft, "forward_pair") and hasattr(it, "inverse_pair")
         regrid = (ft.nlat, ft.nlon, ft.grid) != (it.nlat, it.nlon, it.grid)
-        residual = x
+        residual = full_x = x
+        if self.use_proj:
+            x = self.pre_proj(x)
         if use_pair:
             xr_full, xi_full = ft.forward_pair(x.float())
             if regrid:
-                residual = it.inverse_pair(xr_full, xi_full).to(in_dtype)
+                residual = it.inverse_pair(
+                    *(ft.forward_pair(full_x.float()) if self.use_proj
+                      else (xr_full, xi_full))).to(in_dtype)
         else:
             # transforms without the real pair (the FFT pair): complex
             coeffs = ft(x.float())
             if regrid:
-                residual = it(coeffs).to(in_dtype)
+                residual = it(ft(full_x.float()) if self.use_proj
+                              else coeffs).to(in_dtype)
             xr_full, xi_full = coeffs.real, coeffs.imag
         xr = xr_full[..., :modes_lat, :modes_lon, :]
         xi = xi_full[..., :modes_lat, :modes_lon, :]
         outr, outi = self._filter(xr, xi, in_dtype == _BF16)
+        if self.lora_rank > 0:
+            lr, li = self._lora(xr, xi)
+            outr, outi = outr + lr, outi + li
 
         # re-pad to the forward transform's full (lmax, mmax)
         pad = (0, 0, 0, ft.mmax - modes_lon, 0, ft.lmax - modes_lat)
@@ -260,6 +313,8 @@ class SpectralConvS2(nn.Module):
             out = it.inverse_pair(outr, outi)
         else:
             out = it(torch.complex(outr.float(), outi.float()))
+        if self.use_proj:
+            out = self.post_proj(out)
         if self.bias is not None:
             out = out + self.bias
         return out.to(in_dtype), residual

@@ -391,31 +391,55 @@ class DiscoConvS2(nn.Module):
                                 gather_idx.astype(np.int64)))):
             self.register_buffer(name, value.to(device), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # each intermediate is dropped once used and each sum is taken in
-        # place: at the recipe's atmosphere decoder (32 folded samples at
-        # 180x360, 128 channels) they are 0.5-9.6 GB each
+    def _gathered(self, x):
+        """The forward DFT over lon and the band rows per output lat:
+        ``(xr_g, xi_g)``, each ``[..., T, W, m, C]`` float32."""
         x = x.float()
-        # forward DFT over lon: [..., lat, m, C]
         xr = torch.einsum("...kjc,jm->...kmc", x, self.fc)
         xi = torch.einsum("...kjc,jm->...kmc", x, self.fs)
-        # gather band rows per output lat: [..., T, W, m, C]
-        xr_g = xr[..., self.gather, :, :]
-        xi_g = xi[..., self.gather, :, :]
-        del xr, xi
-        # cross-correlation: Y = sum_w psi_conj * X (autograd keeps no
-        # einsum's output, so the sums may accumulate in place)
-        pr, pi = self.psi_r, self.psi_i
-        yr = torch.einsum("ktwm,...twmc->...tkmc", pr, xr_g)
-        yr = yr.sub_(torch.einsum("ktwm,...twmc->...tkmc", pi, xi_g))
-        yi = torch.einsum("ktwm,...twmc->...tkmc", pr, xi_g)
-        yi = yi.add_(torch.einsum("ktwm,...twmc->...tkmc", pi, xr_g))
-        del xr_g, xi_g
-        # inverse DFT: [..., T, K, lon, C]
-        out = torch.einsum("...tkmc,mj->...tkjc", yr, self.ic)
-        del yr
-        out = out.add_(torch.einsum("...tkmc,mj->...tkjc", yi, self.is_))
-        # stride subsample to nlon_out, move K next to channels
+        return xr[..., self.gather, :, :], xi[..., self.gather, :, :]
+
+    def _correlated(self, a, b, sign):
+        """The cross-correlation ``sum_w psi_r a + sign psi_i b``,
+        ``[..., T, m, K, C]``: the real part of ``Y = sum_w psi_conj * X``
+        from ``(xr_g, xi_g, -1)``, its imaginary part from ``(xi_g, xr_g,
+        1)``. Autograd keeps no einsum's output, so the sum may accumulate
+        in place."""
+        y = torch.einsum("ktwm,...twmc->...tmkc", self.psi_r, a)
+        return y.add_(torch.einsum("ktwm,...twmc->...tmkc", self.psi_i, b),
+                      alpha=sign)
+
+    def _inverse(self, parts):
+        """The inverse DFT over m of ``parts = [real, imag]``, each
+        ``[..., T, m, X]``, at the output longitudes only: ``[..., T,
+        lon_out, X]``. Each part is dropped from ``parts`` once used."""
         pscale = self.in_shape[1] // self.out_shape[1]
-        out = out[..., ::pscale, :]
-        return out.movedim(-3, -2)  # [..., T, lon_out, K, C]
+        out = torch.einsum("...tmx,mj->...tjx", parts.pop(0),
+                           self.ic[:, ::pscale])
+        return out.add_(torch.einsum("...tmx,mj->...tjx", parts.pop(0),
+                                     self.is_[:, ::pscale]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # each intermediate is dropped once used: at the recipe's
+        # atmosphere decoder (32 folded samples at 180x360, 128 channels)
+        # they are 0.5-9.6 GB each
+        xr_g, xi_g = self._gathered(x)
+        parts = [self._correlated(xr_g, xi_g, -1).flatten(-2),
+                 self._correlated(xi_g, xr_g, 1).flatten(-2)]
+        del xr_g, xi_g
+        # [..., T, lon_out, K, C]
+        return self._inverse(parts).unflatten(-1, (self.kernel_size, -1))
+
+    def mixed(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """``einsum("...jkc,kco->...jo", self(x), weight)`` float32, with
+        the weight ``[K, C, O]`` applied before the inverse DFT (both are
+        linear): one ``[K C, O]`` matmul per mode, and the inverse DFT
+        over O channels rather than K x C."""
+        k, c, o = weight.shape
+        w = weight.reshape(k * c, o)
+        xr_g, xi_g = self._gathered(x)
+        # [..., T, m, K, C] -> [..., T, m, O], one part alive at a time
+        parts = [self._correlated(xr_g, xi_g, -1).flatten(-2) @ w,
+                 self._correlated(xi_g, xr_g, 1).flatten(-2) @ w]
+        del xr_g, xi_g
+        return self._inverse(parts)

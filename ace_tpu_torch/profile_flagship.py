@@ -6,7 +6,8 @@ GPU.
                                              [--train | --inference |
                                               --evaluator | --shield |
                                               --som | --ocean |
-                                              --coupled | --fcn3]
+                                              --coupled | --fcn3 |
+                                              --local]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -77,7 +78,15 @@ it (batch 4, one forward step, MSE, AdamW, EMA: ``N`` untraced, default
 batch 2: ``N`` untraced, then 1 traced; ``fcn3_train_trace.json``,
 ``fcn3_rollout_trace.json``); its family table counts the DISCO
 contractions (``DiscoConvS2``'s forward and its backward) as a family of
-their own (``disco_relabel``).
+their own (``disco_relabel``). ``--local`` profiles path L: the
+flagship network with local DISCO blocks at 1, 3, 5 and 7 (bf16, embed
+512, conditioned on 2 labels, per-block recompute) in the pretraining
+recipe of ``--train``, a train step at batch 2 with the labels and a data
+mask that drops ``USWRFsfc`` (``N`` untraced, default 3, then 1 traced),
+then a rollout window as path L-I runs it (5 steps at batch 1; ``N``
+untraced, then 1 traced; ``local_train_trace.json``,
+``local_rollout_trace.json``); the local blocks' DISCO (``DiscoConvS2``'s
+forward and ``mixed``, and their backward) is a family of its own.
 Convolutions run with TF32 off, as every profile here.
 Writes the Chrome trace to
 ``DIR/flagship_trace.json`` (``flagship_train_trace.json``,
@@ -207,6 +216,10 @@ def main(argv=None):
     mode.add_argument("--fcn3", action="store_true",
                       help="path N: FourCastNet3's train step (batch 4), "
                            "then a rollout window (batch 2)")
+    mode.add_argument("--local", action="store_true",
+                      help="path L: the flagship with local blocks and "
+                           "labels: a train step (batch 2), then a rollout "
+                           "window (batch 1)")
     mode.add_argument("--som", action="store_true",
                       help="profile path M: the ACE2-SOM recipe's rollout "
                            "(f32, batch 4), then its bf16 multi-call train "
@@ -220,7 +233,8 @@ def main(argv=None):
         print_tables(device_events(args.read), args.traced_steps)
         return
     if args.steps is None:
-        args.steps = (2 if args.coupled else 3 if args.fcn3 else 5
+        args.steps = (2 if args.coupled else 3 if args.fcn3 or args.local
+                      else 5
                       if args.train or args.shield or args.som
                       or args.ocean else 100
                       if args.evaluator else 20)
@@ -274,6 +288,19 @@ def main(argv=None):
               f"f32):")
         _profile(rollout, args.steps, 1,
                  os.path.join(args.out, "fcn3_rollout_trace.json"),
+                 relabel=disco_relabel)
+        return
+    if args.local:
+        train, rollout = _local_runners(device)
+        print(f"path L-R train step (batch {TRAIN_BATCH} x 2 members, bf16, "
+              f"local blocks {LOCAL_BLOCKS}):")
+        _profile(train, args.steps, 1,
+                 os.path.join(args.out, "local_train_trace.json"),
+                 relabel=disco_relabel)
+        print(f"path L-I rollout window (batch 1, {INFERENCE_STEPS_IN_MEMORY} "
+              f"steps, bf16):")
+        _profile(rollout, args.steps, 1,
+                 os.path.join(args.out, "local_rollout_trace.json"),
                  relabel=disco_relabel)
         return
     if args.ocean:
@@ -931,18 +958,87 @@ def _fcn3_runners(device, nlat=180, nlon=360, embed=None, layers=None,
     ic = PrognosticState(data={k: series[k][:, :1]
                                for k in stepper.prognostic_names})
     forcing = {k: series[k] for k in stepper.forcing_window_names}
-    forward = DiscoConvS2.forward
-
-    def ranged(self, x):
-        with torch.profiler.record_function(DISCO_RANGE):
-            return forward(self, x)
-
-    if not hasattr(forward, "ranged"):
-        ranged.ranged = True
-        DiscoConvS2.forward = ranged
+    _ranged_disco()
 
     def train(n):
         return [ts.train_step(batch, torch.Generator(device).manual_seed(3))
+                for _ in range(n)]
+
+    def rollout(n):
+        for _ in range(n):
+            outputs = stepper.predict(ic, forcing)[0]
+        return outputs
+
+    return train, rollout
+
+
+def _ranged_disco():
+    """Run each ``DiscoConvS2.forward`` and ``DiscoConvS2.mixed`` in a
+    profiler range ``DISCO_RANGE`` (once per process)."""
+    from ace_tpu_torch.ops.disco import DiscoConvS2
+
+    for name in ("forward", "mixed"):
+        method = getattr(DiscoConvS2, name)
+        if hasattr(method, "ranged"):
+            continue
+
+        def ranged(self, *args, _method=method):
+            with torch.profiler.record_function(DISCO_RANGE):
+                return _method(self, *args)
+
+        ranged.ranged = True
+        setattr(DiscoConvS2, name, ranged)
+
+
+# path L's local blocks and its missing variable
+LOCAL_BLOCKS = [1, 3, 5, 7]
+LOCAL_MISSING = "USWRFsfc"
+
+
+def _local_runners(device, nlat=180, nlon=360, embed=None, layers=None):
+    """``(train, rollout)`` of path L's network in the pretraining recipe
+    (``flagship.build_train_stepper``'s loss, optimizer and EMA) at
+    ``nlat`` x ``nlon``: the flagship's with local DISCO blocks at
+    ``LOCAL_BLOCKS``, conditioned on 2 labels, ``LOCAL_MISSING``'s
+    presence 0. ``train(n)``: ``n`` train steps on one batch of
+    ``TRAIN_BATCH`` with labels of one and the data mask (returns their
+    metrics); ``rollout(n)``: ``n`` rollouts of
+    ``INFERENCE_STEPS_IN_MEMORY`` steps at batch 1 (returns the last
+    one's outputs). Weights from a seed; ``embed`` and ``layers`` make a
+    small copy."""
+    import dataclasses
+
+    from ace_tpu_torch.core.step import StepSelector
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    layers = layers or flagship.LAYERS
+    config, info = flagship.stepper_config(
+        nlat, nlon, embed=embed or flagship.EMBED, layers=layers,
+        checkpointing=1)
+    selector = config.step.config["builder"]
+    selector["config"]["local_blocks"] = [i for i in LOCAL_BLOCKS
+                                          if i < layers]
+    selector["conditional"] = True
+    selector["allow_missing_variables"] = True
+    info = dataclasses.replace(info, all_labels=("era5", "shield"))
+    stepper = StepperConfig(step=StepSelector(
+        type="single_module", config=config.step.config)).get_stepper(
+        info, device=device)
+    ts = flagship.train_recipe(stepper)
+    ts.init(torch.Generator(device).manual_seed(0))
+    batch = flagship.synthetic_batch(
+        stepper, TRAIN_BATCH, generator=torch.Generator(device).manual_seed(1))
+    batch[LOCAL_MISSING] = torch.full_like(batch[LOCAL_MISSING], float("nan"))
+    labels = torch.ones(TRAIN_BATCH, 2, device=device)
+    mask = {LOCAL_MISSING: torch.zeros(TRAIN_BATCH, device=device)}
+    ic, forcing = flagship.synthetic_inputs(
+        stepper, INFERENCE_STEPS_IN_MEMORY,
+        generator=torch.Generator(device).manual_seed(2))
+    _ranged_disco()
+
+    def train(n):
+        return [ts.train_step(batch, torch.Generator(device).manual_seed(3),
+                              labels=labels, data_mask=mask)
                 for _ in range(n)]
 
     def rollout(n):

@@ -292,14 +292,19 @@ class TrainStepper:
     def loss_fn(self, batch: TensorMapping,
                 generator: torch.Generator | None,
                 n_steps: int | None = None, deterministic: bool = False,
-                corrector_disabled: bool = False
+                corrector_disabled: bool = False,
+                labels: torch.Tensor | None = None,
+                data_mask: TensorMapping | None = None
                 ) -> tuple[torch.Tensor, TensorDict]:
         """Rollout loss over ``n_steps`` (default: the schedule's maximum).
 
         ``batch`` maps every input, forcing and target variable to ``[B,
         n_forward + 1, ...spatial]`` (index 0 the initial condition);
-        ``generator`` draws the model's noise. Returns ``(total, metrics)``
-        with ``metrics["loss"]`` and ``metrics["loss_step_<i>"]``.
+        ``generator`` draws the model's noise; ``labels`` ``[B, n_labels]``
+        and ``data_mask`` (a variable's ``[B]`` presence) are the batch's,
+        repeated over the ensemble for the step; the loss reads the mask
+        over the batch. Returns ``(total, metrics)`` with
+        ``metrics["loss"]`` and ``metrics["loss_step_<i>"]``.
         """
         step = self.stepper.step
         cfg = self.train_config
@@ -317,6 +322,10 @@ class TrainStepper:
             # jnp.repeat: [B, ...] -> [B*E, ...]
             return x if n_ens == 1 else x.repeat_interleave(n_ens, dim=0)
 
+        if labels is not None:
+            labels = expand_ens(labels)
+        step_mask = (None if data_mask is None else
+                     {k: expand_ens(v) for k, v in data_mask.items()})
         state = {k: expand_ens(batch[k][:, 0]) for k in prognostic_names}
         stepper_state = step.init_stepper_state(state)
 
@@ -333,6 +342,8 @@ class TrainStepper:
                 generator=generator,
                 deterministic=deterministic,
                 corrector_disabled=corrector_disabled,
+                labels=labels,
+                data_mask=step_mask,
             ))
             masked = self.stepper.output_masker(out.output)
             gen = {k: masked[k] for k in out_names}
@@ -343,7 +354,8 @@ class TrainStepper:
                 gen = {k: v.reshape(-1, n_ens, *v.shape[1:])
                        for k, v in gen.items()}
                 target = {k: v[:, None] for k, v in target.items()}
-            step_loss = self.step_loss(gen, target, t).total
+            step_loss = self.step_loss(gen, target, t,
+                                       data_mask=data_mask).total
             new_state = {k: masked[k] for k in prognostic_names}
             return step_loss, new_state, out.stepper_state
 
@@ -389,16 +401,20 @@ class TrainStepper:
     def train_step(self, batch: TensorMapping,
                    generator: torch.Generator | None,
                    n_steps: int | None = None,
-                   corrector_disabled: bool = False) -> TensorDict:
+                   corrector_disabled: bool = False,
+                   labels: torch.Tensor | None = None,
+                   data_mask: TensorMapping | None = None) -> TensorDict:
         """Forward, backward, gradient clipping, optimizer update and EMA
-        update. Returns the loss metrics and ``grad_norm`` (the global norm
+        update (``labels`` and ``data_mask`` as :meth:`loss_fn` takes them).
+        Returns the loss metrics and ``grad_norm`` (the global norm
         of the gradients before clipping), detached tensors on the device;
         nothing here waits for the device."""
         params = self.parameters()
         for p in params:
             p.grad = None
         total, metrics = self.loss_fn(batch, generator, n_steps,
-                                      corrector_disabled=corrector_disabled)
+                                      corrector_disabled=corrector_disabled,
+                                      labels=labels, data_mask=data_mask)
         total.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
@@ -417,11 +433,14 @@ class TrainStepper:
 
     def valid_step(self, batch: TensorMapping,
                    generator: torch.Generator | None,
-                   n_steps: int | None = None) -> TensorDict:
+                   n_steps: int | None = None,
+                   labels: torch.Tensor | None = None,
+                   data_mask: TensorMapping | None = None) -> TensorDict:
         """The loss metrics without gradients or updates."""
         with torch.no_grad():
             _, metrics = self.loss_fn(batch, generator, n_steps,
-                                      deterministic=True)
+                                      deterministic=True, labels=labels,
+                                      data_mask=data_mask)
         return metrics
 
     def base_weights(self) -> dict[str, torch.Tensor] | None:

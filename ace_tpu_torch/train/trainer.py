@@ -221,6 +221,8 @@ class TrainConfig:
             # only when they are in the loss
             names=sorted(set(step.input_names) | set(step.loss_names)),
             n_timesteps=self.n_forward_steps + 1,
+            allow_missing_variables=(
+                self.stepper.step.allow_missing_variables),
         )
         train_data = self.train_loader.build(
             requirements, train=True, seed=self.seed, device=device
@@ -535,16 +537,11 @@ class Trainer:
             epoch < self.train_stepper.corrector_disabled_epochs)
         for batch in self.train_data.iter_batches(skip):
             n_steps = self.train_stepper.sample_n_forward_steps(epoch)
-            if batch.labels is not None or batch.data_mask is not None:
-                raise NotImplementedError(
-                    "dataset labels and missing-variable masks in training "
-                    "are not ported yet (ROADMAP Queue 1, \"The rest of the "
-                    "slice-1 modules\")"
-                )
             with signals_deferred():
                 metrics = self.train_stepper.train_step(
                     batch.data, self.generator, n_steps,
                     corrector_disabled=corrector_disabled,
+                    labels=batch.labels, data_mask=batch.data_mask,
                 )
                 self.num_batches_seen += 1
                 self._epoch_batches_seen += 1
@@ -573,7 +570,8 @@ class Trainer:
                     if i >= n_eval:
                         break
                     losses.append(self.train_stepper.valid_step(
-                        batch.data, self.generator)["loss"])
+                        batch.data, self.generator, labels=batch.labels,
+                        data_mask=batch.data_mask)["loss"])
             if losses:
                 metrics_out["loss_independent_shuffle"] = float(
                     torch.stack(losses).double().mean())
@@ -600,7 +598,8 @@ class Trainer:
         with self._validation_weights():
             for batch in self.valid_data:
                 pending.append(self.train_stepper.valid_step(
-                    batch.data, self.generator))
+                    batch.data, self.generator, labels=batch.labels,
+                    data_mask=batch.data_mask))
                 count += 1
                 ic = {k: batch.data[k][:, :1] for k in prognostic}
                 forcing = {k: batch.data[k][:, :2] for k in forcing_names

@@ -184,6 +184,28 @@
      checkpoint (20 steps from 2 initial conditions in windows of 5: TF32
      off after it, no launch, no sync in ``run_inference``, within 1e-5
      of ``Stepper.predict``).
+   - path L, LocalNet and the conditional SFNO's options
+     (``local_paths``): K2 at 34 conditioning channels (a ragged shape
+     and L-A's) and K1, 1b, 1c at ``[1, 180, 181, 256]`` against their
+     plain versions, with their times and bounds; reference phase L
+     (small models card against CPU: the bf16 conditional SFNO with local
+     blocks, LoRA, ``spectral_ratio`` 0.5 and labels, f32 with the global
+     layer norm, LocalNet with both block types and isotropic noise,
+     AnkurLocalNet); L-R, the training entry on
+     ``configs/ace2-era5-train.yaml`` at full width with path R's cuts,
+     local blocks at 1, 3, 5 and 7, ``conditional`` over two concatenated
+     sources labelled ``era5`` and ``shield``, ``allow_missing_variables``
+     with ``L_MISSING`` absent from both (one epoch, then a bit-equal
+     resume: finite metrics but the missing variable's one-step ones, the
+     missing variable's loss term masked, exact launches, 2 K1, 1b and 1c
+     per spectral block a train step, no sync in the batch loop); L-I, the
+     inference entry over L-R's best checkpoint (20 steps at batch 1 in
+     windows of 5: 4 K1 a step, no sync, within 1e-5 of
+     ``Stepper.predict``); L-A, the same model with the fused tail (its
+     first step against the unfused one from check weights, then 20 steps:
+     8 K2 and 4 K1 a step); L-N, ``LocalNet`` at its builder's defaults in
+     the network's place (one epoch, then 20 inference steps: no launch, no
+     sync, within 1e-5 of ``Stepper.predict``).
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -191,9 +213,9 @@
    launch counts and that no step waits for the device, and print steps/s,
    samples/s and peak device memory.
 
-Prints a ``{"kernels": [...]}`` JSON line, then as its last line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
-line. Needs no network and imports nothing of JAX.
+Prints the seconds each section took, a ``{"kernels": [...]}`` JSON line,
+then as its last line ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero without that line. Needs no network and imports nothing of JAX.
 """
 
 import gc
@@ -1542,12 +1564,13 @@ R_SPLITS = (("train", R_TRAIN_TIMES, "2000-01-01T00:00"),
 
 
 def _training_files(tmp, names, nlat, nlon, generator, device,
-                    splits=R_SPLITS):
+                    splits=R_SPLITS, absent=()):
     """The netCDF files of ``names`` (with the vertical coordinate), one
     directory per split of ``splits`` (name, number of 6-hourly times,
     first time), and the three stats files the shipped config reads
     (from the first split), drawn from ``generator`` on ``device``;
-    returns their paths."""
+    the variables of ``absent`` are drawn for the stats but left out of
+    the data files. Returns their paths."""
     import numpy as np
 
     from ace_tpu_torch.core.coordinates import gaussian_latitudes
@@ -1567,6 +1590,8 @@ def _training_files(tmp, names, nlat, nlon, generator, device,
             data[name] = _draw(name, (n, nlat, nlon), generator,
                                device).cpu().numpy()
         series[split] = dict(data)
+        for name in absent:
+            del data[name]
         dims = {k: ("time", "lat", "lon") for k in data}
         for i, (a, b) in enumerate(zip(ak, bk)):
             data[f"ak_{i}"], data[f"bk_{i}"] = np.float32(a), np.float32(b)
@@ -2122,7 +2147,10 @@ EVAL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "ace-evaluator-config.yaml")
 # its first initial condition, which the synthetic file must hold
 E_START = "1940-01-01T12:00"
-E_STEPS = 100
+# its depth: two windows of 25 steps (the YAML's windows are 50 steps;
+# two keep the histograms' wait on the window before in the loop)
+E_STEPS = 50
+E_IN_MEMORY = 25
 # phase E-agg: windows of this many steps (the videos keep float64 host
 # arrays of every step, variable and grid point, on each side)
 E_AGG_WINDOW = 10
@@ -2161,14 +2189,14 @@ def _finite_files(directory, label):
 
 
 def evaluator_path(counters, ckpt, device="cuda", n_steps=E_STEPS,
-                   in_memory=None):
+                   in_memory=E_IN_MEMORY):
     """Path E: ``python -m ace_tpu_torch.evaluator``'s ``main`` on
     ``configs/baselines/era5/ace-evaluator-config.yaml`` over the flagship
     checkpoint ``ckpt`` (path I's), with path I's kind of cuts: the data
     a synthetic netCDF file from the YAML's first initial condition on
     (``engine: netcdf4``, held in host memory where h5py is missing),
-    ``n_steps`` steps in the YAML's windows (or ``in_memory``), no Weights
-    & Biases; the aggregator flags are the YAML's. Checks the launches,
+    ``n_steps`` steps in windows of ``in_memory`` (None: the YAML's), no
+    Weights & Biases; the aggregator flags are the YAML's. Checks the launches,
     no synchronizing call in ``run_inference`` but the histograms' wait on
     the window before, finite logs and diagnostics files. Returns the
     launches, the summary, the timer phases and the peak memory."""
@@ -3226,20 +3254,24 @@ def _sfno_zero_gradients(names):
 
 def _reference_case(label, counters, device, tols, make, dtype, inputs,
                     prepare=None, n_steps=2,
-                    zero_gradients=_sfno_zero_gradients):
+                    zero_gradients=_sfno_zero_gradients, labels=None,
+                    stepwise=False):
     """A rollout and one train step (MSE, ``n_steps`` forward steps) of
     the small model of ``make(dtype) -> (StepperConfig, DatasetInfo)`` on
     ``device``
     and the CPU from the same weights (``flagship.draw_check_weights``) and
     inputs (``inputs(stepper, generator) -> (ic, forcing, batch)``, drawn
-    on the CPU); ``prepare(train_stepper)`` runs on each side before.
+    on the CPU); ``prepare(train_stepper)`` runs on each side before;
+    ``labels`` (on the CPU) go to the train step.
 
     Each output is held within ``out_tol`` of its spatial anomaly plus
     1e-5 of its largest value (the dry-air target: a float32 global mean
     of ~1e5 Pa rounds differently on the two devices), over the cells
-    where it is not NaN, which must be the same on both sides. Each
-    gradient is
-    held within ``grad_tol`` of its norm plus 1e-6 of the largest
+    where it is not NaN, which must be the same on both sides. With
+    ``stepwise`` (which needs the noise fixed by ``prepare``, or none),
+    each step after the first is held against the CPU's step from the
+    card's state before it, not against the CPU's rollout, which the
+    first step's rounding has moved by then. Each gradient is held within ``grad_tol`` of its norm plus 1e-6 of the largest
     gradient's norm plus, in bf16, twice its own distance on the CPU from
     the float32 model's gradient: the instance norms make some gradients
     sums whose terms cancel to a small fraction of them, which keep the
@@ -3283,7 +3315,8 @@ def _reference_case(label, counters, device, tols, make, dtype, inputs,
             outputs, _ = ts.stepper.predict(
                 moved, {k: v.to(dev) for k, v in forcing.items()})
             loss, grads = flagship.train_gradients(
-                ts, {k: v.to(dev) for k, v in batch.items()})
+                ts, {k: v.to(dev) for k, v in batch.items()},
+                labels=None if labels is None else labels.to(dev))
             return outputs, loss, grads
 
         out.append(counted(counters, run))
@@ -3296,23 +3329,53 @@ def _reference_case(label, counters, device, tols, make, dtype, inputs,
         if prepare is not None:
             prepare(f32)
         f32.stepper.load_state_dict(weights)
-        _, f32_grads = flagship.train_gradients(f32, batch)
+        _, f32_grads = flagship.train_gradients(f32, batch, labels=labels)
         noise = {k: float((r.double() - f32_grads[k].double()).norm())
                  for k, r in ref_grads.items()}
     out_tol, loss_tol, grad_tol = tols
-    ratios = {}
-    for k, r in ref.items():
-        r, got = r.float(), res[k].float().cpu()
+    gated = ref
+    if stepwise:
+        # each step after the first against the CPU's step from the card's
+        # state before it (with the noise fixed, the CPU's step from its
+        # own state is within 0.01 of the allowed of its rollout's: PRESsfc
+        # rounds apart)
+        gated = {k: v.clone() for k, v in ref.items()}
+        for t in range(1, next(iter(ref.values())).shape[1]):
+            state = type(ic)(data={k: res[k][:, t - 1:t].cpu()
+                                   for k in ic.data})
+            one, _ = sides[0].stepper.predict(
+                state, {k: v[:, t:t + 2] for k, v in forcing.items()})
+            for k in gated:
+                gated[k][:, t] = one[k][:, 0]
+
+    def ratio(got, r):
+        """Each output's error over the allowed, ``[batch, time]``, or
+        None where the NaN cells differ."""
+        got, r = got.float().cpu(), r.float()
         if not torch.equal(torch.isnan(r), torch.isnan(got)):
-            ratios[k] = math.inf
-            continue
+            return None
         anomaly = (r - r.nanmean((-2, -1), keepdim=True)).abs().nan_to_num(
             0.0).amax((-2, -1))
         err = (got - r).abs().nan_to_num(0.0).amax((-2, -1))
         allowed = (out_tol * anomaly
                    + 1e-5 * r.abs().nan_to_num(0.0).amax((-2, -1)))
-        ratios[k] = float((err / allowed).max())
+        return err / allowed
+
+    ratios = {}
+    for k, r in gated.items():
+        found = ratio(res[k], r)
+        ratios[k] = math.inf if found is None else float(found.max())
     worst_out = max(ratios, key=ratios.get)
+    if stepwise:
+        # the card's later steps against the CPU's rollout, and the CPU's
+        # step from the card's state against it: the first step's rounding
+        # carried through the model (both on the CPU)
+        later = [max(float(x[:, 1:].max()) for x in
+                     (ratio(a[k], ref[k]) for k in ref) if x is not None)
+                 for a in (res, gated)]
+        print(f"{label}: later steps against the CPU's rollout: {device} "
+              f"{later[0]:.3g}, the CPU's step from the {device}'s state "
+              f"{later[1]:.3g} of the allowed")
     loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
     largest = max(float(r.double().norm()) for r in ref_grads.values())
     zero = zero_gradients(ref_grads)
@@ -6540,6 +6603,685 @@ def fcn3_paths(counters, smi, sizes=None, device="cuda"):
     return {k: out[k] for k in ("N-R", "N-I")}
 
 
+# path L: LocalNet and the conditional SFNO's options through the flagship
+# recipe. The recipe's network with local DISCO blocks at the odd indices
+# (spectral and local blocks in turn, as FourCastNet3's processor with its
+# ``sfno_block_frequency: 2``), conditioned on the labels of two sources
+# concatenated, each lacking one output-only variable of the recipe.
+L_LOCAL_BLOCKS = [1, 3, 5, 7]
+L_SOURCES = (("era5", "2000-01-01T00:00"), ("shield", "2010-01-01T00:00"))
+# an output-only variable of the recipe (a flux the corrector does not
+# read), absent from both sources: its targets are NaN placeholders and its
+# presence is 0 in every row
+L_MISSING = "USWRFsfc"
+# per source: 5 training times (4 windows of 2, so the two sources give 4
+# batches of 2, as path R's 9 times do) and 3 validation times (2 + 2
+# windows: 2 batches); the first source also holds L-I's 22 times
+L_TRAIN_TIMES, L_VALID_TIMES = 5, 3
+L_WINDOW = 5
+L_PREDICT_TOL = 1e-5
+# K2 at the conditioning width of path L: 32 noise channels and 2 labels
+L_NOISE = 34
+# reference L at 16x32: the conditional SFNO at embed 64 (K1 at spectral
+# width 32 with spectral_ratio 0.5), LocalNet and AnkurLocalNet at embed 16
+L_REFERENCE = {"nlat": 16, "nlon": 32, "embed": 64, "layers": 4,
+               "local_embed": 16}
+
+
+def _local_blocks(layers):
+    return [i for i in L_LOCAL_BLOCKS if i < layers]
+
+
+def local_files(tmp, nlat, nlon, generator, device):
+    """The two sources' files (``L_SOURCES``: training and validation
+    times each, the first also L-I's inference times) of every variable of
+    the recipe but ``L_MISSING``, and the stats files of the first
+    (``L_MISSING`` included); returns the first source's paths with the
+    second's directories under ``"sources"``."""
+    names = _recipe_names()
+    sources = []
+    for i, (label, start) in enumerate(L_SOURCES):
+        year = int(start[:4])
+        splits = [("train", L_TRAIN_TIMES, start),
+                  ("valid", L_VALID_TIMES, f"{year + 1}{start[4:]}")]
+        if i == 0:
+            splits.append(("inference", N_STEPS + 2,
+                           f"{year + 2}{start[4:]}"))
+        sources.append(_training_files(
+            os.path.join(tmp, label), names, nlat, nlon, generator, device,
+            splits=tuple(splits), absent=(L_MISSING,)))
+    paths = dict(sources[0])
+    paths["sources"] = sources
+    return paths
+
+
+def _recipe_names():
+    step = _yaml(TRAIN_CONFIG)["stepper"]["step"]["config"]
+    return sorted(set(step["in_names"]) | set(step["out_names"]))
+
+
+def _local_config(paths, experiment_dir, sizes=None, builder=None):
+    """The flagship recipe with path R's cuts (``_train_config``) and path
+    L's settings: ``local_blocks`` at ``L_LOCAL_BLOCKS`` (the builder's
+    defaults otherwise: morlet, 3x3), ``conditional`` over the two
+    sources' labels, ``allow_missing_variables``; both loaders read the
+    sources concatenated. ``builder`` (a ``{type, config}``) replaces the
+    network. Returns the config and the indices of the spectral blocks."""
+    sizes = sizes or {}
+    config, layers = _train_config(paths, experiment_dir,
+                                   sizes.get("embed"), sizes.get("layers"))
+    for loader, split in (("train_loader", "train"),
+                          ("validation_loader", "valid")):
+        config[loader]["dataset"] = {"concat": [
+            {"data_path": source[split], "labels": [label]}
+            for (label, _), source in zip(L_SOURCES, paths["sources"])]}
+    # the inline inference reads the first source's inference times
+    config["inference"]["loader"]["dataset"]["data_path"] = paths[
+        "inference"]
+    selector = config["stepper"]["step"]["config"]["builder"]
+    local = _local_blocks(layers)
+    selector["config"]["local_blocks"] = local
+    if builder is not None:
+        selector.update(builder)
+    selector["conditional"] = True
+    selector["allow_missing_variables"] = True
+    spectral = [i for i in range(layers) if i not in local]
+    return config, (spectral if builder is None else [])
+
+
+def _masked_loss_probe(records):
+    """A context in which the trainer's first validation of each run
+    starts by holding the loss of a validation batch with its data mask
+    against the same with ``L_MISSING``'s NaN targets replaced by finite
+    values (equal: the term is masked) and without the mask (unequal);
+    ``records`` gets (mask, masked, refilled, unmasked)."""
+    import contextlib
+
+    import torch
+
+    from ace_tpu_torch.train.trainer import Trainer
+
+    original = Trainer.validate
+
+    def validate(self, *args, **kwargs):
+        if len(records) < 2:
+            batch = next(iter(self.valid_data))
+            ts = self.train_stepper
+
+            def loss(data, mask):
+                return float(ts.valid_step(
+                    data, torch.Generator(self.device).manual_seed(5),
+                    labels=batch.labels, data_mask=mask)["loss"])
+
+            refilled = dict(batch.data)
+            refilled[L_MISSING] = torch.randn_like(batch.data[L_MISSING])
+            mask = {k: v.tolist() for k, v in
+                    (batch.data_mask or {}).items()}
+            records.append((mask, loss(batch.data, batch.data_mask),
+                            loss(refilled, batch.data_mask),
+                            loss(batch.data, None)))
+        return original(self, *args, **kwargs)
+
+    @contextlib.contextmanager
+    def context():
+        Trainer.validate = validate
+        try:
+            yield
+        finally:
+            Trainer.validate = original
+
+    return context()
+
+
+def _metrics_lines(label, out_dir, n_epochs):
+    """``metrics.jsonl``'s lines: one per epoch, every value finite but the
+    one-step metrics of ``L_MISSING`` (NaN targets, as in ``ace_tpu``),
+    which are printed."""
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    bad = sorted({k for line in lines for k, v in line.items()
+                  if not math.isfinite(v)})
+    missing = [k for k in bad if k.endswith(L_MISSING)]
+    print(f"{label}: {len(lines)} metrics.jsonl lines of {len(lines[-1])} "
+          f"metrics; not finite: {missing} (the missing variable's "
+          f"one-step metrics)")
+    if len(lines) != n_epochs or len(bad) != len(missing):
+        raise AssertionError(f"{label}: {len(lines)} metrics.jsonl lines, "
+                             f"not finite: {bad[:8]}")
+    return lines
+
+
+def local_train_path(counters, device="cuda", sizes=None, then=None):
+    """Path L-R: the training entry's ``main`` on ``_local_config`` (the
+    flagship recipe at full width unless ``sizes`` gives ``nlat``,
+    ``nlon``, ``embed``, ``layers``) over ``local_files``: one epoch, then
+    a resume that must be bit-equal. Checks finite metrics (but the
+    missing variable's one-step metrics), the checkpoint files, the
+    missing variable's loss term masked (``_masked_loss_probe``), the
+    launches of each phase (per train step 2 K1 in each spectral block,
+    forward and recompute, and one 1b and one 1c; per validation batch 2
+    K1 in each; per inline step 1 K1 in each; no K2) and no sync in the
+    batch loop. ``then(paths, best)`` runs after the gates inside the
+    context that holds the files. Returns the launches, the rates and the
+    first run's peak."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    label = "path L-R"
+    sizes = sizes or {}
+    nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
+    cuda = torch.device(device).type == "cuda"
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as tmp, files:
+        paths = local_files(tmp, nlat, nlon,
+                            torch.Generator(device).manual_seed(13), device)
+        out_dir = os.path.join(tmp, "experiment")
+        config, spectral = _local_config(paths, out_dir, sizes)
+        path = _write_yaml(os.path.join(tmp, "local.yaml"), config)
+        selector = config["stepper"]["step"]["config"]["builder"]
+        print(f"{label}: {TRAIN_CONFIG} at {nlat}x{nlon}, sources "
+              f"{[s for s, _ in L_SOURCES]} concatenated, {L_MISSING} "
+              f"absent from both; builder {selector}")
+        probes = []
+        runs, launches, rates, restored, _, n_params = _epoch_then_resume(
+            label, path, counters, device,
+            lambda: [_masked_loss_probe(probes)])
+        ckpt_dir = os.path.join(out_dir, "training_checkpoints")
+        files_found = sorted(os.listdir(ckpt_dir))
+        lines = _metrics_lines(label, out_dir, 2)
+        print(f"{label}: {n_params} parameters; batch loop {rates[0]:.4f} "
+              f"(epoch 1) and {rates[1]:.4f} (epoch 2) train steps/s at "
+              f"batch {R_BATCH} (x2 ensemble members); losses by epoch: "
+              f"train {[line['train/loss'] for line in lines]}, validation "
+              f"{[line['val/loss'] for line in lines]}; checkpoint files "
+              f"{files_found}")
+        want_files = {"ckpt.msgpack", "best_ckpt.msgpack", "ema_ckpt.msgpack",
+                      "best_inference_ckpt.msgpack"}
+        if not want_files <= set(files_found):
+            raise AssertionError(f"{label}: checkpoint files {files_found}")
+        _check_resume(label, runs, restored)
+        for mask, masked, refilled, unmasked in probes:
+            print(f"{label}: a validation batch's loss with its data mask "
+                  f"{mask}: {masked!r}; {L_MISSING}'s targets refilled: "
+                  f"{refilled!r}; without the mask: {unmasked!r}")
+            if not (mask == {L_MISSING: [0.0] * R_BATCH}
+                    and math.isfinite(masked) and masked == refilled
+                    and masked != unmasked):
+                raise AssertionError(f"{label}: the missing variable's loss "
+                                     "term is not masked")
+        if len(probes) != 2:
+            raise AssertionError(f"{label}: {len(probes)} mask probes")
+        _check_local_launches(label, launches, counters, len(spectral), cuda)
+        if then is not None:
+            then(paths, os.path.join(ckpt_dir, "best_ckpt.msgpack"))
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates, runs[0]["peak"]
+
+
+def _check_local_launches(label, launches, counters, n_spectral, cuda):
+    none = {c.__name__: 0 for c in counters}
+    per_epoch = 2 * (L_TRAIN_TIMES - 1) // R_BATCH
+    n_valid = 2 * (L_VALID_TIMES - 1) // R_BATCH
+    if cuda:
+        want = {
+            "_train_batches": {**none,
+                               "dhconv_filter": 2 * n_spectral * per_epoch,
+                               "dhconv_filter_dx": n_spectral * per_epoch,
+                               "dhconv_filter_dw": n_spectral * per_epoch},
+            "validate": {**none, "dhconv_filter": 2 * n_spectral * n_valid},
+            "inference_one_epoch": {
+                **none, "dhconv_filter": n_spectral * R_INFERENCE_STEPS},
+        }
+    else:  # the plain versions
+        want = dict.fromkeys(launches, none)
+    for phase, counts in launches.items():
+        print(f"{label}: launches per {phase} call {counts} (want "
+              f"{want[phase]} each)")
+        if any(c != want[phase] for c in counts):
+            raise AssertionError(f"{label}: launches in {phase}")
+
+
+def local_inference_path(counters, paths, ckpt, n_spectral, device="cuda",
+                         n_steps=N_STEPS, window=L_WINDOW, label="path L-I"):
+    """Path L-I (or, over L-N's checkpoint, the inference of L-N): the
+    inference entry's ``main`` over ``ckpt`` from the first time of the
+    first source's inference file (batch 1), ``n_steps`` steps in windows
+    of ``window``, writer off (then on). Checks finite outputs, one K1 per
+    spectral block and step (on the card) and no other launch, no sync in
+    ``run_inference`` and the written predictions within ``L_PREDICT_TOL``
+    of one ``Stepper.predict``. Returns the launches, the rate, the
+    predict's initial condition, forcing and outputs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.stepper import checkpoint
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    cuda = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, written = _entry_from_files(
+            tmp, ckpt, None, None, None, counters, device, n_steps, window,
+            cuda, data_dir=paths["inference"], starts=(0,), label=label)
+    stepper = checkpoint.load_stepper(ckpt, device=device)
+    names = sorted(set(stepper.prognostic_names)
+                   | set(stepper.forcing_window_names))
+    series = _read_series(paths["inference"], names)
+    errs, worst, drift = _check_written(label, stepper, series, written, [0],
+                                        n_steps)
+    summary, launches, phases, peak = runs[False]
+    rate = summary["total_steps_per_second"]
+    print(f"{label}: {summary['total_steps']} steps at {rate:.4f} steps/s "
+          f"(batch 1, windows of {window}, writer off; "
+          f"{runs[True][0]['total_steps_per_second']:.4f} with it on); "
+          f"phases { {k: round(v, 4) for k, v in sorted(phases.items())} }; "
+          f"peak device memory {peak:.2f} GB; launches {launches}")
+    print(f"{label}: written predictions vs one {n_steps}-step predict: "
+          f"largest error {errs[worst]:.3g} of the channel's spatial std "
+          f"({worst}; tol {L_PREDICT_TOL}); dry-air drift {drift:.4f} Pa")
+    none = {c.__name__: 0 for c in counters}
+    want = ({**none, "dhconv_filter": n_spectral * n_steps} if cuda
+            else none)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    if not (errs[worst] <= L_PREDICT_TOL and drift < 1.0):
+        raise AssertionError(f"{label}: the written predictions disagree "
+                             "with Stepper.predict")
+    ic = PrognosticState(data={
+        k: torch.as_tensor(np.stack([series[k][0:1]])).to(device)
+        for k in stepper.prognostic_names})
+    forcing = {k: torch.as_tensor(np.stack([series[k][:n_steps + 1]]))
+               .to(device) for k in stepper.forcing_window_names}
+    return launches, rate, stepper, ic, forcing
+
+
+def local_fused_path(counters, stepper, ic, forcing, n_spectral,
+                     device="cuda"):
+    """Path L-A: L-I's model with the fused tail, as path A runs: the
+    first step against the unfused model's from the same check weights
+    (``flagship.draw_check_weights``) within ``flagship.CHECK_TOL`` of each
+    output's spatial anomaly, then (the checkpoint's weights back) a
+    20-step rollout with one K1 per spectral block and one K2 per block a
+    step, no sync, and every step of its outputs within the same limit of
+    the unfused rollout's. Returns the launches and the rate."""
+    import torch
+
+    from ace_tpu_torch import flagship
+
+    label = "path L-A"
+    cuda = torch.device(device).type == "cuda"
+    weights = {k: v.clone() for k, v in stepper.module.state_dict().items()}
+    ref_all, _ = stepper.predict(ic, forcing,
+                                 generator=torch.Generator(
+                                     device).manual_seed(0))
+    flagship.draw_check_weights(stepper,
+                                torch.Generator(device).manual_seed(5))
+    window = {k: v[:, :2] for k, v in forcing.items()}
+    ref, _ = stepper.predict(ic, window)
+    stepper.module.use_fused_block_tail(True)
+    out, _ = stepper.predict(ic, window)
+    errs = {k: flagship.anomaly_error(out[k], ref[k], (-2, -1)) for k in ref}
+    worst = max(errs, key=errs.get)
+    print(f"{label}: first step, fused vs unfused (check weights): largest "
+          f"error over the anomaly {errs[worst]:.4g} ({worst}; tol "
+          f"{flagship.CHECK_TOL})")
+    if not errs[worst] <= flagship.CHECK_TOL:
+        raise AssertionError(f"{label}: the fused first step disagrees")
+    stepper.load_state_dict(weights)
+    layers = stepper.module.num_layers
+    none = {c.__name__: 0 for c in counters}
+    want = ({**none, "dhconv_filter": n_spectral * N_STEPS,
+             "fused_block_tail": layers * N_STEPS} if cuda else none)
+    if cuda:
+        rate, launches = rollout("L-A", stepper, ic, forcing, counters, want)
+    else:
+        launches, rate = none, 0.0
+    got, _ = stepper.predict(ic, forcing,
+                             generator=torch.Generator(device).manual_seed(0))
+    stepper.module.use_fused_block_tail(False)
+    errs = {k: max(flagship.anomaly_error(got[k][:, t], ref_all[k][:, t],
+                                          (-2, -1))
+                   for t in range(N_STEPS)) for k in ref_all}
+    worst = max(errs, key=errs.get)
+    print(f"{label}: {N_STEPS} steps, fused vs L-I's unfused rollout from "
+          f"the checkpoint's weights: largest error over the anomaly "
+          f"{errs[worst]:.4g} ({worst}; tol {flagship.CHECK_TOL})")
+    if not errs[worst] <= flagship.CHECK_TOL:
+        raise AssertionError(f"{label}: the fused rollout disagrees with "
+                             "the unfused one")
+    return launches, rate
+
+
+def local_net_path(counters, device="cuda", sizes=None):
+    """Path L-N: ``LocalNet`` at its builder's defaults (fme's: embed 256,
+    4 ``disco`` and 4 ``conv1x1`` blocks, noise 256, piecewise linear 3x3,
+    float32) in place of the network of path L's config, through the
+    training entry for one epoch (batch 2), then the inference entry for
+    20 steps over its best checkpoint. No launch, no sync in the batch
+    loop and in ``run_inference``, the predictions within
+    ``L_PREDICT_TOL`` of ``Stepper.predict``. Returns the launches, the
+    batch loop's rate and the rollout's."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.train.train import main as train_main
+
+    label = "path L-N"
+    sizes = sizes or {}
+    nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
+    cuda = torch.device(device).type == "cuda"
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as tmp, files:
+        paths = local_files(tmp, nlat, nlon,
+                            torch.Generator(device).manual_seed(17), device)
+        out_dir = os.path.join(tmp, "experiment")
+        builder = {"type": "LocalNet",
+                   "config": {k: v for k, v in sizes.items()
+                              if k in ("embed_dim", "noise_embed_dim")}}
+        config, _ = _local_config(paths, out_dir, sizes, builder=builder)
+        path = _write_yaml(os.path.join(tmp, "localnet.yaml"), config)
+        print(f"{label}: builder {builder} in path L-R's config")
+        launches, rates = {}, []
+        GlobalTimer.reset()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with _phase_probes(counters, launches, rates, cuda, None):
+            trainer = train_main([path], device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in trainer.stepper.module.parameters())
+        phases = GlobalTimer.get_instance().get_durations()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        lines = _metrics_lines(label, out_dir, 1)
+        print(f"{label}: {n_params} parameters; batch loop {rates[0]:.4f} "
+              f"train steps/s at batch {R_BATCH}; train loss "
+              f"{lines[0]['train/loss']}, validation {lines[0]['val/loss']};"
+              f" phases { {k: round(v, 4) for k, v in sorted(phases.items())} }"
+              f"; peak device memory {peak:.2f} GB")
+        _check_no_launches(label, counters, launches)
+        ckpt = os.path.join(out_dir, "training_checkpoints",
+                            "best_ckpt.msgpack")
+        inf_launches, rate, *_ = local_inference_path(
+            counters, paths, ckpt, 0, device, label="path L-N (inference)")
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) + inf_launches[c.__name__]
+             for c in counters}
+    return total, rates[0], rate
+
+
+def local_stepper_config(kind, dtype="float32", sizes=None):
+    """A small stepper config of path L's shape (``flagship.stepper_config``
+    at 2 levels) with the network ``kind``: "sfno" (the conditional SFNO:
+    local blocks, LoRA rank 2, ``spectral_ratio`` 0.5, conditioned on two
+    labels), "global-norm" (the conditional SFNO with the global layer
+    norm and affine norms), "localnet" (both block types, isotropic
+    noise) or "ankur"; and its dataset info (with the labels)."""
+    import dataclasses
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.core.step import StepSelector
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    sizes = dict(L_REFERENCE, **(sizes or {}))
+    config, info = flagship.stepper_config(sizes["nlat"], sizes["nlon"],
+                                           nz=2)
+    step = config.step.config
+    builder = dict(step["builder"]["config"], embed_dim=sizes["embed"],
+                   num_layers=sizes["layers"], compute_dtype=dtype)
+    selector = {"type": "NoiseConditionedSFNO", "config": builder}
+    if kind == "sfno":
+        builder.update(local_blocks=_local_blocks(sizes["layers"]),
+                       lora_rank=2, spectral_ratio=0.5)
+        selector["conditional"] = True
+        info = dataclasses.replace(
+            info, all_labels=tuple(s for s, _ in L_SOURCES))
+    elif kind == "global-norm":
+        builder.update(global_layer_norm=True)
+    elif kind == "localnet":
+        selector = {"type": "LocalNet", "config": {
+            "embed_dim": sizes["local_embed"], "noise_embed_dim": 8,
+            "noise_type": "isotropic", "lora_rank": 2,
+            "block_types": ["disco", "conv1x1"]}}
+    elif kind == "ankur":
+        selector = {"type": "AnkurLocalNet", "config": {
+            "embed_dim": sizes["local_embed"], "pos_embed": True}}
+    step["builder"] = selector
+    network = step["normalization"]["network"]
+    network["means"]["PRESsfc"], network["stds"]["PRESsfc"] = 1.0e5, 100.0
+    for name in network["stds"]:
+        if name.startswith("specific_total_water"):
+            network["stds"][name] = 1e-3
+    return StepperConfig(step=StepSelector(type="single_module",
+                                           config=step)), info
+
+
+def _fixed_noise_prepare(kind, sizes):
+    """``prepare`` for ``_reference_case``: both sides (and the float32
+    copy) condition on one noise field drawn on the CPU (isotropic for
+    LocalNet, through its own inverse SHT); None for AnkurLocalNet."""
+    import torch
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.models.conditional_sfno import isotropic_noise
+    from ace_tpu_torch.ops.sht import build_isht
+
+    if kind == "ankur":
+        return None
+    sizes = dict(L_REFERENCE, **(sizes or {}))
+    nlat, nlon = sizes["nlat"], sizes["nlon"]
+    gen = torch.Generator().manual_seed(9)
+    if kind == "localnet":
+        noise = isotropic_noise(build_isht(nlat, nlon, grid="legendre-gauss"),
+                                2, 8, gen)
+    else:
+        noise = torch.randn(2, nlat, nlon, 32, generator=gen)
+
+    def prepare(ts):
+        flagship.fixed_noise(ts.stepper, noise)
+
+    return prepare
+
+
+def reference_local_phase(counters, device="cuda", sizes=None):
+    """Reference phase L: small models of path L's shape on ``device``
+    against the CPU from the same weights, inputs and noise (a 2-step
+    rollout and one MSE train step of 2 steps, ``_reference_case``; the
+    second rollout step held against the CPU's step from the card's first,
+    since one rounding of the state moves LocalNet's random network's next
+    step by more than the allowed): the bf16 conditional SFNO with
+    local blocks, LoRA, ``spectral_ratio`` 0.5 and labels (the train step
+    with the labels [1, 1] the loader gives; the rollout with none, as
+    ``Stepper.predict``) within the flagship's bf16 limits, with K1, 1b
+    and 1c at spectral width 32; float32 with the global layer norm,
+    LocalNet (both block types, isotropic noise) and AnkurLocalNet within
+    reference S's float32 limits, no launch."""
+    import torch
+
+    from ace_tpu_torch import flagship
+
+    none = {c.__name__: 0 for c in counters}
+    cuda = torch.device(device).type == "cuda"
+    f32 = (S_F32_TOL, S_F32_LOSS_TOL, S_F32_GRAD_TOL)
+    bf16 = (flagship.CHECK_TOL, flagship.TRAIN_LOSS_TOL,
+            flagship.TRAIN_GRAD_TOL)
+
+    def inputs(stepper, gen):
+        ic, forcing = flagship.synthetic_inputs(stepper, 2, batch=2,
+                                                generator=gen)
+        return ic, forcing, flagship.synthetic_batch(
+            stepper, 2, n_forward_steps=2, generator=gen)
+
+    labels = torch.ones(2, len(L_SOURCES))
+    n_spectral = (L_REFERENCE["layers"]
+                  - len(_local_blocks(L_REFERENCE["layers"])))
+    out = {}
+    for kind, dtype, tols in (("sfno", "bfloat16", bf16),
+                              ("global-norm", "float32", f32),
+                              ("localnet", "float32", f32),
+                              ("ankur", "float32", f32)):
+        launches = _reference_case(
+            f"reference L ({kind}, {dtype})", counters, device, tols,
+            lambda dt, kind=kind: local_stepper_config(kind, dt, sizes),
+            dtype, inputs, prepare=_fixed_noise_prepare(kind, sizes),
+            zero_gradients=lambda names: set(),
+            labels=labels if kind == "sfno" else None,
+            stepwise=True)
+        # bf16: 2 rollout and 2 loss steps of the spectral blocks: K1 in
+        # each forward, 1b and 1c in each backward
+        want = ({**none, "dhconv_filter": 4 * n_spectral,
+                 "dhconv_filter_dx": 2 * n_spectral,
+                 "dhconv_filter_dw": 2 * n_spectral}
+                if cuda and dtype == "bfloat16" else none)
+        if launches != want:
+            raise AssertionError(f"reference L ({kind}): launches "
+                                 f"{launches}, want {want}")
+        out[kind] = launches
+    return out
+
+
+def local_kernel_phase(gen):
+    """Path L's kernel shapes against the plain versions, with their times
+    and bounds: K2 at the conditioning width ``L_NOISE`` (a ragged shape,
+    then L-A's: a flagship block's rows), and K1, 1b and 1c at
+    ``[1, 180, 181, 256]`` (the spectral width of ``spectral_ratio`` 0.5
+    at embed 512). Returns each kernel's row for the ``kernels`` line."""
+    import torch
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.ops.fused_block_tail import (
+        fused_block_tail,
+        fused_block_tail_plain,
+    )
+
+    rows = {}
+
+    def tail_check(args, label):
+        err, scale = max_err((fused_block_tail(*args),),
+                             (fused_block_tail_plain(*args),))
+        tol = TAIL_TOL * scale
+        print(f"fused_block_tail {label}: max_abs_err {err:.3e} "
+              f"(tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"fused_block_tail disagrees with its plain "
+                                 f"version at {label}")
+        return err, tol
+
+    tail_check(tail_inputs(1000, 128, 256, L_NOISE, gen),
+               f"ragged N=1000 C=128 H=256 nc={L_NOISE}")
+    n = flagship.NLAT * flagship.NLON
+    c = flagship.EMBED
+    hidden = 2 * c
+    args = tail_inputs(n, c, hidden, L_NOISE, gen)
+    err, tol = tail_check(args, f"path L-A N={n} C={c} H={hidden} "
+                          f"nc={L_NOISE}")
+    ms = cuda_ms(lambda: fused_block_tail(*args), 20)
+    plain_ms = cuda_ms(lambda: fused_block_tail_plain(*args), 5)
+    weights = args[3]
+    n_bytes = (3 * n * c * 2 + n * L_NOISE * 4
+               + sum(w.numel() for w in weights) * 2)
+    flops = 2 * n * (c * c + 2 * L_NOISE * c + 2 * c * hidden)
+    bound_ms, bound_by, bytes_ms, flops_ms = bound(n_bytes, flops,
+                                                   PEAK_BF16_FLOPS)
+    print(f"fused_block_tail path L-A (nc={L_NOISE}): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; bound: {n_bytes / 1e6:.1f} MB -> "
+          f"{bytes_ms:.4f} ms, {flops / 1e9:.1f} GFLOP -> {flops_ms:.4f} ms")
+    rows["fused_block_tail"] = {
+        "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    del args, weights
+
+    from ace_tpu_torch.ops.dhconv_filter import (
+        dhconv_filter,
+        dhconv_filter_dw,
+        dhconv_filter_dw_plain,
+        dhconv_filter_dx,
+        dhconv_filter_dx_plain,
+        dhconv_filter_plain,
+    )
+
+    b, l, m, w = 1, flagship.NLAT, flagship.NLON // 2 + 1, flagship.EMBED // 2
+    kw = dict(generator=gen, device="cuda")
+    xr, xi = (torch.randn(b, l, m, w, **kw) for _ in range(2))
+    wr, wi = ((torch.randn(l, w, w, **kw) / (w * w)).to(torch.bfloat16)
+              for _ in range(2))
+    gr, gi = (torch.randn(b, l, m, w, **kw).to(torch.bfloat16)
+              for _ in range(2))
+    label = f"path L [1,{l},{m},{w}]"
+    err, scale = max_err(dhconv_filter(xr, xi, wr, wi),
+                         dhconv_filter_plain(xr, xi, wr, wi))
+    print(f"dhconv_filter {label}: max_abs_err {err:.3e} (tol "
+          f"{BF16_TOL * scale:.3e})")
+    if not err <= BF16_TOL * scale:
+        raise AssertionError(f"dhconv_filter disagrees at {label}")
+    rows["dhconv_filter"] = {"max_abs_err": err, "tol": BF16_TOL * scale,
+                             **_dhconv_times(label, (xr, xi, wr, wi))}
+    checks = {}
+    for name, out, ref in (
+            ("dhconv_filter_dx", dhconv_filter_dx(gr, gi, wr, wi),
+             dhconv_filter_dx_plain(gr, gi, wr, wi)),
+            ("dhconv_filter_dw", (dhconv_filter_dw(xr, xi, gr, gi),),
+             (torch.stack(dhconv_filter_dw_plain(xr, xi, gr, gi)),))):
+        e, s = max_err(out, ref)
+        print(f"{name} {label}: max_abs_err {e:.3e} (tol {BWD_TOL * s:.3e})")
+        if not e <= BWD_TOL * s:
+            raise AssertionError(f"{name} disagrees at {label}")
+        checks[name] = (e, BWD_TOL * s)
+    for name, row in _dhconv_bwd_times(
+            label, (xr, xi, gr, gi, wr, wi), checks["dhconv_filter_dx"],
+            checks["dhconv_filter_dw"]).items():
+        rows[name] = {k: row[k] for k in (
+            "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+    return rows
+
+
+def local_paths(counters, smi, sizes=None, device="cuda", gen=None):
+    """Path L's kernel shapes (on the card, with ``gen``), reference phase
+    L, then paths L-R, L-I, L-A and L-N: the launches of each path and the
+    kernel rows. ``sizes`` makes the small copies the CPU runs."""
+    t0 = time.perf_counter()
+    rows = local_kernel_phase(gen) if gen is not None else {}
+    reference_local_phase(counters, device)
+    out = {}
+    print(smi)
+
+    def then(paths, best):
+        print(smi)
+        n_spectral = len(spectral)
+        out["L-I"], _, stepper, ic, forcing = local_inference_path(
+            counters, paths, best, n_spectral, device)
+        print(smi)
+        out["L-A"], _ = local_fused_path(counters, stepper, ic, forcing,
+                                         n_spectral, device)
+
+    layers = (sizes or {}).get("layers", 8)
+    spectral = [i for i in range(layers) if i not in _local_blocks(layers)]
+    out["L-R"], _, _ = local_train_path(counters, device, sizes, then=then)
+    print(smi)
+    net_sizes = None
+    if sizes:
+        net_sizes = dict(sizes, embed_dim=sizes["embed"], noise_embed_dim=8)
+    out["L-N"], _, _ = local_net_path(counters, device, net_sizes)
+    print(f"path L (kernel shapes, reference L, L-R, L-I, L-A, L-N): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {k: out[k] for k in ("L-R", "L-I", "L-A", "L-N")}, rows
+
+
 def _entry_paths(counters, keep, none, smi, rate_t):
     """Paths I, E (with phase E-agg), R and F (with reference phases R
     and F): the launches of each."""
@@ -6607,12 +7349,21 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
           f"{torch.backends.cudnn.allow_tf32}")
 
+    # seconds by section, printed at the end: where the run's time goes
+    sections, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        sections[name] = round(now - clock[0], 1)
+        clock[0] = now
+
     sources = [k1.SOURCE, k1.BWD_SOURCE, k1.DW_SOURCE, k2.SOURCE, k3.SOURCE]
     t0 = time.perf_counter()
     seconds = kernel_build.build(sources)
     print(f"build: {seconds} in {time.perf_counter() - t0:.1f} s")
     for source in sources:
         print(kernel_build.build_log(source).strip())
+    lap("build")
 
     gen = torch.Generator("cuda").manual_seed(2)
     kernels = {"dhconv_filter": dhconv_phase(gen)}
@@ -6623,6 +7374,7 @@ def main() -> int:
                 k2.fused_block_tail, k3.fused_sht]
     for fused in (False, True):
         reference_train_phase(fused, counters)
+    lap("K1 and 1b/1c phases, the flagship references")
 
     path0 = build_flagship(fused=False)
     kernels["fused_block_tail"] = block_tail_phase(gen, path0.module.block_1)
@@ -6679,6 +7431,7 @@ def main() -> int:
     del path_a, trans, x, block_input, coeffs
     gc.collect()
     torch.cuda.empty_cache()
+    lap("K2 and K3 phases, paths 0, A, B")
 
     # path T: per train step, K1 in each block's forward and again in its
     # recompute (checkpointing 1), 1b and 1c once per block
@@ -6722,6 +7475,7 @@ def main() -> int:
     del path_ta, batch
     gc.collect()
     torch.cuda.empty_cache()
+    lap("paths T, T-A")
 
     # the flagship checkpoint of path I, for path E
     keep = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -6732,6 +7486,7 @@ def main() -> int:
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     gc.collect()
+    lap("paths I, E, R, F")
     torch.cuda.empty_cache()
 
     # reference phase S and paths S-R, S-I, S-bf16: the ACE2-SHiELD AMIP
@@ -6740,6 +7495,7 @@ def main() -> int:
     by_path.update(shield_paths(counters, smi))
     gc.collect()
     torch.cuda.empty_cache()
+    lap("path S")
 
     # reference phase M and paths M-R, M-I, M-bf16: the ACE2-SOM slab-ocean
     # recipe (the multi-call step over the slab-ocean step; K1, 1b and 1c
@@ -6747,22 +7503,37 @@ def main() -> int:
     by_path.update(som_paths(counters, smi))
     gc.collect()
     torch.cuda.empty_cache()
+    lap("path M")
 
     # reference phase O and paths O-R, O-E: the uncoupled-ocean CM4
     # recipe (Samudra, masks, the ocean corrector; no kernel of the port)
     by_path.update(ocean_paths(counters, smi))
     gc.collect()
     torch.cuda.empty_cache()
+    lap("path O")
 
     # reference phase C and paths C-R, C-F, C-E, C-bf16: the SamudrACE
     # CM4 recipes (the SFNO coupled to Samudra; K1 and 1b only in C-bf16)
     by_path.update(coupled_paths(counters, smi))
     gc.collect()
     torch.cuda.empty_cache()
+    lap("path C")
 
     # reference phase N and paths N-R, N-I: FourCastNet3's recipe (DISCO
     # encoders and decoders, float32: no kernel of the port)
     by_path.update(fcn3_paths(counters, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("path N")
+
+    # path L's kernel shapes, reference phase L and paths L-R, L-I, L-A,
+    # L-N: the flagship recipe with local blocks, labels and a missing
+    # variable (K1, 1b, 1c in the spectral blocks; K2 in L-A), and LocalNet
+    by_local, rows_l = local_paths(counters, smi, gen=gen)
+    by_path.update(by_local)
+    lap("path L")
+    print(f"seconds by section: {sections}; in all "
+          f"{sum(sections.values()):.1f} s")
 
     own_path = {"dhconv_filter": "0", "fused_block_tail": "A",
                 "fused_sht": "B", "dhconv_filter_dx": "T",
@@ -6771,6 +7542,8 @@ def main() -> int:
         row["launches"] = by_path[own_path[name]][name]
         row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        if name in rows_l:
+            row["at_path_l"] = rows_l[name]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -295,9 +295,10 @@ _TAIL_EDGES = [(n, c, h, nc) for n in (1, 127, 128, 129) for c in (64, 192, 512)
 
 
 @pytest.mark.parametrize(
-    "shape", [(1000, 128, 256, 4), (64800, 512, 1024, 32)] + _TAIL_EDGES,
-    ids=["ragged", "flagship"] + ["N{}-C{}-H{}-nc{}".format(*s)
-                                  for s in _TAIL_EDGES],
+    "shape", [(1000, 128, 256, 4), (64800, 512, 1024, 32),
+              (1000, 128, 256, 34), (64800, 512, 1024, 34)] + _TAIL_EDGES,
+    ids=["ragged", "flagship", "ragged-nc34", "path-l"]
+    + ["N{}-C{}-H{}-nc{}".format(*s) for s in _TAIL_EDGES],
 )
 def test_block_tail_kernel_matches_plain(cuda, shape):
     """K2 against its plain version: the same bf16 products summed in
@@ -750,6 +751,20 @@ def test_reference_n_runs_on_the_card(cuda):
     torch.backends.cudnn.allow_tf32 = False
     chip_smoke.reference_fcn3_phase([dhconv_filter, dhconv_filter_dx,
                                      dhconv_filter_dw])
+
+
+def test_reference_l_runs_on_the_card(cuda):
+    """``chip_smoke.py``'s reference phase L: the bf16 conditional SFNO
+    with local blocks, LoRA, ``spectral_ratio`` 0.5 and labels (K1, 1b and
+    1c at spectral width 32), float32 with the global layer norm,
+    LocalNet and AnkurLocalNet, card against CPU: a 2-step rollout (its
+    second step against the CPU's step from the card's first) and an MSE
+    train step, exact launch counts."""
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    chip_smoke.reference_local_phase([dhconv_filter, dhconv_filter_dx,
+                                      dhconv_filter_dw, fused_block_tail])
 
 
 @pytest.mark.parametrize("basis", ["piecewise linear", "morlet",

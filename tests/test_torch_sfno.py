@@ -263,14 +263,15 @@ def test_builders_build_what_ace_tpu_builds(name, config):
 
 def test_prebuilt_and_conditional_selection():
     """``prebuilt`` returns the registered module (moved to the device);
-    ``conditional: true`` still raises."""
+    ``conditional: true`` on a builder that takes no labels raises, as in
+    ace_tpu."""
     module = registry.LinearModule(5, 4)
     registry.register_prebuilt_module("test_key", module)
     built = registry.ModuleSelector(
         type="prebuilt", config={"module_key": "test_key"}
     ).build(5, 4, _info(), device="cpu")
     assert built is module
-    with pytest.raises(NotImplementedError, match="conditional"):
+    with pytest.raises(ValueError, match="conditional builder"):
         registry.ModuleSelector(type="SphericalFourierNeuralOperatorNet",
                                 config={}, conditional=True)
 

@@ -22,6 +22,7 @@ from ace_tpu.core.step.global_mean_removal import (
 )
 from ace_tpu_torch.core import masking
 from ace_tpu_torch.core.config import from_dict
+from ace_tpu_torch.core.step import StepArgs
 from ace_tpu_torch.core.normalizer import StandardNormalizer
 from ace_tpu_torch.core.step.global_mean_removal import (
     GlobalMeanRemovalConfig,
@@ -276,3 +277,50 @@ def assert_gradients_close(grads, ref_grads, zero=(), tol=1e-4):
         else:
             err = np.linalg.norm(o - r)
             assert err <= tol * np.linalg.norm(r) + 1e-6 * largest, (k, err)
+
+
+def test_data_mask_joins_input_dropout_as_in_ace_tpu(monkeypatch):
+    """A train-mode step with a dataset presence per sample
+    (``StepArgs.data_mask``: ``air_temperature_0`` missing from the first
+    sample, ``HGTsfc`` from the second) and input dropout's presence
+    passed in, on both sides: the outputs agree; a masked sample's channel
+    is zero and so is its presence channel, the global-mean channel of
+    ``air_temperature_0`` following its source's presence, and dropout's
+    channels stay dropped for every sample."""
+    jstepper, stepper = steppers(som_case(GMR_MASKS))
+    step = stepper.step
+    monkeypatch.setattr(
+        type(jstepper.step), "_draw_input_dropout_presence",
+        lambda self, args: _fixed_presence(self, jnp.asarray))
+    step.draw_input_dropout_presence = lambda args: (
+        None if args.deterministic
+        else _fixed_presence(step, torch.tensor))
+    seen = _network_inputs(step.network)
+    inputs, nxt = step_inputs(step)
+    mask = {"air_temperature_0": np.asarray([0.0, 1.0], np.float32),
+            "HGTsfc": np.asarray([1.0, 0.0], np.float32)}
+    tin = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    out = step.step(StepArgs(
+        input=tin,
+        next_step_input_data={k: torch.from_numpy(v) for k, v in nxt.items()},
+        stepper_state=step.init_stepper_state(tin), deterministic=False,
+        data_mask={k: torch.from_numpy(v) for k, v in mask.items()}))
+    jin = {k: jnp.asarray(v) for k, v in inputs.items()}
+    ref = jstepper.step.step(jstepper.params, JaxStepArgs(
+        input=jin,
+        next_step_input_data={k: jnp.asarray(v) for k, v in nxt.items()},
+        stepper_state=jstepper.step.init_stepper_state(jin),
+        deterministic=False, rng=None,
+        data_mask={k: jnp.asarray(v) for k, v in mask.items()}))
+    assert_close(out.output, ref.output)
+    (packed,) = seen
+    names = step.in_packer.names
+    missing = {"air_temperature_0": 0, "air_temperature_0_global_mean": 0,
+               "HGTsfc": 1}
+    for i, name in enumerate(names):
+        for row in range(2):
+            gone = name in DROPPED or missing.get(name) == row
+            assert bool((packed[row, ..., i] == 0).all()) == gone, (name,
+                                                                     row)
+            assert bool((packed[row, ..., len(names) + i]
+                         == (0 if gone else 1)).all()), (name, row)

@@ -255,15 +255,17 @@ def test_jax_checkpoint_config_parses(jax_rollout):
 
 
 @pytest.mark.parametrize("override", [
-    {"builder": {"lora_rank": 2}},
-    {"builder": {"local_blocks": [0]}},
-    {"builder": {"spectral_ratio": 0.5}},
-    {"builder": {"global_layer_norm": True}},
-    # global-mean removal, input dropout and the slab ocean, refused
-    # here before they were ported, gave their places to these
-    {"module": {"conditional": True}},
-    {"module": {"allow_missing_variables": True}},
-    {"builder": {"lora_rank": 2, "global_layer_norm": True}},
+    # the conditional SFNO's options, labels and missing variables, refused
+    # here before they were ported, gave their places to the builders of
+    # ace_tpu that are not ported yet
+    {"module": {"type": "SwinTransformer"}},
+    {"module": {"type": "NoiseConditionedSwinTransformer"}},
+    {"module": {"type": "NoiseConditionedSwinTransformer",
+                "conditional": True}},
+    {"module": {"type": "LandNet"}},
+    {"module": {"type": "HEALPixUNet"}},
+    {"module": {"type": "FloeNet", "allow_missing_variables": True}},
+    {"module": {"type": "GraphCast"}},
 ])
 def test_unported_options_are_refused(override):
     step = _step_dict(**override.get("builder", {}))
