@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from ace_tpu_torch.core.gridded_ops import LatLonOperations
+from ace_tpu_torch.core.gridded_ops import GriddedOperations
 from ace_tpu_torch.core.typing_ import TensorMapping
 from ace_tpu_torch.data.time import TimeCoord
 
@@ -202,7 +202,7 @@ class GlobalMeanAnnualAggregator:
 
     MIN_COMPLETE_YEAR_DAYS = 350.0
 
-    def __init__(self, ops: LatLonOperations,
+    def __init__(self, ops: GriddedOperations,
                  timestep_seconds: float | None = None,
                  monthly_reference: "dict[str, dict[int, float]] | None"
                  = None):

@@ -17,6 +17,7 @@ fill on the host one window behind, from copies that do not block
 """
 
 import dataclasses
+import functools
 import logging
 from typing import Any
 
@@ -34,7 +35,7 @@ from ace_tpu_torch.aggregator.seasonal import (
 )
 from ace_tpu_torch.aggregator.trend import TrendAggregator
 from ace_tpu_torch.aggregator.video import VideoAggregator
-from ace_tpu_torch.core.gridded_ops import LatLonOperations
+from ace_tpu_torch.core.gridded_ops import GriddedOperations
 from ace_tpu_torch.core.loss import get_crps
 from ace_tpu_torch.core.typing_ import TensorDict, TensorMapping
 from ace_tpu_torch.ops.sht import RealSHT
@@ -74,7 +75,7 @@ def load_time_mean_reference(path: str) -> dict[str, np.ndarray]:
     return out
 
 
-def load_monthly_reference(path: str, ops: LatLonOperations
+def load_monthly_reference(path: str, ops: GriddedOperations
                            ) -> dict[str, dict[int, float]]:
     """A monthly-means reference netCDF (``[sample, month, lat, lon]``
     variables, ``counts`` and ``valid_time``) as per-variable ``{year:
@@ -116,7 +117,7 @@ class TimeMeanAggregator:
     of the time mean, and against an offline reference time mean when one
     is given (port of ace_tpu/aggregator/inference.py:125)."""
 
-    def __init__(self, ops: LatLonOperations,
+    def __init__(self, ops: GriddedOperations,
                  reference_means: dict[str, np.ndarray] | None = None):
         self._ops = ops
         self._gen_sum: TensorDict = {}
@@ -194,7 +195,7 @@ class StepMeanSeriesAggregator:
     data's device; the counts depend on shapes only and stay on the
     host."""
 
-    def __init__(self, ops: LatLonOperations, n_timesteps: int,
+    def __init__(self, ops: GriddedOperations, n_timesteps: int,
                  entries: "list[StepMeanEntry] | None" = None,
                  normalizer=None):
         self._ops = ops
@@ -281,7 +282,7 @@ class InferenceEnsembleAggregator:
     ace_tpu/aggregator/inference.py:354). Batches arrive member-major:
     the members of one initial condition are contiguous."""
 
-    def __init__(self, ops: LatLonOperations, n_ensemble: int):
+    def __init__(self, ops: GriddedOperations, n_ensemble: int):
         self._ops = ops
         self._n_ens = n_ensemble
         self._sums: dict[str, dict[str, torch.Tensor]] = {
@@ -339,7 +340,7 @@ class GlobalMeanTimeSeriesAggregator:
     ace_tpu/aggregator/inference.py:456); one ``[time]`` chunk per window
     stays on the device until it is read."""
 
-    def __init__(self, ops: LatLonOperations):
+    def __init__(self, ops: GriddedOperations):
         self._ops = ops
         self._gen: dict[str, list] = {}
         self._target: dict[str, list] = {}
@@ -412,22 +413,32 @@ class SpectrumAggregator:
 
     A window's variables go through one transform together, as the
     channels of the port's channels-last ``RealSHT``, after one flood fill
-    of all of them (``SmoothFloodFill.fill_stacked``)."""
+    of all of them (``SmoothFloodFill.fill_stacked``). On HEALPix the
+    transform is the grid's (``HEALPixOperations.get_real_sht``), with no
+    flood fill (it is lat-lon only), as in the JAX package."""
 
-    def __init__(self, nlat: int, nlon: int, grid: str = "legendre-gauss"):
-        from ace_tpu_torch.core.fill import SmoothFloodFill
-
-        self._nlat, self._nlon, self._grid = nlat, nlon, grid
-        self._sht: RealSHT | None = None
+    def __init__(self, make_sht, spatial_rank: int = 2, nan_fill=None):
+        # ``make_sht()`` makes the transform's tables on the host; they are
+        # copied without waiting for the device: the first window must not
+        # synchronize
+        self._make_sht, self._spatial_rank = make_sht, spatial_rank
+        self._nan_fill = nan_fill
+        self._sht = None
         self._gen_sum: TensorDict = {}
         self._target_sum: TensorDict = {}
         self._n = 0
-        self._nan_fill = SmoothFloodFill(num_steps=4)
 
     @classmethod
     def for_dataset_info(cls, dataset_info) -> "SpectrumAggregator":
-        nlat, nlon = dataset_info.img_shape
-        return cls(nlat, nlon, dataset_info.horizontal_coordinates.grid)
+        img = dataset_info.img_shape
+        if len(img) == 2:
+            from ace_tpu_torch.core.fill import SmoothFloodFill
+
+            return cls(functools.partial(
+                RealSHT, *img, grid=dataset_info.horizontal_coordinates.grid,
+                device="cpu"), 2, SmoothFloodFill(num_steps=4))
+        return cls(functools.partial(
+            dataset_info.gridded_operations.get_real_sht, device="cpu"), 3)
 
     def _power_sums(self, data: TensorMapping, prefix: str
                     ) -> dict[str, torch.Tensor]:
@@ -435,13 +446,11 @@ class SpectrumAggregator:
         (batch, time) axes. The reference sums raw ``|c|^2`` over m with no
         Hermitian doubling."""
         names = list(data)
-        x = torch.stack([data[k] for k in names])  # [V, ..., H, W]
-        x = self._nan_fill.fill_stacked(x, [prefix + k for k in names])
-        if self._sht is None or self._sht.weights.device != x.device:
-            # tables made on the host and copied without waiting for the
-            # device: the first window must not synchronize either
-            self._sht = RealSHT(self._nlat, self._nlon, grid=self._grid,
-                                device="cpu").to(x.device, non_blocking=True)
+        x = torch.stack([data[k] for k in names])  # [V, ..., *spatial]
+        if self._nan_fill is not None:
+            x = self._nan_fill.fill_stacked(x, [prefix + k for k in names])
+        if self._sht is None or next(self._sht.buffers()).device != x.device:
+            self._sht = self._make_sht().to(x.device, non_blocking=True)
         cr, ci = self._sht.forward_pair(x.movedim(0, -1))  # [..., L, M, V]
         power = (cr * cr + ci * ci).sum(dim=-2)  # [..., L, V]
         power = power.reshape(-1, *power.shape[-2:]).sum(dim=0)
@@ -449,7 +458,7 @@ class SpectrumAggregator:
 
     def record_batch(self, gen: TensorMapping, target: TensorMapping | None):
         first = next(iter(gen.values()))
-        self._n += int(np.prod(first.shape[:-2]))
+        self._n += int(np.prod(first.shape[:-self._spatial_rank]))
         for k, p in self._power_sums(gen, "").items():
             self._gen_sum[k] = self._gen_sum[k] + p if k in self._gen_sum else p
         paired = {k: v for k, v in (target or {}).items() if k in gen}

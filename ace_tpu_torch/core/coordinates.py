@@ -1,5 +1,5 @@
-"""Horizontal and vertical coordinates (port of the lat-lon, hybrid
-sigma-pressure and depth parts of ace_tpu/core/coordinates.py). A dataset
+"""Horizontal and vertical coordinates (port of the lat-lon, HEALPix,
+hybrid sigma-pressure and depth parts of ace_tpu/core/coordinates.py). A dataset
 with no vertical coordinate has ``None`` (the JAX package's
 ``NullVerticalCoordinate``).
 
@@ -193,6 +193,93 @@ class LatLonCoordinates:
         from ace_tpu_torch.core.gridded_ops import LatLonOperations
 
         return LatLonOperations(self.area_weights)
+
+
+@dataclasses.dataclass(eq=False)
+class HEALPixCoordinates:
+    """A HEALPix (face, height, width) grid in flat-XY pixel order (port
+    of ace_tpu/core/coordinates.py:274). Its pixels are equal-area, so it
+    has no area weights."""
+
+    face: np.ndarray
+    height: np.ndarray
+    width: np.ndarray
+
+    def __post_init__(self):
+        self.face = np.asarray(self.face)
+        self.height = np.asarray(self.height)
+        self.width = np.asarray(self.width)
+        if len(self.face) != 12:
+            raise ValueError("HEALPixCoordinates must have 12 faces")
+        if len(self.height) != len(self.width):
+            raise ValueError("HEALPix faces must be square")
+        nside = len(self.width)
+        if 2 ** int(np.log2(nside)) != nside:
+            raise ValueError("HEALPix nside must be a power of 2")
+        self.nside = nside
+
+    @classmethod
+    def from_nside(cls, nside: int) -> "HEALPixCoordinates":
+        return cls(face=np.arange(12), height=np.arange(nside),
+                   width=np.arange(nside))
+
+    def __eq__(self, other):
+        return (isinstance(other, HEALPixCoordinates)
+                and other.nside == self.nside)
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (12, self.nside, self.nside)
+
+    @property
+    def grid(self) -> str:
+        return "healpix"
+
+    @property
+    def area_weights(self) -> None:
+        return None
+
+    def meshgrid(self) -> tuple[np.ndarray, np.ndarray]:
+        """(lat, lon) in degrees of each pixel, ``[12, nside, nside]``,
+        from the ring geometry and the ring to xy reorder."""
+        from ace_tpu_torch.ops.hpx import (
+            ring_decomposition,
+            ring_to_xy_indices,
+        )
+
+        nphi, start, theta, phi0 = ring_decomposition(self.nside)
+        npix = 12 * self.nside**2
+        lat_ring = np.zeros(npix)
+        lon_ring = np.zeros(npix)
+        for t in range(len(nphi)):
+            p = np.arange(nphi[t])
+            lat_ring[start[t]:start[t] + nphi[t]] = 90.0 - np.rad2deg(
+                theta[t])
+            lon_ring[start[t]:start[t] + nphi[t]] = np.rad2deg(
+                phi0[t] + 2.0 * np.pi * p / nphi[t])
+        idx = ring_to_xy_indices(self.nside)
+        return (lat_ring[idx].reshape(self.shape),
+                lon_ring[idx].reshape(self.shape))
+
+    @property
+    def xyz(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        lat, lon = self.meshgrid()
+        lat_r, lon_r = np.deg2rad(lat), np.deg2rad(lon)
+        return (np.cos(lat_r) * np.cos(lon_r),
+                np.cos(lat_r) * np.sin(lon_r),
+                np.sin(lat_r))
+
+    def as_dict(self) -> dict:
+        return {"nside": int(self.nside)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "HEALPixCoordinates":
+        return cls.from_nside(d["nside"])
+
+    def get_gridded_operations(self):
+        from ace_tpu_torch.core.gridded_ops import HEALPixOperations
+
+        return HEALPixOperations(self.nside)
 
 
 def gaussian_latitudes(nlat: int) -> np.ndarray:

@@ -3,8 +3,7 @@
 Carries the grid, the vertical coordinate (hybrid sigma-pressure or
 depth), the timestep and the dataset's static masks; serialized into
 checkpoints in the JAX package's layout (``get_state``/``from_state``
-round-trip with ``ace_tpu``'s). HEALPix grids are not ported yet and
-raise.
+round-trip with ``ace_tpu``'s). The grid is lat-lon or HEALPix.
 """
 
 import dataclasses
@@ -14,12 +13,16 @@ import numpy as np
 
 from ace_tpu_torch.core.coordinates import (
     DepthCoordinate,
+    HEALPixCoordinates,
     HybridSigmaPressureCoordinate,
     LatLonCoordinates,
     deserialize_vertical_coordinate,
     serialize_vertical_coordinate,
 )
-from ace_tpu_torch.core.gridded_ops import LatLonOperations
+from ace_tpu_torch.core.gridded_ops import (
+    GriddedOperations,
+    LatLonOperations,
+)
 from ace_tpu_torch.core.masking import MaskProvider
 
 
@@ -35,7 +38,8 @@ class IncompatibleDatasetInfo(ValueError):
 
 @dataclasses.dataclass
 class DatasetInfo:
-    horizontal_coordinates: LatLonCoordinates | None = None
+    horizontal_coordinates: (
+        LatLonCoordinates | HEALPixCoordinates | None) = None
     vertical_coordinate: (
         HybridSigmaPressureCoordinate | DepthCoordinate | None) = None
     timestep: timedelta | None = None
@@ -47,18 +51,20 @@ class DatasetInfo:
     all_labels: tuple = ()
 
     @property
-    def img_shape(self) -> tuple[int, int]:
+    def img_shape(self) -> tuple[int, ...]:
         if self.horizontal_coordinates is None:
             raise ValueError("DatasetInfo has no horizontal coordinates")
         return self.horizontal_coordinates.shape
 
     @property
-    def gridded_operations(self) -> LatLonOperations:
+    def gridded_operations(self) -> GriddedOperations:
         if self.horizontal_coordinates is None:
             raise ValueError("DatasetInfo has no horizontal coordinates")
         ops = self.horizontal_coordinates.get_gridded_operations()
-        if self.mask_provider is not None and self.mask_provider.masks:
+        if (self.mask_provider is not None and self.mask_provider.masks
+                and isinstance(ops, LatLonOperations)):
             # masked cells get zero area weight in every scalar metric
+            # (HEALPix means stay plain, as in the JAX package)
             ops = LatLonOperations(ops.area_weights_host,
                                    mask_provider=self.mask_provider)
         return ops
@@ -131,12 +137,11 @@ class DatasetInfo:
         if "horizontal_coordinates" in state:
             hc = state["horizontal_coordinates"]
             if "nside" in hc:
-                raise NotImplementedError(
-                    'HEALPix grids are not ported yet (ROADMAP Queue 1, '
-                    '"Other ops")')
-            horizontal = LatLonCoordinates(
-                lat=np.asarray(hc["lat"]), lon=np.asarray(hc["lon"])
-            )
+                horizontal = HEALPixCoordinates.from_dict(hc)
+            else:
+                horizontal = LatLonCoordinates(
+                    lat=np.asarray(hc["lat"]), lon=np.asarray(hc["lon"])
+                )
         vertical = None
         if "vertical_coordinate" in state:
             vertical = deserialize_vertical_coordinate(

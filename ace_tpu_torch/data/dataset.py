@@ -9,11 +9,12 @@ fields are broadcast along time; the derived static fields x/y/z
 (Euclidean coordinates of the grid) are synthesized on demand
 (reference: xarray.py:202 StaticDerivedData).
 
-Everything here stays numpy on the host. Lat-lon grids with a hybrid
-sigma-pressure coordinate, a depth coordinate (``idepth_N`` with the
-per-layer ``mask_N`` and ``deptho``) or none are read, and the static
-``mask_*`` fields become the dataset info's ``MaskProvider``; HEALPix
-grids are not ported yet and raise.
+Everything here stays numpy on the host. Lat-lon grids (``[T, lat,
+lon]``) and HEALPix grids (``face``, ``height`` and ``width`` dims, ``[T,
+12, nside, nside]``) with a hybrid sigma-pressure coordinate, a depth
+coordinate (``idepth_N`` with the per-layer ``mask_N`` and ``deptho``) or
+none are read, and the static ``mask_*`` fields become the dataset info's
+``MaskProvider``.
 """
 
 import dataclasses
@@ -27,6 +28,7 @@ import numpy as np
 
 from ace_tpu_torch.core.coordinates import (
     DepthCoordinate,
+    HEALPixCoordinates,
     HybridSigmaPressureCoordinate,
     LatLonCoordinates,
 )
@@ -128,7 +130,10 @@ class XarrayDataset:
     def __init__(self, config: XarrayDataConfig):
         self.config = config
         path = config.data_path
-        if os.path.isdir(path) and os.path.exists(
+        if path.startswith(("gs://", "s3://")):
+            # remote zarr groups read through the tensorstore kvstore
+            files = [path]
+        elif os.path.isdir(path) and os.path.exists(
             os.path.join(path, ".zgroup")
         ):
             files = [path]
@@ -189,9 +194,13 @@ class XarrayDataset:
         if "face" in first.keys() and "height" in first.keys() and (
             "width" in first.keys()
         ):
-            raise NotImplementedError(
-                'HEALPix grids are not ported yet (ROADMAP Queue 1, "Other '
-                'ops")')
+            self.horizontal_coordinates: (
+                LatLonCoordinates | HEALPixCoordinates
+            ) = HEALPixCoordinates(
+                face=first["face"].read(()),
+                height=first["height"].read(()),
+                width=first["width"].read(()),
+            )
         elif lat_name is None or lon_name is None:
             raise ValueError(
                 "could not find lat/lon or face/height/width coordinates"
@@ -336,6 +345,9 @@ class XarrayDataset:
         )
 
     def _static_derived(self, name: str) -> np.ndarray:
+        if isinstance(self.horizontal_coordinates, HEALPixCoordinates):
+            x, y, z = self.horizontal_coordinates.xyz
+            return np.asarray({"x": x, "y": y, "z": z}[name], np.float32)
         lat = np.deg2rad(self.horizontal_coordinates.lat)
         lon = np.deg2rad(self.horizontal_coordinates.lon)
         lat2d, lon2d = np.meshgrid(lat, lon, indexing="ij")

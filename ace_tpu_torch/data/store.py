@@ -10,8 +10,8 @@ Exposes a uniform ``FileDataset`` with lazily-read variables, CF time
 decoding to TimeCoord, and writers used by tests and the data writers.
 
 A copy of ``ace_tpu/data/store.py`` (numpy on the host; tests hold it equal to
-the original), local paths only: remote (``://``) paths need ``data/cloud.py``, which
-is not ported, and raise.
+the original). Remote netCDF files are fetched through ``data/cloud.py``;
+zarr stores at gs:// and s3:// URLs are read through tensorstore.
 """
 
 import dataclasses
@@ -119,24 +119,24 @@ def _h5_attr(value):
     return value
 
 
-def _refuse_remote(path: str):
-    if "://" in str(path):
-        raise NotImplementedError(
-            f"remote path {path!r}: reading through a URL needs "
-            "data/cloud.py, which the port does not have (ROADMAP Queue 1, "
-            '"The rest of the slice-1 modules"); copy the file to a local '
-            "path"
-        )
-
-
 class H5Dataset(FileDataset):
-    """netCDF4/HDF5 file reader (h5py), for local files."""
+    """netCDF4/HDF5 file reader (h5py). A remote path (gs://, s3://,
+    http(s)://, memory://) is copied to a temporary file first
+    (``data/cloud.py``), since HDF5 needs a local file; file:// URLs are
+    local."""
 
     def __init__(self, path: str):
         import h5py
 
-        _refuse_remote(path)
-        self._f = h5py.File(path, "r")
+        from ace_tpu_torch.data.cloud import fetch_to_local
+
+        path, self._fetch = fetch_to_local(path)
+        try:
+            self._f = h5py.File(path, "r")
+        except BaseException:
+            if self._fetch is not None:
+                self._fetch.close()
+            raise
         variables: dict[str, Variable] = {}
         for name, ds in self._f.items():
             if not hasattr(ds, "shape"):
@@ -168,21 +168,30 @@ class H5Dataset(FileDataset):
 
     def close(self):
         self._f.close()
+        if self._fetch is not None:
+            self._fetch.close()
 
 
 def kvstore_spec(path: str) -> dict:
-    """tensorstore kvstore spec for a local zarr path."""
-    return {"driver": "file", "path": path.rstrip("/") + "/"}
+    """tensorstore kvstore spec for a zarr path: gs:// and s3:// URLs go
+    to the matching tensorstore driver, anything else (a file:// URL too)
+    is a local directory."""
+    for scheme, driver in (("gs://", "gcs"), ("s3://", "s3")):
+        if path.startswith(scheme):
+            bucket, _, sub = path[len(scheme):].partition("/")
+            return {"driver": driver, "bucket": bucket,
+                    "path": sub.rstrip("/") + "/" if sub else ""}
+    return {"driver": "file",
+            "path": path.removeprefix("file://").rstrip("/") + "/"}
 
 
 class ZarrDataset(FileDataset):
-    """Zarr v2 group reader via tensorstore (xarray conventions), for
-    local directories."""
+    """Zarr v2 group reader via tensorstore (xarray conventions): local
+    directories and gs:// or s3:// stores share one code path."""
 
     def __init__(self, path: str):
         import tensorstore as ts
 
-        _refuse_remote(path)
         self._path = path
         spec = kvstore_spec(path)
         kv = ts.KvStore.open(spec).result()

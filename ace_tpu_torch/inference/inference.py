@@ -55,8 +55,9 @@ class InitialConditionConfig:
     initial condition, and the forcing windows start at the matching
     times of the forcing dataset.
 
-    path: the dataset file (netCDF or zarr) of [time, lat, lon] fields;
-        for a restart.nc use ``initial_condition_path`` instead.
+    path: the dataset file (netCDF or zarr; a local path or a URL) of
+        ``[time, lat, lon]`` or HEALPix ``[time, face, height, width]``
+        fields; for a restart.nc use ``initial_condition_path`` instead.
     engine: accepted for config parity; the store detects the format.
     start_indices: optional subset of the times.
     """
@@ -69,7 +70,7 @@ class InitialConditionConfig:
     ) = None
 
     def load(self, names: list[str]):
-        """``({name: [n_ic, 1, lat, lon]}, time values, calendar)``."""
+        """``({name: [n_ic, 1, *spatial]}, time values, calendar)``."""
         ds, fields = _read_fields(self.path, names)
         time = ds.read_time("time")
         tvals = time.values.reshape(-1)
@@ -79,10 +80,11 @@ class InitialConditionConfig:
             idx = list(range(len(tvals)))
         data = {}
         for name, arr in fields.items():
-            if arr.ndim != 3:
+            if arr.ndim not in (3, 4):
                 raise ValueError(
                     f"initial condition variable {name!r} must be "
-                    f"[time, lat, lon]; got shape {arr.shape}"
+                    "[time, lat, lon] or [time, face, height, width]; got "
+                    f"shape {arr.shape}"
                 )
             data[name] = arr[idx][:, None]
         return data, tvals[idx], time.calendar

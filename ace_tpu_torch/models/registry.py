@@ -2,8 +2,9 @@
 
 A registered builder turns channel counts and dataset info into an
 ``nn.Module`` with the contract ``module(x, noise=None, generator=None,
-deterministic=True)`` on ``[batch, nlat, nlon, n_in] -> [batch, nlat,
-nlon, n_out]`` (``deterministic`` False turns on dropout, drawn from
+deterministic=True)`` on ``[batch, *spatial, n_in] -> [batch, *spatial,
+n_out]``, the spatial axes ``[nlat, nlon]`` or, on HEALPix, ``[12, nside,
+nside]`` (``deterministic`` False turns on dropout, drawn from
 ``generator``). Each
 builder keeps the JAX package's field surface, so a config dict (or the
 config embedded in an ``ace_tpu`` checkpoint) builds both packages;
@@ -14,7 +15,7 @@ labels.
 
 import abc
 import dataclasses
-from typing import ClassVar
+from typing import Any, ClassVar
 
 import torch
 from torch import nn
@@ -49,7 +50,7 @@ CONDITIONAL_BUILDERS = (
 )
 # the JAX package's builders that the port has not yet
 _UNPORTED = ("SwinTransformer", "NoiseConditionedSwinTransformer",
-             "LandNet", "HEALPixUNet", "FloeNet", "GraphCast")
+             "LandNet", "FloeNet", "GraphCast")
 
 
 @dataclasses.dataclass
@@ -532,5 +533,41 @@ class AnkurLocalNetBuilder(ModuleConfig):
             pos_embed=self.pos_embed,
             activation_function=self.activation_function,
             data_grid=dataset_info.horizontal_coordinates.grid,
+            device=device,
+        )
+
+
+@ModuleSelector.register("HEALPixUNet")
+@dataclasses.dataclass
+class HEALPixUNetBuilder(ModuleConfig):
+    """DLWP-style HEALPix UNet builder with the JAX package's fields (port
+    of ace_tpu/models/registry.py:427): ``encoder`` and ``decoder`` are
+    ``UNetEncoderConfig``/``UNetDecoderConfig`` dicts (``block_type``
+    selects each block), ``None`` for the defaults. Takes no labels."""
+
+    encoder: Any = None
+    decoder: Any = None
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        from ace_tpu_torch.core.config import from_dict
+        from ace_tpu_torch.models.healpix import (
+            UNetDecoderConfig,
+            UNetEncoderConfig,
+        )
+
+        if isinstance(self.encoder, dict):
+            self.encoder = from_dict(UNetEncoderConfig, self.encoder)
+        if isinstance(self.decoder, dict):
+            self.decoder = from_dict(UNetDecoderConfig, self.decoder)
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        from ace_tpu_torch.models.healpix import HEALPixUNet
+
+        if len(dataset_info.all_labels) > 0:
+            raise ValueError("HEALPixUNet does not support labels")
+        return HEALPixUNet(
+            n_in_channels, n_out_channels, encoder=self.encoder,
+            decoder=self.decoder, dtype=compute_dtype(self.compute_dtype),
             device=device,
         )

@@ -1,5 +1,7 @@
-"""Real spherical harmonic transforms, channels-last, single device
-(port of ace_tpu/ops/sht.py).
+"""Real spherical harmonic transforms, single device (port of
+ace_tpu/ops/sht.py). Channels-last (``[..., nlat, nlon, C]``, the layout
+every model of the port uses) by default; ``channels_last=False`` gives
+the JAX package's default layout, ``[..., nlat, nlon]``.
 
 Same conventions as the JAX package (torch-harmonics ``norm="ortho"``,
 ``csphase=True``): the longitudinal DFT is a matmul against precomputed
@@ -12,7 +14,9 @@ default, ``torch.backends.cuda.matmul.allow_tf32 = False``).
 
 Tables are numpy float64 precomputes cast to float32 and held as
 non-persistent buffers, so ``.to(device)`` moves them and checkpoints do
-not carry them.
+not carry them. A transform computes in its tables' dtype: float32,
+unless the module was cast (``.double()`` evaluates the same transform
+in float64, for measuring a float32 one's error).
 
 ``RealSHT.forward_fused`` is the fused forward transform
 (``ops/fused_sht.py``, kernel K3); no model calls it, as in the JAX
@@ -94,15 +98,25 @@ def _f32(table: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(table, dtype=torch.float32, device=device)
 
 
+# the einsums of each layout: (DFT, Legendre) forward, (Legendre, DFT)
+# inverse
+_FORWARD_EQS = {True: ("...kjc,jm->...kmc", "...kmc,mlk->...lmc"),
+                False: ("...kj,jm->...km", "...km,mlk->...lm")}
+_INVERSE_EQS = {True: ("...lmc,mlk->...kmc", "...kmc,mj->...kjc"),
+                False: ("...lm,mlk->...km", "...km,mj->...kj")}
+
+
 class RealSHT(nn.Module):
-    """Forward real SHT on channels-last data:
-    ``[..., nlat, nlon, C] -> (real, imag)`` each ``[..., lmax, mmax, C]``
-    float32 (port of ace_tpu/ops/sht.py:123 RealSHT.forward_pair)."""
+    """Forward real SHT: ``[..., nlat, nlon, C] -> (real, imag)`` each
+    ``[..., lmax, mmax, C]`` float32 through ``forward_pair`` (without
+    the channel axis where ``channels_last`` is False), complex through
+    ``forward`` (port of ace_tpu/ops/sht.py:123 RealSHT)."""
 
     def __init__(self, nlat, nlon, lmax=None, mmax=None,
                  grid="legendre-gauss", norm="ortho", csphase=True,
-                 device=None):
+                 channels_last=True, device=None):
         super().__init__()
+        self.channels_last = channels_last
         self.nlat, self.nlon, self.grid = nlat, nlon, grid
         _, _, default_lmax = quadrature_for_grid(grid, nlat)
         self.lmax = lmax or default_lmax
@@ -117,12 +131,16 @@ class RealSHT(nn.Module):
         self._kernel_tables = None
 
     def forward_pair(self, x: torch.Tensor):
-        x = x.float()
-        xr = torch.einsum("...kjc,jm->...kmc", x, self.fc)
-        xi = torch.einsum("...kjc,jm->...kmc", x, self.fs)
-        cr = torch.einsum("...kmc,mlk->...lmc", xr, self.weights)
-        ci = torch.einsum("...kmc,mlk->...lmc", xi, self.weights)
+        dft, leg = _FORWARD_EQS[self.channels_last]
+        x = x.to(self.fc.dtype)
+        xr = torch.einsum(dft, x, self.fc)
+        xi = torch.einsum(dft, x, self.fs)
+        cr = torch.einsum(leg, xr, self.weights)
+        ci = torch.einsum(leg, xi, self.weights)
         return cr, ci
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.complex(*self.forward_pair(x))
 
     def fused_table(self) -> torch.Tensor:
         """The Legendre table in the fused transform's layout ``[k, l, m]``:
@@ -156,7 +174,7 @@ class RealSHT(nn.Module):
         The kernel (``ops/fused_sht.py``) runs for CUDA tensors, in split
         TF32 on the tensor cores, and masks ragged edges, so nothing is
         padded."""
-        if x.dim() != 4:
+        if not self.channels_last or x.dim() != 4:
             raise ValueError("forward_fused needs [B, K, J, C] input")
         x = x.float().contiguous()
         tables = self.kernel_tables() if x.device.type == "cuda" else None
@@ -165,14 +183,16 @@ class RealSHT(nn.Module):
 
 
 class InverseRealSHT(nn.Module):
-    """Inverse real SHT on channels-last coefficients:
-    ``(real, imag) [..., lmax, mmax, C] -> [..., nlat, nlon, C]`` float32
-    (port of ace_tpu/ops/sht.py:292 InverseRealSHT.inverse_pair)."""
+    """Inverse real SHT: ``(real, imag) [..., lmax, mmax, C] -> [...,
+    nlat, nlon, C]`` float32 through ``inverse_pair`` (without the channel
+    axis where ``channels_last`` is False), from complex through
+    ``forward`` (port of ace_tpu/ops/sht.py:292 InverseRealSHT)."""
 
     def __init__(self, nlat, nlon, lmax=None, mmax=None,
                  grid="legendre-gauss", norm="ortho", csphase=True,
-                 device=None):
+                 channels_last=True, device=None):
         super().__init__()
+        self.channels_last = channels_last
         self.nlat, self.nlon, self.grid = nlat, nlon, grid
         _, _, default_lmax = quadrature_for_grid(grid, nlat)
         self.lmax = lmax or default_lmax
@@ -185,13 +205,17 @@ class InverseRealSHT(nn.Module):
         self.register_buffer("is_", _f32(is_, device), persistent=False)
 
     def inverse_pair(self, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
-        xr = torch.einsum("...lmc,mlk->...kmc", cr.float(), self.pct)
-        xi = torch.einsum("...lmc,mlk->...kmc", ci.float(), self.pct)
+        leg, dft = _INVERSE_EQS[self.channels_last]
+        xr = torch.einsum(leg, cr.to(self.pct.dtype), self.pct)
+        xi = torch.einsum(leg, ci.to(self.pct.dtype), self.pct)
         # the sin rows of the inverse DFT matrix vanish at m=0 and the
         # nyquist mode, which drops their imaginary parts (Hermitian
         # cleanup)
-        out = torch.einsum("...kmc,mj->...kjc", xr, self.ic)
-        return out + torch.einsum("...kmc,mj->...kjc", xi, self.is_)
+        out = torch.einsum(dft, xr, self.ic)
+        return out + torch.einsum(dft, xi, self.is_)
+
+    def forward(self, coeffs: torch.Tensor) -> torch.Tensor:
+        return self.inverse_pair(coeffs.real, coeffs.imag)
 
 
 def build_sht(nlat, nlon, lmax=None, mmax=None, grid="legendre-gauss",

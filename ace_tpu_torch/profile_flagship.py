@@ -7,7 +7,7 @@ GPU.
                                               --evaluator | --shield |
                                               --som | --ocean |
                                               --coupled | --fcn3 |
-                                              --local]
+                                              --local | --healpix]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -87,6 +87,17 @@ then a rollout window as path L-I runs it (5 steps at batch 1; ``N``
 untraced, then 1 traced; ``local_train_trace.json``,
 ``local_rollout_trace.json``); the local blocks' DISCO (``DiscoConvS2``'s
 forward and ``mixed``, and their backward) is a family of its own.
+``--healpix`` profiles path H, DLWP-HPX's recipe
+(``configs/dlwp-hpx64-train.yaml``: HEALPixUNet at its builder's defaults
+on HPX64, float32, 11 inputs and 8 outputs; statistics of unit scale in
+place of its files, weights from a seed): a train step as path H-R's
+batch loop runs it (batch 4, one forward step, MSE, AdamW, EMA: ``N``
+untraced, default 3, then 1 traced), then a rollout window as path H-I
+runs it (5 steps at batch 1: ``N`` untraced, then 1 traced;
+``healpix_train_trace.json``, ``healpix_rollout_trace.json``), with the
+convolutions' operations counted from their shapes; its family table
+counts the cuDNN convolutions and the neighbour pad's gathers (and their
+backward) as families of their own (``healpix_family``).
 Convolutions run with TF32 off, as every profile here.
 Writes the Chrome trace to
 ``DIR/flagship_trace.json`` (``flagship_train_trace.json``,
@@ -213,6 +224,8 @@ def main(argv=None):
     mode.add_argument("--coupled", action="store_true",
                       help="path C: the CM4 coupled recipe's train step "
                            "(batch 1), then a coupled rollout window")
+    mode.add_argument("--healpix", action="store_true",
+                      help="profile path H (DLWP-HPX's HEALPixUNet on HPX64)")
     mode.add_argument("--fcn3", action="store_true",
                       help="path N: FourCastNet3's train step (batch 4), "
                            "then a rollout window (batch 2)")
@@ -233,7 +246,8 @@ def main(argv=None):
         print_tables(device_events(args.read), args.traced_steps)
         return
     if args.steps is None:
-        args.steps = (2 if args.coupled else 3 if args.fcn3 or args.local
+        args.steps = (2 if args.coupled
+                      else 3 if args.fcn3 or args.local or args.healpix
                       else 5
                       if args.train or args.shield or args.som
                       or args.ocean else 100
@@ -302,6 +316,29 @@ def main(argv=None):
         _profile(rollout, args.steps, 1,
                  os.path.join(args.out, "local_rollout_trace.json"),
                  relabel=disco_relabel)
+        return
+    if args.healpix:
+        train, rollout = _healpix_runners(device)
+        flop = convolution_flop(rollout) / HEALPIX_WINDOW
+        print(f"HEALPixUNet's convolutions: {flop / 1e12:.4f} TFLOP a "
+              f"sample-step forward (from their shapes), "
+              f"{3 * flop / 1e12:.4f} with the backward (x3)")
+        print(f"path H-R train step (batch {HEALPIX_BATCH}, 1 forward step, "
+              f"f32):")
+        busy = _profile(train, args.steps, 1,
+                        os.path.join(args.out, "healpix_train_trace.json"),
+                        relabel=lambda path: healpix_family)
+        print(f"path H-R train step: "
+              f"{3 * flop * HEALPIX_BATCH / busy / 1e12:.2f} TFLOP/s of "
+              f"convolutions over the busy time")
+        print(f"path H-I rollout window (batch 1, {HEALPIX_WINDOW} steps, "
+              f"f32):")
+        busy = _profile(rollout, args.steps, 1,
+                        os.path.join(args.out, "healpix_rollout_trace.json"),
+                        relabel=lambda path: healpix_family)
+        print(f"path H-I rollout: "
+              f"{flop * HEALPIX_WINDOW / busy / 1e12:.2f} TFLOP/s of "
+              f"convolutions over the busy time")
         return
     if args.ocean:
         train, rollout = _ocean_runners(device)
@@ -1093,23 +1130,120 @@ def disco_relabel(trace_path: str):
 def convolution_flop(rollout) -> float:
     """The operations (2 per multiply-add) of the convolutions in a
     1-step ``rollout(1)`` at batch 1, counted from each call's kernel and
-    output shapes (forward hooks on the ``Conv2d`` modules)."""
+    output shapes (forward hooks on the ``Conv2d`` modules, and on the
+    transposed convolutions, whose output pixels each take one tap)."""
+    from ace_tpu_torch.models.healpix import TransposedConvUpsample
     from ace_tpu_torch.models.samudra import Conv2d
 
     total = [0.0]
 
     def count(module, args, out):
         out_c, in_c, kh, kw = module.kernel.shape
-        total[0] += 2.0 * in_c * kh * kw * out.numel()
+        taps = 1 if isinstance(module, TransposedConvUpsample) else kh * kw
+        total[0] += 2.0 * in_c * taps * out.numel()
 
     hooks = [m.register_forward_hook(count)
-             for m in rollout.module.modules() if isinstance(m, Conv2d)]
+             for m in rollout.module.modules()
+             if isinstance(m, (Conv2d, TransposedConvUpsample))]
     try:
         rollout(1)
     finally:
         for hook in hooks:
             hook.remove()
     return total[0]
+
+
+HEALPIX_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+    "dlwp-hpx64-train.yaml")
+HEALPIX_BATCH = 4
+HEALPIX_WINDOW = 5
+# a cuDNN convolution's kernels (forward, data and weight gradients; its
+# GEMM and FFT algorithms too: HEALPixUNet has no matmul outside its
+# convolutions), and the neighbour pad's gathers and scatters
+# (index_select, index_copy, and index_add in their backward)
+_CONVOLUTION = ("conv", "fprop", "dgrad", "wgrad", "cudnn", "winograd",
+                "implicit", "gemm", "fft")
+_PAD = ("indexselect", "index_select", "indexfunc", "index_copy",
+        "index_add", "indexcopy", "vectorized_gather")
+
+
+def healpix_family(event: dict) -> str | None:
+    """Path H's families beyond ``FAMILIES``: the convolutions (with
+    cuDNN's layout transposes, its GEMM and FFT algorithms), and the
+    neighbour pad's gathers with their backward."""
+    name = event["name"].lower()
+    if any(p in name for p in _CONVOLUTION):
+        return "convolutions (cuDNN, f32)"
+    if any(p in name for p in _PAD):
+        return "neighbour pad (gathers, their backward)"
+    return None
+
+
+def _healpix_runners(device, nside=64, builder=None):
+    """``(train, rollout)`` of DLWP-HPX's recipe (``HEALPIX_CONFIG``: its
+    network, step, loss and optimizer, the default EMA; statistics of unit
+    scale in place of its files) at ``nside``: ``train(n)`` ``n`` train
+    steps on one batch of ``HEALPIX_BATCH`` (returns their metrics);
+    ``rollout(n)`` ``n`` rollouts of ``HEALPIX_WINDOW`` steps at batch 1
+    (returns the last one's outputs). Weights from a seed; ``builder``
+    makes a small copy."""
+    import datetime
+
+    import yaml
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.coordinates import HEALPixCoordinates
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.core.loss import StepLossConfig
+    from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
+    from ace_tpu_torch.stepper.stepper import PrognosticState, StepperConfig
+    from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
+
+    with open(HEALPIX_CONFIG) as f:
+        config = yaml.safe_load(f)
+    step = config["stepper"]["step"]["config"]
+    names = sorted(set(step["in_names"]) | set(step["out_names"]))
+    step["normalization"] = {"network": {"means": dict.fromkeys(names, 0.0),
+                                         "stds": dict.fromkeys(names, 1.0)}}
+    if builder is not None:
+        step["builder"]["config"] = builder
+    info = DatasetInfo(
+        horizontal_coordinates=HEALPixCoordinates.from_nside(nside),
+        timestep=datetime.timedelta(hours=6))
+    stepper = from_dict(StepperConfig, config["stepper"]).get_stepper(
+        info, device=device)
+    training = config["stepper_training"]
+    ts = TrainStepper(
+        stepper,
+        StepperTrainConfig(
+            n_forward_steps=training["n_forward_steps"],
+            loss=from_dict(StepLossConfig, training["loss"])),
+        from_dict(OptimizationConfig, config["optimization"]), EMAConfig())
+    ts.init(torch.Generator(device).manual_seed(0))
+    gen = torch.Generator(device).manual_seed(1)
+
+    def draw(batch, n_times):
+        return {k: torch.randn(batch, n_times, 12, nside, nside,
+                               generator=gen, device=device) for k in names}
+
+    batch = draw(HEALPIX_BATCH, training["n_forward_steps"] + 1)
+    series = draw(1, HEALPIX_WINDOW + 1)
+    ic = PrognosticState(data={k: series[k][:, :1]
+                               for k in stepper.prognostic_names})
+    forcing = {k: series[k] for k in stepper.forcing_window_names}
+
+    def train(n):
+        return [ts.train_step(batch, torch.Generator(device).manual_seed(3))
+                for _ in range(n)]
+
+    def rollout(n):
+        for _ in range(n):
+            outputs = stepper.predict(ic, forcing)[0]
+        return outputs
+
+    rollout.module = stepper.module
+    return train, rollout
 
 
 def _train_runner(device, fused):

@@ -145,10 +145,15 @@ class TrainStepper:
         info = step.dataset_info
         sht = None
         if train_config.loss.is_ensemble_loss:
-            nlat, nlon = info.img_shape
-            self.loss_sht = RealSHT(nlat, nlon,
-                                    grid=info.horizontal_coordinates.grid,
-                                    device=stepper.device)
+            if len(info.img_shape) == 2:
+                nlat, nlon = info.img_shape
+                self.loss_sht = RealSHT(
+                    nlat, nlon, grid=info.horizontal_coordinates.grid,
+                    device=stepper.device)
+            else:
+                # HEALPix: the grid's channels-last SHT
+                self.loss_sht = info.gridded_operations.get_real_sht(
+                    device=stepper.device)
             sht = complex_sht(self.loss_sht)
         config = step.config
         if hasattr(config, "get_loss_normalizer"):

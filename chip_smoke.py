@@ -206,6 +206,24 @@
      8 K2 and 4 K1 a step); L-N, ``LocalNet`` at its builder's defaults in
      the network's place (one epoch, then 20 inference steps: no launch, no
      sync, within 1e-5 of ``Stepper.predict``).
+   - path H, DLWP-HPX's recipe on the HEALPix grid
+     (``configs/dlwp-hpx64-train.yaml``: HEALPixUNet at its builder's
+     defaults, 9.54 M parameters, on HPX64, 12 x 64 x 64 pixels, 8
+     prognostic fields and 3 forcings, float32, MSE), after reference
+     phase H (the neighbour pad at p = 1-3 equal to the CPU, the nside-64
+     SHT pair against float64, a band-limited round trip, the winds'
+     vorticity and divergence at 180x360 and back against float64, three
+     small HEALPixUNets over every block type and an ensemble-loss train
+     step on the HEALPix SHT, card against CPU): H-R, the training entry
+     over synthetic files on (face, height, width) dims with the cuts of
+     ``_healpix_config`` (batch 4, 4 batches, 1 validation batch, 4 inline
+     steps, one epoch, then a resume that must be bit-equal; TF32 turned
+     on before each run and off after it; no launch, no sync in the batch
+     loop); H-I, the inference entry over H-R's best checkpoint (20 steps
+     at batch 1 in windows of 5 from an initial condition given as a
+     ``file://`` URL, the spectrum aggregator on the HEALPix SHT: no
+     launch, no sync in ``run_inference``, within 1e-5 of
+     ``Stepper.predict``).
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -1309,12 +1327,13 @@ def _write_files(tmp, series, time, info):
 
 def _entry_from_files(tmp, ckpt, series, time, info, counters, device,
                       n_steps, in_memory, check_sync, data_dir=None,
-                      starts=(0, 1), label="path I"):
+                      starts=(0, 1), label="path I", initial_condition=None):
     """Path I through ``main`` on a YAML: netCDF forcing in (``series``
     written to a file, or the files under ``data_dir``), predictions from
-    ``starts``, restart.nc and diagnostics out. Returns the writer-off
-    run's summary, launches, phases and peak, and the written
-    predictions."""
+    ``starts`` (or from the ``initial_condition`` section, a file's
+    path and its ``start_indices``), restart.nc and diagnostics out.
+    Returns the writer-off run's summary, launches, phases and peak, and
+    the written predictions."""
     import os
 
     import numpy as np
@@ -1336,6 +1355,8 @@ def _entry_from_files(tmp, ckpt, series, time, info, counters, device,
                                "start_indices": {"list": list(starts)}},
             "data_writer": {"save_prediction_files": save},
         }
+        if initial_condition is not None:
+            config["initial_condition"] = initial_condition
         path = os.path.join(tmp, f"inference_{save}.yaml")
         with open(path, "w") as f:
             yaml.safe_dump(config, f)
@@ -3255,8 +3276,10 @@ def _sfno_zero_gradients(names):
 def _reference_case(label, counters, device, tols, make, dtype, inputs,
                     prepare=None, n_steps=2,
                     zero_gradients=_sfno_zero_gradients, labels=None,
-                    stepwise=False):
-    """A rollout and one train step (MSE, ``n_steps`` forward steps) of
+                    stepwise=False, loss_config=None, n_ensemble=1):
+    """A rollout and one train step (MSE, or the step loss config
+    ``loss_config`` over ``n_ensemble`` members; ``n_steps`` forward
+    steps) of
     the small model of ``make(dtype) -> (StepperConfig, DatasetInfo)`` on
     ``device``
     and the CPU from the same weights (``flagship.draw_check_weights``) and
@@ -3292,7 +3315,8 @@ def _reference_case(label, counters, device, tols, make, dtype, inputs,
         return TrainStepper(
             config.get_stepper(info, device=dev),
             StepperTrainConfig(n_forward_steps=n_steps, loss=from_dict(
-                StepLossConfig, {"type": "MSE"})),
+                StepLossConfig, loss_config or {"type": "MSE"}),
+                n_ensemble=n_ensemble),
             OptimizationConfig(lr=1e-4, optimizer_type="AdamW"),
             EMAConfig())
 
@@ -7282,6 +7306,453 @@ def local_paths(counters, smi, sizes=None, device="cuda", gen=None):
     return {k: out[k] for k in ("L-R", "L-I", "L-A", "L-N")}, rows
 
 
+# path H: the HEALPix grid through DLWP-HPX's recipe
+# (``configs/dlwp-hpx64-train.yaml``: HEALPixUNet at its builder's
+# defaults on HPX64, nside 64, 8 prognostic fields and 3 forcings, float32,
+# MSE)
+HPX_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "dlwp-hpx64-train.yaml")
+H_NSIDE = 64
+H_BATCH = 4
+# 4 training batches of 4, 1 validation batch (and 4 inline steps from its
+# first time), 20 inference steps
+H_SPLITS = (("train", 17, "2000-01-01T00:00"),
+            ("valid", 5, "2001-01-01T00:00"),
+            ("inference", N_STEPS + 2, "2002-01-01T00:00"))
+H_INFERENCE_STEPS = 4
+H_WINDOW = 5
+H_PREDICT_TOL = 1e-5
+# the recipe's static forcings, written without a time axis
+H_STATIC = ("lsm", "topography")
+# (mean, std, positive) of each synthetic field, of ERA5's size on HPX64
+# (geopotentials in m2/s2, temperatures in K, water in kg/m2, wind in m/s,
+# insolation in J/m2); the land-sea mask is a fraction
+H_DRAWS = {"z500": (5.5e4, 3.0e3, False), "tau300-700": (3.7e4, 1.5e3, False),
+           "z1000": (1.0e3, 1.0e3, False), "t2m0": (288.0, 15.0, False),
+           "tcwv0": (0.0, 20.0, True), "t850": (275.0, 12.0, False),
+           "z250": (1.0e5, 4.0e3, False), "ws10m": (0.0, 6.0, True),
+           "tisr": (0.0, 1.0e6, True), "topography": (0.0, 5.0e3, True)}
+# reference phase H: HEALPixUNet at nside 8 over every block type, in
+# three networks; the round trip's degrees; the winds' grid
+H_REFERENCE_NSIDE = 8
+H_ROUND_TRIP_LMAX = 32
+H_ROUND_TRIP_TOL = 1e-3
+H_WINDS = (180, 360)
+
+
+def _healpix_names():
+    """The recipe's variables: its inputs and outputs (11)."""
+    step = _yaml(HPX_CONFIG)["stepper"]["step"]["config"]
+    return sorted(set(step["in_names"]) | set(step["out_names"]))
+
+
+def _healpix_draw(name, shape, generator, device):
+    """A synthetic field of ``H_DRAWS``' size; the land-sea mask in
+    [0, 1]."""
+    import torch
+
+    v = torch.randn(shape, generator=generator, device=device)
+    if name == "lsm":
+        return v.abs().clamp(0, 1)
+    mean, std, positive = H_DRAWS[name]
+    return (v.abs() if positive else v) * std + mean
+
+
+def healpix_files(tmp, nside, generator, device, splits=H_SPLITS):
+    """The recipe's netCDF files on (face, height, width) dims, one
+    directory per split of ``splits`` (the static forcings without a time
+    axis), and the means and stds files of the first split's fields,
+    drawn from ``generator`` on ``device``. Returns the paths and each
+    split's fields ``[time, 12, nside, nside]`` (the static ones
+    broadcast along time)."""
+    import numpy as np
+
+    from ace_tpu_torch.data.store import write_h5
+    from ace_tpu_torch.data.time import TimeCoord
+
+    coords = {"face": np.arange(12.0), "height": np.arange(float(nside)),
+              "width": np.arange(float(nside))}
+    static = {k: _healpix_draw(k, (12, nside, nside), generator,
+                               device).cpu().numpy() for k in H_STATIC}
+    paths, series = {}, {}
+    for split, n, start in splits:
+        data = {k: _healpix_draw(k, (n, 12, nside, nside), generator,
+                                 device).cpu().numpy()
+                for k in _healpix_names() if k not in H_STATIC}
+        dims = {k: ("time", "face", "height", "width") for k in data}
+        dims.update({k: ("face", "height", "width") for k in static})
+        paths[split] = os.path.join(tmp, split)
+        os.makedirs(paths[split])
+        write_h5(os.path.join(paths[split], "data.nc"), {**data, **static},
+                 dims, coords=coords,
+                 time=TimeCoord.from_range(start, n, 21600))
+        series[split] = {**data, **{k: np.broadcast_to(v, (n, *v.shape))
+                                    for k, v in static.items()}}
+    train = series[splits[0][0]]
+    for label, stat in (("centering", np.mean), ("scaling", np.std)):
+        paths[label] = os.path.join(tmp, f"{label}.nc")
+        write_h5(paths[label],
+                 {k: np.asarray(stat(v), np.float32) for k, v in train.items()},
+                 {k: () for k in train})
+    return paths, series
+
+
+def _healpix_config(paths, experiment_dir, builder=None):
+    """``configs/dlwp-hpx64-train.yaml`` with path H-R's cuts: the
+    synthetic files for the placeholder data and stats paths, batch 4, one
+    epoch, one inline-inference entry of 4 steps from the first
+    validation time, no output to the screen; ``builder`` replaces the
+    network's config (the small copies the CPU runs)."""
+    config = _yaml(HPX_CONFIG)
+    config["experiment_dir"] = experiment_dir
+    config["max_epochs"] = 1
+    config["logging"]["log_to_screen"] = False
+    for loader, split in (("train_loader", "train"),
+                          ("validation_loader", "valid")):
+        config[loader]["dataset"]["data_path"] = paths[split]
+        config[loader]["batch_size"] = H_BATCH
+    step = config["stepper"]["step"]["config"]
+    step["normalization"]["network"] = {
+        "global_means_path": paths["centering"],
+        "global_stds_path": paths["scaling"]}
+    if builder is not None:
+        step["builder"]["config"] = builder
+    config["inference"] = {
+        "loader": {"dataset": {"data_path": paths["valid"]},
+                   "start_indices": {"list": [0]}},
+        "n_forward_steps": H_INFERENCE_STEPS,
+    }
+    return config
+
+
+def healpix_unet_configs():
+    """Three small HEALPixUNet builder configs that together hold every
+    block type: the defaults' structure (ConvNeXt, average pooling,
+    transposed-conv upsampling, a 1x1 output) at widths up to 16; the
+    symmetric blocks with the dealiased downsample, dilations and the
+    smoothed interpolation; basic blocks with max pooling and a bilinear
+    interpolation."""
+    capped = {"cap_value": 10}
+    return {
+        "defaults-structure": {
+            "encoder": {"conv_block": {"block_type": "ConvNeXtBlock",
+                                       "activation": capped},
+                        "down_sampling_block": {"block_type": "AvgPool"},
+                        "n_channels": [16, 8, 4], "n_layers": [2, 2, 1]},
+            "decoder": {"conv_block": {"block_type": "ConvNeXtBlock",
+                                       "activation": capped},
+                        "up_sampling_block": {
+                            "block_type": "TransposedConvUpsample",
+                            "activation": capped},
+                        "output_layer": {"block_type": "BasicConvBlock",
+                                         "kernel_size": 1, "n_layers": 1},
+                        "n_channels": [4, 8, 16], "n_layers": [1, 2, 2]}},
+        "every-block": {
+            "encoder": {"conv_block": {
+                "block_type": "SymmetricConvNeXtBlock", "activation": capped},
+                "down_sampling_block": {"block_type": "DealiasedDownsample"},
+                "n_channels": [8, 12], "n_layers": [1, 1],
+                "dilations": [1, 2]},
+            "decoder": {"conv_block": {
+                "block_type": "Multi_SymmetricConvNeXtBlock", "n_layers": 2},
+                "up_sampling_block": {
+                    "block_type": "SmoothedInterpolateConv",
+                    "activation": capped},
+                "output_layer": {"block_type": "ConvNeXtBlock"},
+                "n_channels": [12, 12], "n_layers": [1, 1]}},
+        "maxpool-interpolate": {
+            "encoder": {"conv_block": {"block_type": "BasicConvBlock",
+                                       "n_layers": 2, "activation": capped},
+                        "down_sampling_block": {"block_type": "MaxPool"},
+                        "n_channels": [6, 10], "n_layers": [2, 1]},
+            "decoder": {"conv_block": {"block_type": "ConvNeXtBlock"},
+                        "up_sampling_block": {"block_type": "Interpolate",
+                                              "upsample_mode": "bilinear"},
+                        "output_layer": {"block_type": "BasicConvBlock",
+                                         "kernel_size": 3},
+                        "n_channels": [10, 6], "n_layers": [1, 1]}},
+    }
+
+
+def healpix_stepper_config(nside=H_REFERENCE_NSIDE, builder=None):
+    """A stepper config of the recipe's step (its variables, statistics
+    of ``H_DRAWS``' size) with ``builder`` as the network's config, and
+    the dataset info of its grid."""
+    from datetime import timedelta
+
+    from ace_tpu_torch.core.coordinates import HEALPixCoordinates
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.core.step import StepSelector
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    step = _yaml(HPX_CONFIG)["stepper"]["step"]["config"]
+    if builder is not None:
+        step["builder"]["config"] = builder
+    scale = {**H_DRAWS, "lsm": (0.5, 0.3, False)}
+    step["normalization"]["network"] = {
+        "means": {k: scale[k][0] for k in _healpix_names()},
+        "stds": {k: scale[k][1] for k in _healpix_names()}}
+    info = DatasetInfo(
+        horizontal_coordinates=HEALPixCoordinates.from_nside(nside),
+        timestep=timedelta(hours=6))
+    return StepperConfig(step=StepSelector(type="single_module",
+                                           config=step)), info
+
+
+def healpix_inputs(stepper, n_steps, batch, generator):
+    """An initial condition, ``n_steps + 1`` forcing times and a training
+    batch of as many times for a HEALPix stepper, drawn on the CPU from
+    ``generator``."""
+    from ace_tpu_torch.stepper.stepper import PrognosticState
+
+    shape = (batch, n_steps + 1, *stepper.dataset_info.img_shape)
+    step = stepper.step
+    data = {k: _healpix_draw(k, shape, generator, "cpu")
+            for k in sorted(set(step.input_names) | set(step.output_names))}
+    ic = PrognosticState(data={k: data[k][:, :1]
+                               for k in stepper.prognostic_names})
+    return ic, {k: data[k] for k in stepper.forcing_window_names}, data
+
+
+def _healpix_grid_phase(device):
+    """Reference H's grid parts, ``device`` against the CPU: the pad at p
+    = 1, 2, 3 (equal), ``get_real_sht`` and ``get_real_isht`` at nside 64
+    (lmax = mmax = 127) against a float64 evaluation of the same
+    transforms (within ``SHT_TOL`` of the largest value), a band-limited
+    round trip (the lowest degrees within ``H_ROUND_TRIP_TOL``, the card's
+    within ``SHT_TOL`` of the float64 one's), and the vorticity and
+    divergence of a wind at 180x360 and the wind back, against float64
+    (1e-4 of the anomaly + 1e-5 of the value)."""
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.core.gridded_ops import HEALPixOperations
+    from ace_tpu_torch.models.healpix import healpix_pad
+    from ace_tpu_torch.ops import hpx, vector_sht
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 12, H_NSIDE, H_NSIDE, 8, generator=gen)
+    equal = {p: torch.equal(healpix_pad(x.to(device), p).cpu(),
+                            healpix_pad(x, p)) for p in (1, 2, 3)}
+    print(f"reference H: healpix_pad of [2, 12, {H_NSIDE}, {H_NSIDE}, 8], "
+          f"{device} equal to the CPU at p = 1, 2, 3: {equal}")
+    if not all(equal.values()):
+        raise AssertionError("reference H: the pad differs from the CPU")
+
+    def rel(got, ref):
+        return float((got.cpu().to(ref.dtype) - ref).abs().max()
+                     / ref.abs().max())
+
+    ops = HEALPixOperations(H_NSIDE)
+    sht, isht = ops.get_real_sht(device), ops.get_real_isht(device)
+    coeffs = sht(x[..., :4].to(device))
+    ref = ops.get_real_sht().double()(x[..., :4].double())
+    back = isht(ref.to(torch.complex64).to(device))
+    ref_back = ops.get_real_isht().double()(ref)
+    errs = {"sht": rel(coeffs, ref), "isht": rel(back, ref_back)}
+    lmax = H_ROUND_TRIP_LMAX
+    rng = np.random.RandomState(0)
+    imag = np.tril(rng.randn(lmax, lmax), -1)
+    imag[:, 0] = 0.0
+    low = torch.from_numpy(np.tril(rng.randn(lmax, lmax)) + 1j * imag)[
+        ..., None]
+
+    def round_trip(dev, dtype):
+        pair = [cls(H_NSIDE, lmax=lmax, mmax=lmax).to(dev, dtype)
+                for cls in (hpx.HealpixISHT, hpx.HealpixSHT)]
+        return pair[1](pair[0](low.to(dev)))
+
+    trip64 = round_trip("cpu", torch.float64)
+    errs["round trip"] = rel(round_trip(device, torch.float32), trip64)
+    quadrature = float((trip64 - low).abs()[:4, :4].max()
+                       / low.abs()[:4, :4].max())
+    nlat, nlon = H_WINDS
+    u, v = (torch.randn(2, nlat, nlon, generator=gen) for _ in range(2))
+    ref_vd = vector_sht.u_v_to_vort_div(u.double(), v.double())
+    got_vd = vector_sht.u_v_to_vort_div(u.to(device), v.to(device))
+    ref_uv = vector_sht.vort_div_to_u_v(*ref_vd)
+    got_uv = vector_sht.vort_div_to_u_v(*got_vd)
+    winds = {}
+    for name, got, r in zip(("vort", "div", "u", "v"), got_vd + got_uv,
+                            ref_vd + ref_uv):
+        anomaly = (r - r.mean((-2, -1), keepdim=True)).abs().amax((-2, -1))
+        allowed = S_F32_TOL * anomaly + 1e-5 * r.abs().amax((-2, -1))
+        winds[name] = float(((got.cpu().double() - r).abs().amax((-2, -1))
+                             / allowed).max())
+    print(f"reference H: nside {H_NSIDE} transforms (lmax = mmax = "
+          f"{2 * H_NSIDE - 1}) on {device} against float64: "
+          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+          + f" of the largest value (tol {SHT_TOL}); the float64 round trip "
+          f"at lmax {lmax} recovers the degrees below 4 within "
+          f"{quadrature:.3g} (tol {H_ROUND_TRIP_TOL}); winds at "
+          f"{nlat}x{nlon} against float64: "
+          + ", ".join(f"{k} {e:.3g}" for k, e in winds.items())
+          + " of the allowed")
+    if not (max(errs.values()) <= SHT_TOL and quadrature <= H_ROUND_TRIP_TOL
+            and max(winds.values()) <= 1):
+        raise AssertionError("reference H: a transform disagrees")
+
+
+def reference_healpix_phase(counters, device="cuda"):
+    """Reference phase H: ``_healpix_grid_phase``, then small HEALPixUNets
+    of the recipe's step at nside 8 (``healpix_unet_configs``: every block
+    type), each a forward step and one MSE train step on ``device``
+    against the CPU from the same weights and inputs, and one ensemble-loss
+    train step (CRPS and the energy score over ``get_real_sht``, 2
+    members) of the first, within reference S's float32 limits, with no
+    kernel launch."""
+    _healpix_grid_phase(device)
+    tols = (S_F32_TOL, S_F32_LOSS_TOL, S_F32_GRAD_TOL)
+    cases = [(name, builder, None, 1)
+             for name, builder in healpix_unet_configs().items()]
+    cases.append(("defaults-structure, ensemble loss",
+                  healpix_unet_configs()["defaults-structure"],
+                  {"type": "EnsembleLoss",
+                   "kwargs": {"crps_weight": 0.9,
+                              "energy_score_weight": 0.1}}, 2))
+    for name, builder, loss, n_ensemble in cases:
+        launches = _reference_case(
+            f"reference H ({name})", counters, device, tols,
+            lambda dtype, b=builder: healpix_stepper_config(builder=b),
+            "float32",
+            lambda stepper, gen: healpix_inputs(stepper, 1, 2, gen),
+            n_steps=1, zero_gradients=lambda names: set(),
+            loss_config=loss, n_ensemble=n_ensemble)
+        if launches != {c.__name__: 0 for c in counters}:
+            raise AssertionError(f"reference H: launches {launches}")
+
+
+def healpix_train_path(counters, device="cuda", nside=H_NSIDE, builder=None,
+                       then=None):
+    """Path H-R: ``python -m ace_tpu_torch.train``'s ``main`` on
+    ``configs/dlwp-hpx64-train.yaml`` with the cuts of ``_healpix_config``
+    (HEALPixUNet at its builder's defaults on HPX64, unless ``nside`` and
+    ``builder`` say otherwise) over ``healpix_files``: one epoch, then
+    ``--override max_epochs=2``, which must resume at epoch 1 with its
+    state bit for bit. TF32 is turned on before each run, and each must
+    leave it off. Checks finite metrics, one ``metrics.jsonl`` line per
+    epoch, the checkpoint files, no kernel launch, no sync in the batch
+    loop (on the card); prints the loop's rates, the phases, the
+    checkpoints' bytes and seconds and the peak. ``then(paths, series,
+    best)`` runs after the gates inside the context that holds the files.
+    Returns the launches and the loop's rates."""
+    import contextlib
+
+    import torch
+
+    label = "path H-R"
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as tmp, files:
+        paths, series = healpix_files(
+            tmp, nside, torch.Generator(device).manual_seed(13), device)
+        out_dir = os.path.join(tmp, "experiment")
+        config = _healpix_config(paths, out_dir, builder)
+        path = _write_yaml(os.path.join(tmp, "hpx.yaml"), config)
+        print(f"{label}: {HPX_CONFIG} at nside {nside} (12 x {nside} x "
+              f"{nside}), {len(_healpix_names())} variables, builder "
+              f"{config['stepper']['step']['config']['builder']['config']}, "
+              f"batch {H_BATCH}")
+        flags = []
+        runs, launches, rates, restored, _, n_params = _epoch_then_resume(
+            label, path, counters, device, lambda: [_tf32_probe(flags)])
+        ckpt_dir = os.path.join(out_dir, "training_checkpoints")
+        files_found = sorted(os.listdir(ckpt_dir))
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        bad = [k for line in lines for k, v in line.items()
+               if not math.isfinite(v)]
+        if len(lines) != 2 or bad:
+            raise AssertionError(f"{label}: {len(lines)} metrics.jsonl "
+                                 f"lines, not finite: {bad[:5]}")
+        print(f"{label}: {n_params} parameters; batch loop "
+              f"{rates[0]:.4f} (epoch 1) and {rates[1]:.4f} (epoch 2) train "
+              f"steps/s at batch {H_BATCH} ({rates[1] * H_BATCH:.4f} "
+              f"samples/s); losses by epoch: train "
+              f"{[line['train/loss'] for line in lines]}, validation "
+              f"{[line['val/loss'] for line in lines]}; {len(lines[-1])} "
+              f"metrics; checkpoint files {files_found}")
+        want_files = {"ckpt.msgpack", "best_ckpt.msgpack", "ema_ckpt.msgpack"}
+        if not want_files <= set(files_found):
+            raise AssertionError(f"{label}: checkpoint files {files_found}")
+        _check_tf32_pinned(label, flags)
+        _check_resume(label, runs, restored)
+        _check_no_launches(label, counters, launches)
+        if then is not None:
+            then(paths, series, os.path.join(ckpt_dir, "best_ckpt.msgpack"))
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates
+
+
+def healpix_inference_path(counters, paths, series, ckpt, device="cuda",
+                           n_steps=N_STEPS, window=H_WINDOW):
+    """Path H-I: ``python -m ace_tpu_torch.inference``'s ``main`` over path
+    H-R's ``best_ckpt.msgpack``: ``n_steps`` steps at batch 1 in windows
+    of ``window`` from the first time of H-R's inference file, given as a
+    ``file://`` URL (``initial_condition``), the spectrum aggregator on
+    (the HEALPix SHT in the window loop), writer off (then on, for the
+    predictions), TF32 turned on before. Checks finite outputs, TF32 off
+    after it, no launch, no synchronizing call in ``run_inference`` (on
+    the card) and the written predictions within ``H_PREDICT_TOL`` of
+    each channel's spatial std of one ``Stepper.predict``; prints steps/s
+    and the peak. Returns the launches and the rate."""
+    import torch
+
+    from ace_tpu_torch.stepper import checkpoint
+
+    label = "path H-I"
+    check_sync = torch.device(device).type == "cuda"
+    ic = {"path": "file://" + os.path.join(paths["inference"], "data.nc"),
+          "start_indices": {"list": [0]}}
+    flags = []
+    with tempfile.TemporaryDirectory() as tmp, _tf32_probe(flags):
+        runs, written = _entry_from_files(
+            tmp, ckpt, None, None, None, counters, device, n_steps, window,
+            check_sync, data_dir=paths["inference"], label=label,
+            initial_condition=ic)
+    _check_tf32_pinned(label, flags)
+    stepper = checkpoint.load_stepper(ckpt, device=device)
+    errs, worst, _ = _check_written(label, stepper, series["inference"],
+                                    written, [0], n_steps)
+    summary, launches, phases, peak = runs[False]
+    rate = summary["total_steps_per_second"]
+    print(f"{label}: {summary['total_steps']} steps at {rate:.4f} steps/s "
+          f"(batch 1, windows of {window}, writer off; "
+          f"{runs[True][0]['total_steps_per_second']:.4f} with it on); "
+          f"phases { {k: round(v, 4) for k, v in sorted(phases.items())} }; "
+          f"peak device memory {peak:.2f} GB; launches {launches}")
+    print(f"{label}: written predictions vs one {n_steps}-step predict: "
+          f"largest error {errs[worst]:.3g} of the channel's spatial std "
+          f"({worst}; tol {H_PREDICT_TOL})")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"{label}: launches {launches}")
+    if not errs[worst] <= H_PREDICT_TOL:
+        raise AssertionError(f"{label}: the written predictions disagree "
+                             "with Stepper.predict")
+    return launches, rate
+
+
+def healpix_paths(counters, smi, device="cuda", nside=H_NSIDE, builder=None):
+    """Reference phase H, then paths H-R and H-I: the launches of each
+    path. ``nside`` and ``builder`` make the small copies the CPU runs."""
+    t0 = time.perf_counter()
+    reference_healpix_phase(counters, device)
+    out = {}
+    print(smi)
+
+    def then(paths, series, best):
+        print(smi)
+        out["H-I"], _ = healpix_inference_path(counters, paths, series, best,
+                                               device=device)
+
+    out["H-R"], _ = healpix_train_path(counters, device=device, nside=nside,
+                                       builder=builder, then=then)
+    print(f"path H (reference H, H-R, H-I): {time.perf_counter() - t0:.1f} s")
+    return {k: out[k] for k in ("H-R", "H-I")}
+
+
 def _entry_paths(counters, keep, none, smi, rate_t):
     """Paths I, E (with phase E-agg), R and F (with reference phases R
     and F): the launches of each."""
@@ -7531,7 +8002,14 @@ def main() -> int:
     # variable (K1, 1b, 1c in the spectral blocks; K2 in L-A), and LocalNet
     by_local, rows_l = local_paths(counters, smi, gen=gen)
     by_path.update(by_local)
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("path L")
+
+    # reference phase H and paths H-R, H-I: DLWP-HPX's recipe on the HEALPix
+    # grid (HEALPixUNet, float32: no kernel of the port)
+    by_path.update(healpix_paths(counters, smi))
+    lap("path H")
     print(f"seconds by section: {sections}; in all "
           f"{sum(sections.values()):.1f} s")
 

@@ -55,6 +55,7 @@ from ace_tpu_torch.utils.convert import (
     flax_params_to_state_dict,
     flax_view,
     state_dict_to_flax_params,
+    state_dict_to_flax_variables,
 )
 
 torch.set_num_threads(2)
@@ -222,12 +223,21 @@ def _step_dict(builder, dtype, conditional=True):
     )
 
 
+def _shapes(init, *args):
+    """The leaves' shapes of the tree ``init(*args)`` would make, traced
+    only."""
+    return jax.tree_util.tree_map(lambda v: v.shape,
+                                  dict(jax.eval_shape(init, *args)))
+
+
 @functools.lru_cache(maxsize=None)
 def _steppers(case, dtype):
     """ace_tpu's and the port's train steppers on the step config of
-    ``CASES[case]`` (labels ``LABELS`` in the dataset info), the port's
-    holding ace_tpu's (perturbed) weights; built once per case and dtype,
-    as ace_tpu's initialization compiles."""
+    ``CASES[case]`` (labels ``LABELS`` in the dataset info), both on the
+    port's initial weights (drawn as flax draws them), perturbed, in
+    ``ace_tpu``'s tree, which must have ``init_params``' leaves (drawing
+    them in flax compiles its initializers once per shape); built once per
+    case and dtype."""
     builder = CASES[case]
     lat, lon = _grid()
     jinfo = JaxDatasetInfo(
@@ -240,13 +250,17 @@ def _steppers(case, dtype):
     jcfg = jax_from_dict(JaxSingleModuleStepConfig, step)
     jstepper = JaxStepperConfig(step=JaxStepSelector(
         type="single_module", config=jax_to_dict(jcfg))).get_stepper(jinfo)
-    params = _perturb(jstepper.init_params(jax.random.PRNGKey(0)))
+    stepper = StepperConfig(step=StepSelector(
+        type="single_module", config=step)).get_stepper(info, device="cpu")
+    stepper.init_params(torch.Generator().manual_seed(0))
+    params = _perturb(state_dict_to_flax_variables(
+        stepper.module.state_dict()))
+    assert jax.tree_util.tree_map(np.shape, params) == _shapes(
+        jstepper.init_params, jax.random.PRNGKey(0))
     jts = JaxTrainStepper(
         jstepper, JaxTrainConfig(loss=jax_from_dict(JaxStepLossConfig, LOSS),
                                  n_forward_steps=1, n_ensemble=E),
         JaxOptConfig(**OPT), JaxEMAConfig())
-    stepper = StepperConfig(step=StepSelector(
-        type="single_module", config=step)).get_stepper(info, device="cpu")
     stepper.load_state_dict(flax_params_to_state_dict(params))
     ts = TrainStepper(
         stepper, StepperTrainConfig(loss=from_dict(StepLossConfig, LOSS),
@@ -435,10 +449,20 @@ def converter_trees():
                                   lora_rank=2)
     ankur = jax_localnet.AnkurLocalNet(img_shape=(NLAT, NLON), in_chans=4,
                                        out_chans=4, embed_dim=6)
-    trees = {name: _perturb(jax.jit(m.init)(jax.random.PRNGKey(0), x))[
-        "params"]
+    rng = np.random.default_rng(4)
+
+    def drawn(shapes):
+        # drawn apart from either package's initialization: only the
+        # layout is under test
+        return jax.tree_util.tree_map(
+            lambda shape: rng.standard_normal(shape).astype(np.float32),
+            shapes, is_leaf=lambda v: isinstance(v, tuple))["params"]
+
+    key = jax.random.PRNGKey(0)
+    trees = {name: drawn(_shapes(m.init, key, x))
              for name, m in (("localnet", local), ("ankur", ankur))}
-    trees["sfno"] = _steppers("all-options", "float32")[1]["params"]
+    jts = _steppers("all-options", "float32")[0]
+    trees["sfno"] = drawn(_shapes(jts.stepper.init_params, key))
     return trees
 
 

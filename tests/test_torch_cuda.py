@@ -793,3 +793,36 @@ def test_disco_on_card_matches_cpu(cuda, basis):
             assert got.shape == ref.shape
             err = float((got - ref).abs().max() / ref.abs().max())
             assert err <= 1e-5, (in_shape, err)
+
+
+def test_reference_h_runs_on_the_card(cuda):
+    """``chip_smoke.py``'s reference phase H: the HEALPix pad at p = 1-3
+    (equal to the CPU), the nside-64 transforms against float64, a
+    band-limited round trip, the winds at 180x360 against float64, then
+    three small HEALPixUNets over every block type (a forward step and an
+    MSE train step) and an ensemble-loss train step on the HEALPix SHT,
+    card against CPU within reference S's float32 limits, no launch."""
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    chip_smoke.reference_healpix_phase([dhconv_filter, dhconv_filter_dx,
+                                        dhconv_filter_dw])
+
+
+@pytest.mark.parametrize("p", [1, 2, 3])
+def test_healpix_pad_gradient_on_card_matches_cpu(cuda, p):
+    """The pad's backward (``index_select``'s: an ``index_add`` of each
+    padded cell into its sources, the corners' halves too) at nside 64
+    and 32 channels: within 1e-6 of the largest gradient."""
+    from ace_tpu_torch.models.healpix import healpix_pad
+
+    gen = torch.Generator().manual_seed(p)
+    x = torch.randn(2, 12, 64, 64, 32, generator=gen)
+    w = torch.randn(2, 12, 64 + 2 * p, 64 + 2 * p, 32, generator=gen)
+    grads = []
+    for dev in ("cpu", cuda):
+        xd = x.detach().to(dev).requires_grad_()
+        (healpix_pad(xd, p) * w.to(dev)).sum().backward()
+        grads.append(xd.grad.cpu())
+    err = float((grads[1] - grads[0]).abs().max() / grads[0].abs().max())
+    assert err <= 1e-6, err

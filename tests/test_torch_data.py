@@ -146,8 +146,14 @@ def test_each_package_reads_the_others_h5_file(tmp_path, writer):
                            time=t)
     _assert_same_dataset(store.open_file_dataset(path),
                          jax_store.open_file_dataset(path))
-    with pytest.raises(NotImplementedError, match="remote"):
-        store.open_file_dataset("gs://bucket/f.nc")
+    # a remote file (here in fsspec's memory filesystem, no network) is
+    # fetched to a local copy by each package's cloud module
+    from ace_tpu_torch.data import cloud
+
+    url = f"memory://{writer}/f.nc"
+    cloud.inter_filesystem_copy(path, url)
+    _assert_same_dataset(store.open_file_dataset(url),
+                         jax_store.open_file_dataset(url))
 
 
 @pytest.mark.parametrize("writer", ["port", "ace_tpu"])

@@ -23,7 +23,11 @@ from ace_tpu_torch.core import coordinates
 from ace_tpu_torch.core.dataset_info import DatasetInfo
 from ace_tpu_torch.models import localnet
 from ace_tpu_torch.models.registry import ModuleSelector
-from ace_tpu_torch.utils.convert import flax_params_to_state_dict
+from ace_tpu_torch.models.layers import init_weights
+from ace_tpu_torch.utils.convert import (
+    flax_params_to_state_dict,
+    state_dict_to_flax_params,
+)
 
 torch.set_num_threads(2)
 
@@ -64,10 +68,17 @@ def _perturb(params, seed=1):
 
 
 def _pair(jmodule, module, inputs, kwargs=None):
-    """ace_tpu's module initialized on ``inputs`` and perturbed, its
-    output, and the port's module with those weights and its output."""
+    """The port's module with its weights drawn (as flax draws them) and
+    perturbed, and its output; ``ace_tpu``'s module on the same tree,
+    which must have ``jmodule.init``'s leaves, and its output. Drawing
+    them in flax compiles its initializers once per shape."""
     jin = [jnp.asarray(x) for x in inputs]
-    params = _perturb(jax.jit(jmodule.init)(jax.random.PRNGKey(0), *jin))
+    init_weights(module, torch.Generator().manual_seed(0))
+    params = _perturb({"params": state_dict_to_flax_params(
+        module.state_dict())})
+    shapes = jax.eval_shape(jmodule.init, jax.random.PRNGKey(0), *jin)
+    assert jax.tree_util.tree_map(np.shape, params) == (
+        jax.tree_util.tree_map(lambda v: v.shape, dict(shapes)))
     module.load_state_dict(flax_params_to_state_dict(params))
     ref = jax.jit(jmodule.apply)(params, *jin)
     with torch.no_grad():

@@ -95,11 +95,35 @@ def test_ocean_yamls_build_as_shipped(path, schema):
         assert len(config.loader.dataset.merge) == 3
 
 
+class _EagerJax:
+    """``jax`` with ``jit`` the identity: for ``ace_tpu``'s aggregators,
+    whose jitted updates over this recipe's 80 outputs take XLA:CPU 35-45
+    s each to compile (the spectrum's flood fills and transforms, one per
+    variable, unrolled), which op by op run in seconds. Same operations,
+    not compiled."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def jit(fn, *args, **kwargs):
+        return fn
+
+
+def _eager_aggregators(mp):
+    from ace_tpu.aggregator import inference as jax_inference_aggregators
+    from ace_tpu.aggregator import one_step as jax_one_step
+
+    for module in (jax_inference_aggregators, jax_one_step):
+        mp.setattr(module, "jax", _EagerJax())
+
+
 @pytest.fixture(scope="module")
 def ocean_runs(tmp_path_factory):
     """One epoch of both training entries (the port from ace_tpu's initial
     weights), then both evaluator entries over ace_tpu's best
-    checkpoint."""
+    checkpoint; ``ace_tpu``'s aggregators run eagerly
+    (``_eager_aggregators``)."""
     tmp = tmp_path_factory.mktemp("ocean")
     files = {}
     for single in (False, True):
@@ -124,6 +148,7 @@ def ocean_runs(tmp_path_factory):
 
     out = {"init": init}
     with pytest.MonkeyPatch.context() as mp:
+        _eager_aggregators(mp)
         mp.setattr(jax_train.TrainStepper, "init", capture)
         mp.setattr(port_train.TrainStepper, "init", from_ace_tpu)
         for name, run, single in (
@@ -136,20 +161,23 @@ def ocean_runs(tmp_path_factory):
             run([chip_smoke._write_yaml(str(tmp / f"{name}.yaml"), config)])
             with open(tmp / name / "metrics.jsonl") as f:
                 out[name] = [json.loads(line) for line in f]
-    ckpt = str(tmp / "ace_tpu" / "training_checkpoints" / "best_ckpt.msgpack")
-    for name, run in (("ace_tpu", jax_evaluator.main),
-                      ("port", lambda a: evaluator.main(a, device="cpu"))):
-        config = chip_smoke._yaml(chip_smoke.OCEAN_EVALUATOR)
-        config.update(experiment_dir=str(tmp / f"eval_{name}"),
-                      checkpoint_path=ckpt, n_forward_steps=E_STEPS)
-        config["logging"].update(log_to_wandb=False, log_to_screen=False)
-        chip_smoke._ocean_dataset(config["loader"]["dataset"]["merge"],
-                                  files[True]["evaluator"])
-        config["aggregator"].update(chip_smoke.O_E_FLAGS)
-        config["aggregator"]["log_step_means"] = [{"step": 2}]
-        _single(config)
-        path = chip_smoke._write_yaml(str(tmp / f"eval_{name}.yaml"), config)
-        out[f"eval_{name}"] = run([path])
+        ckpt = str(tmp / "ace_tpu" / "training_checkpoints"
+                   / "best_ckpt.msgpack")
+        for name, run in (("ace_tpu", jax_evaluator.main),
+                          ("port", lambda a: evaluator.main(a,
+                                                            device="cpu"))):
+            config = chip_smoke._yaml(chip_smoke.OCEAN_EVALUATOR)
+            config.update(experiment_dir=str(tmp / f"eval_{name}"),
+                          checkpoint_path=ckpt, n_forward_steps=E_STEPS)
+            config["logging"].update(log_to_wandb=False, log_to_screen=False)
+            chip_smoke._ocean_dataset(config["loader"]["dataset"]["merge"],
+                                      files[True]["evaluator"])
+            config["aggregator"].update(chip_smoke.O_E_FLAGS)
+            config["aggregator"]["log_step_means"] = [{"step": 2}]
+            _single(config)
+            path = chip_smoke._write_yaml(str(tmp / f"eval_{name}.yaml"),
+                                          config)
+            out[f"eval_{name}"] = run([path])
     return tmp, files, out
 
 
@@ -264,13 +292,18 @@ def test_chip_smoke_path_o_runs_on_the_cpu(monkeypatch, capsys):
     """``chip_smoke.py``'s reference phase O (the CPU on both sides:
     equal exactly) and paths O-R and O-E over the shipped YAMLs at 16x32
     (Samudra widths 16-24, 2 levels), their files held in host memory as
-    where h5py is missing: every gate holds, with no launch."""
+    where h5py is missing, and without matplotlib, as on the card (the
+    evaluator's maps and videos are skipped there: their rendering took
+    45 of this test's 70 s): every gate holds, with no launch."""
+    import sys
+
     from ace_tpu_torch.ops import dhconv_filter as k1
 
     present, _ = chip_smoke.inference_packages()
     present.pop("h5py")
     monkeypatch.setattr(chip_smoke, "inference_packages",
                         lambda: (present, ["h5py"]))
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     counters = [k1.dhconv_filter, k1.dhconv_filter_dx, k1.dhconv_filter_dw]
     out = chip_smoke.ocean_paths(counters, "cpu", sizes=SIZES, device="cpu")
     none = {c.__name__: 0 for c in counters}

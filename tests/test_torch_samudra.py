@@ -87,9 +87,23 @@ def test_capped_gelu_matches_ace_tpu():
         np.asarray(jax_samudra.capped_gelu(jnp.asarray(x))), atol=1e-6)
 
 
-def _flax_init(module, x):
-    variables = jax.jit(module.init)(jax.random.PRNGKey(0), jnp.asarray(x))
-    return jax.tree_util.tree_map(np.asarray, variables)
+def _flax_shapes(jmodule, x):
+    """The leaves' shapes of ``jmodule.init``'s tree, traced only."""
+    return jax.tree_util.tree_map(
+        lambda v: tuple(v.shape),
+        dict(jax.eval_shape(jmodule.init, jax.random.PRNGKey(0),
+                            jnp.asarray(x))))
+
+
+def _flax_params(jmodule, module, x):
+    """``module``'s initial weights (the port draws them as flax does) as
+    ``ace_tpu``'s tree, which must have ``jmodule.init``'s leaves (names
+    and shapes). Drawing them in flax compiles its initializers once per
+    shape: 50 of this file's 100 s on XLA:CPU."""
+    params = {"params": state_dict_to_flax_params(module.state_dict())}
+    assert jax.tree_util.tree_map(lambda v: tuple(v.shape), params) == (
+        _flax_shapes(jmodule, x))
+    return params
 
 
 def _apply(module, params, x):
@@ -103,18 +117,16 @@ def test_convnext_block_matches_ace_tpu(norm, c_in, c_out, dilation):
     x = _draw((2, 9, 13, c_in))
     jblock = jax_samudra.ConvNeXtBlock(out_channels=c_out, dilation=dilation,
                                        norm=norm)
-    params = _flax_init(jblock, x)
-    ref = _apply(jblock, params, x)
     block = samudra.ConvNeXtBlock(c_in, c_out, dilation=dilation, norm=norm)
-    block.load_state_dict(flax_params_to_state_dict(params))
+    ref = _apply(jblock, _flax_params(jblock, block, x), x)
     got = _nhwc(block(_nchw(x)))
     assert np.abs(got - ref).max() <= OUT_TOL * np.abs(ref).max()
 
 
 def _modules(nlat=16, nlon=32, n_in=7, n_out=5, **builder):
-    """Both packages' Samudra of ``BUILDER`` updated by ``builder``, the
-    port's with ``ace_tpu``'s initial weights, and an input; made once
-    per configuration (the JAX side's compiles dominate the file)."""
+    """Both packages' Samudra of ``BUILDER`` updated by ``builder``,
+    ``ace_tpu``'s tree of the port's initial weights, and an input; made
+    once per configuration (the JAX side's compiles dominate the file)."""
     key = (nlat, nlon, n_in, n_out, repr(sorted(builder.items())))
     if key not in _MODULES:
         _MODULES[key] = _build_modules(nlat, nlon, n_in, n_out, builder)
@@ -135,9 +147,7 @@ def _build_modules(nlat, nlon, n_in, n_out, builder):
     module = from_dict(ModuleSelector, config).build(n_in, n_out, info,
                                                      device="cpu")
     x = _draw((2, nlat, nlon, n_in), seed=1)
-    params = _flax_init(jmodule, x)
-    module.load_state_dict(flax_params_to_state_dict(params))
-    return jmodule, module, params, x
+    return jmodule, module, _flax_params(jmodule, module, x), x
 
 
 @pytest.mark.parametrize("builder, shape", [
@@ -202,8 +212,15 @@ def test_convolution_weights_round_trip_through_flax_layout():
     """A flax ``Conv`` kernel ``[kh, kw, in, out]`` becomes the port's
     ``kernel`` in ``F.conv2d``'s ``[out, in, kh, kw]`` and back, bit for
     bit; ``flax_name`` and ``flax_view`` give the leaf's flax name and
-    layout (what fine-tuning's rules and the optimizer's moments read)."""
-    _, module, params, _ = _modules()
+    layout (what fine-tuning's rules and the optimizer's moments read).
+    The flax tree is drawn apart from the port, in ``ace_tpu``'s leaf
+    shapes."""
+    jmodule, module, _, x = _build_modules(16, 32, 7, 5, {})
+    rng = np.random.default_rng(5)
+    params = jax.tree_util.tree_map(
+        lambda shape: rng.standard_normal(shape).astype(np.float32),
+        _flax_shapes(jmodule, x), is_leaf=lambda v: isinstance(v, tuple))
+    module.load_state_dict(flax_params_to_state_dict(params))
     back = state_dict_to_flax_params(module.state_dict())
     flat = jax.tree_util.tree_flatten_with_path(params["params"])[0]
     for path, leaf in flat:

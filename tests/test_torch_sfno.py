@@ -53,6 +53,24 @@ def _close(out, ref, tol):
                                atol=tol * float(np.max(np.abs(ref))))
 
 
+def _shapes(net_j, x):
+    """The leaves' shapes of ``net_j.init``'s tree, traced only."""
+    return jax.tree_util.tree_map(
+        lambda v: v.shape,
+        dict(jax.eval_shape(net_j.init, jax.random.PRNGKey(0),
+                            jnp.asarray(x))))
+
+
+def _port_params(net_j, net, x):
+    """``net``'s initial weights (the port draws them as flax does; flax's
+    initializers compile once per shape) as ``ace_tpu``'s tree, which must
+    have ``net_j.init``'s leaves, ``_perturb``ed."""
+    layers.init_weights(net, torch.Generator().manual_seed(0))
+    params = {"params": state_dict_to_flax_params(net.state_dict())}
+    assert jax.tree_util.tree_map(np.shape, params) == _shapes(net_j, x)
+    return _perturb(params)
+
+
 def _perturb(params, seed=1):
     """Random values where flax starts at zeros or ones (biases, norm
     scales) and spectral weights large enough to show in the outputs."""
@@ -110,16 +128,16 @@ def _nets(extra, embed=None):
 
 @pytest.mark.parametrize("name", sorted(NET_CASES))
 def test_sfno_matches_ace_tpu(name, monkeypatch):
-    """The network's forward over each option, from ace_tpu's weights
-    (``_perturb``ed): f32 within ``F32_TOL``, bf16 within ``BF16_TOL`` of
-    the largest output."""
+    """The network's forward over each option, both packages on the same
+    weights (the port's, ``_port_params``): f32 within ``F32_TOL``, bf16
+    within ``BF16_TOL`` of the largest output."""
     net_j, net, dtype = _nets(NET_CASES[name])
     if dtype == "bfloat16":
         monkeypatch.setenv("ACE_TPU_PALLAS_FILTER", "interpret")
     x = _x(5)
+    params = _port_params(net_j, net, x)
     # bf16 compiled once as a whole (faster here than op by op)
     jit = jax.jit if dtype == "bfloat16" else (lambda f: f)
-    params = _perturb(jit(net_j.init)(jax.random.PRNGKey(0), jnp.asarray(x)))
     ref = jit(net_j.apply)(params, jnp.asarray(x))
     net.load_state_dict(flax_params_to_state_dict(params))
     with torch.inference_mode():
@@ -151,7 +169,7 @@ def test_sfno_gradients_match_jax_grad():
     net_j, net, _ = _nets(GRAD_CASE)
     x = _x(5)
     w = np.random.RandomState(3).randn(2, NLAT, NLON, 4).astype(np.float32)
-    params = _perturb(net_j.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    params = _port_params(net_j, net, x)
     ref = jax.jit(jax.grad(
         lambda p: jnp.sum(net_j.apply(p, jnp.asarray(x)) * w)))(
         params)["params"]
@@ -247,7 +265,7 @@ def test_builders_build_what_ace_tpu_builds(name, config):
     net = registry.ModuleSelector(**selector).build(5, 4, info,
                                                     device="cpu")
     x = _x(5)
-    params = _perturb(net_j.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    params = _port_params(net_j, net, x)
     net.load_state_dict(flax_params_to_state_dict(params))
     with torch.inference_mode():
         _close(net(torch.from_numpy(x)), net_j.apply(params, jnp.asarray(x)),
@@ -307,7 +325,12 @@ def test_converter_maps_the_new_leaves_both_ways():
     leaves keep their layout; ``flax_name`` names every leaf as the flax
     tree does."""
     net_j, net, _ = _nets(GRAD_CASE)
-    params = _perturb(net_j.init(jax.random.PRNGKey(0), jnp.asarray(_x(5))))
+    # drawn apart from either package's initialization, in ace_tpu's
+    # leaf shapes: only the layout is under test
+    rng = np.random.default_rng(4)
+    params = _perturb(jax.tree_util.tree_map(
+        lambda shape: rng.standard_normal(shape).astype(np.float32),
+        _shapes(net_j, _x(5)), is_leaf=lambda v: isinstance(v, tuple)))
     state = flax_params_to_state_dict(params)
     w = np.asarray(params["params"]["block_0"]["filter"]["weight"])
     assert w.ndim == 5

@@ -19,7 +19,10 @@ from ace_tpu.ops import sht as jax_sht
 from ace_tpu_torch.models import layers
 from ace_tpu_torch.models.sfno import SpectralConvS2
 from ace_tpu_torch.ops import fft2, sht
-from ace_tpu_torch.utils.convert import flax_params_to_state_dict
+from ace_tpu_torch.utils.convert import (
+    flax_params_to_state_dict,
+    state_dict_to_flax_params,
+)
 from tests.test_torch_sfno import (
     BF16_TOL,
     F32_TOL,
@@ -162,15 +165,23 @@ def test_spectral_conv_matches_ace_tpu(name, dtype, monkeypatch):
         in_channels=c, out_channels=c, use_bias=True, **kw)
     x = _x(c)
     xj = jnp.asarray(x, dtype)
-    # bf16 compiled once as a whole (faster here than op by op)
-    jit = jax.jit if dtype == "bfloat16" else (lambda f: f)
-    params = _perturb(jit(layer_j.init)(jax.random.PRNGKey(0), xj))
-    out_j, res_j = jit(layer_j.apply)(params, xj)
     layer = SpectralConvS2(
         sht.RealSHT(NLAT, NLON, lmax=lmax, mmax=mmax, device="cpu"),
         sht.InverseRealSHT(*out_grid, lmax=lmax, mmax=mmax, device="cpu"),
         c, c, use_bias=True, device="cpu", **kw)
-    # the converter's filter rules key on a block's ``filter``
+    # the port's initial weights (drawn as flax draws them; flax's
+    # initializers compile once per shape) in ace_tpu's tree, which must
+    # have its leaves; the converter's filter rules key on a block's
+    # ``filter``
+    layers.init_weights(layer, torch.Generator().manual_seed(0))
+    params = _perturb({"params": state_dict_to_flax_params(
+        {f"filter.{k}": v for k, v in layer.state_dict().items()})["filter"]})
+    assert jax.tree_util.tree_map(np.shape, params) == (
+        jax.tree_util.tree_map(lambda v: v.shape, dict(jax.eval_shape(
+            layer_j.init, jax.random.PRNGKey(0), xj))))
+    # bf16 compiled once as a whole (faster here than op by op)
+    jit = jax.jit if dtype == "bfloat16" else (lambda f: f)
+    out_j, res_j = jit(layer_j.apply)(params, xj)
     state = flax_params_to_state_dict({"filter": params["params"]})
     layer.load_state_dict({k.removeprefix("filter."): v
                            for k, v in state.items()})

@@ -35,7 +35,10 @@ from ace_tpu_torch.core.constants import (
 )
 from ace_tpu_torch.core.step import StepArgs, StepSelector
 from ace_tpu_torch.stepper.stepper import PrognosticState, StepperConfig
-from ace_tpu_torch.utils.convert import flax_params_to_state_dict
+from ace_tpu_torch.utils.convert import (
+    flax_params_to_state_dict,
+    state_dict_to_flax_variables,
+)
 
 torch.set_num_threads(2)
 
@@ -105,10 +108,21 @@ def _perturb(params, seed):
 
 @functools.lru_cache
 def _jax_stepper(selector_json: str, seed: int):
+    """ace_tpu's stepper with the port's initial weights drawn from
+    ``seed`` (the port draws them as flax does; flax's initializers
+    compile once per shape, 5-10 s a stepper on XLA:CPU) in its tree,
+    which must have ``init_params``' leaves, then perturbed."""
     jstepper = JaxStepperConfig(step=JaxStepSelector(
         **json.loads(selector_json))).get_stepper(jax_dataset_info())
-    jstepper.params = _perturb(
-        jstepper.init_params(jax.random.PRNGKey(seed)), seed + 1)
+    _, info = chip_smoke.som_step_configs(NLAT, NLON, nz=NZ)
+    port = StepperConfig(step=StepSelector(
+        **json.loads(selector_json))).get_stepper(info, device="cpu")
+    port.init_params(torch.Generator().manual_seed(seed))
+    params = state_dict_to_flax_variables(port.module.state_dict())
+    shapes = jax.eval_shape(jstepper.init_params, jax.random.PRNGKey(seed))
+    assert jax.tree_util.tree_map(np.shape, params) == (
+        jax.tree_util.tree_map(lambda v: v.shape, shapes))
+    jstepper.params = _perturb(params, seed + 1)
     return jstepper
 
 

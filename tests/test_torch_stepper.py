@@ -263,17 +263,57 @@ def test_jax_checkpoint_config_parses(jax_rollout):
     {"module": {"type": "NoiseConditionedSwinTransformer",
                 "conditional": True}},
     {"module": {"type": "LandNet"}},
-    {"module": {"type": "HEALPixUNet"}},
+    # ported since: builds as ace_tpu's (PORTED_SINCE)
+    {"module": {"type": "HEALPixUNet", "config": {}}},
     {"module": {"type": "FloeNet", "allow_missing_variables": True}},
     {"module": {"type": "GraphCast"}},
 ])
 def test_unported_options_are_refused(override):
+    """Each builder of ace_tpu that the port lacks is refused, naming
+    that; a builder ported since keeps its case, which holds it against
+    ace_tpu (``_assert_builds_as_ace_tpu``)."""
     step = _step_dict(**override.get("builder", {}))
     step.update(override.get("step", {}))
     step["builder"].update(override.get("module", {}))
+    if step["builder"]["type"] in PORTED_SINCE:
+        _assert_builds_as_ace_tpu(step)
+        return
     with pytest.raises((NotImplementedError, ConfigError)) as info:
         StepSelector(type="single_module", config=step)
     assert "not ported" in str(info.value)
+
+
+PORTED_SINCE = ("HEALPixUNet",)
+
+
+def _assert_builds_as_ace_tpu(step):
+    """The step config of ``step`` parses in both packages to the same
+    builder state, and its network, built through both registries on a
+    HEALPix grid, has ace_tpu's parameters: every name and shape."""
+    from ace_tpu.models.registry import ModuleSelector as JaxModuleSelector
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.models.registry import ModuleSelector
+
+    selector = StepSelector(type="single_module", config=step)
+    jselector = jax_from_dict(JaxStepSelector,
+                              {"type": "single_module", "config": step})
+    builder = selector.get_state()["config"]["builder"]
+    assert builder == jselector.get_state()["config"]["builder"]
+    n_in, n_out = len(step["in_names"]), len(step["out_names"])
+    net = from_dict(ModuleSelector, builder).build(
+        n_in, n_out, DatasetInfo(
+            horizontal_coordinates=coordinates.HEALPixCoordinates.from_nside(
+                4)), device="cpu")
+    jnet = jax_from_dict(JaxModuleSelector, builder).build(
+        n_in, n_out, JaxDatasetInfo(
+            horizontal_coordinates=jax_coords.HEALPixCoordinates.from_nside(
+                4)))
+    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 12, 4, 4, n_in)))
+    ref = flax_params_to_state_dict(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes))
+    assert {k: tuple(v.shape) for k, v in net.state_dict().items()} == {
+        k: tuple(v.shape) for k, v in ref.items()}
 
 
 def test_dry_air_is_conserved_in_rollout(jax_rollout, monkeypatch):
