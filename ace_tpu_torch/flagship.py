@@ -189,14 +189,17 @@ def draw_check_weights(stepper: Stepper, generator: torch.Generator):
     """Draw the weights for a comparison of two runs of one model (card
     against CPU): the default draw, then the parts that start at or near
     zero made large enough that a wrong filter or conditioning shows in
-    the outputs. The noise conditioning (zero-initialized) gets std 0.1;
+    the outputs. The noise and label conditioning and the Swin nets' bias
+    MLP outputs and AdaLN projections (all zero-initialized) get std 0.1;
     the spectral filters (std 1/(in*out); an SFNO block's ``filter``,
     FourCastNet3's ``global_conv``) get std 1/sqrt(in); the LoRA adapters
     (one factor zero-initialized) std 1/sqrt(fan-in) in each factor."""
     stepper.init_params(generator)
     with torch.no_grad():
         for name, p in stepper.module.named_parameters():
-            if "w_scale_2d" in name or "w_bias_2d" in name:
+            if any(k in name for k in ("w_scale_2d", "w_bias_2d",
+                                       "w_scale_labels", "w_bias_labels",
+                                       "cpb_fc2", "adaln_labels")):
                 p.normal_(std=0.1, generator=generator)
             elif name.endswith(("filter.weight", "global_conv.weight")):
                 # [2, L, I, O] (dhconv) or [2, L, M, I, O] (diagonal):

@@ -85,7 +85,7 @@ class ConditionalLayerNorm(nn.Module):
     eps = 1e-5
 
     def __init__(self, n_channels, embed_dim_noise=0, elementwise_affine=False,
-                 global_layer_norm=False, device=None):
+                 global_layer_norm=False, embed_dim_labels=0, device=None):
         super().__init__()
         self.global_layer_norm = global_layer_norm
         self.weight = self.bias = None
@@ -103,6 +103,14 @@ class ConditionalLayerNorm(nn.Module):
                                      device=device, init="zeros")
             self.w_bias_2d = Linear(embed_dim_noise, n_channels, bias=False,
                                     device=device, init="zeros")
+        self.embed_dim_labels = embed_dim_labels
+        if embed_dim_labels > 0:
+            # per-sample label terms broadcast over the grid (the Swin
+            # blocks'), zero-initialized
+            self.w_scale_labels = Linear(embed_dim_labels, n_channels,
+                                         device=device, init="zeros")
+            self.w_bias_labels = Linear(embed_dim_labels, n_channels,
+                                        device=device, init="zeros")
 
     def reset_parameters(self, generator=None):
         if self.weight is not None:
@@ -119,18 +127,27 @@ class ConditionalLayerNorm(nn.Module):
             y = y * self.weight + self.bias
         return y
 
-    def forward(self, x, noise=None):
+    def forward(self, x, noise=None, labels=None):
         y = self._global_norm(x) if self.global_layer_norm else self.norm(x)
-        if self.embed_dim_noise == 0:
+        if self.embed_dim_noise == 0 and self.embed_dim_labels == 0:
             return y
-        if noise is None:
-            raise ValueError("noise conditioning requires noise input")
-        # the conditioning denses compute in the activation dtype, so the
-        # full-grid scale/bias fields stay in it
-        dt = y.dtype
-        n = noise.to(dt)
-        scale = 1.0 + F.linear(n, self.w_scale_2d.weight.to(dt))
-        return y * scale + F.linear(n, self.w_bias_2d.weight.to(dt))
+        scale, bias = 1.0, 0.0
+        if self.embed_dim_noise > 0:
+            if noise is None:
+                raise ValueError("noise conditioning requires noise input")
+            # the conditioning denses compute in the activation dtype, so
+            # the full-grid scale/bias fields stay in it
+            dt = y.dtype
+            n = noise.to(dt)
+            scale = 1.0 + F.linear(n, self.w_scale_2d.weight.to(dt))
+            bias = F.linear(n, self.w_bias_2d.weight.to(dt))
+        if self.embed_dim_labels > 0:
+            if labels is None:
+                raise ValueError("label conditioning requires labels input")
+            lab = labels.to(y.dtype)
+            scale = scale + self.w_scale_labels(lab)[:, None, None, :]
+            bias = bias + self.w_bias_labels(lab)[:, None, None, :]
+        return y * scale + bias
 
 
 def isotropic_noise(isht, batch: int, channels: int,

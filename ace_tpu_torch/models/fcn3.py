@@ -22,10 +22,9 @@ import functools
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ace_tpu_torch.models.layers import MLP
+from ace_tpu_torch.models.layers import MLP, LayerNorm
 from ace_tpu_torch.models.localnet import GroupedDiscoConv
 from ace_tpu_torch.models.sfno import _ACTIVATIONS, SpectralConvS2
 from ace_tpu_torch.ops.resample import ResampleS2
@@ -99,27 +98,6 @@ class DiscoDecoder(nn.Module):
         else:
             up = self.resample(x32)
         return self.conv(up.to(x.dtype))
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` over the channels in float32 (eps 1e-6,
-    ``scale`` and ``bias``)."""
-
-    eps = 1e-6
-
-    def __init__(self, n_channels, device=None):
-        super().__init__()
-        self.scale = nn.Parameter(torch.empty(n_channels, device=device))
-        self.bias = nn.Parameter(torch.empty(n_channels, device=device))
-
-    def reset_parameters(self, generator=None):
-        with torch.no_grad():
-            self.scale.fill_(1.0)
-            self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.scale.shape, self.scale,
-                            self.bias, self.eps)
 
 
 class FCN3Block(nn.Module):

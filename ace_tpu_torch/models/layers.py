@@ -181,6 +181,26 @@ class InstanceNorm(nn.Module):
                 + self.bias.to(out.dtype)).to(dt)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the channels in float32 (``scale`` and
+    ``bias``; flax's eps 1e-6 unless ``eps`` says otherwise)."""
+
+    def __init__(self, n_channels, eps=1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(n_channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(n_channels, device=device))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.scale.shape, self.scale,
+                            self.bias, self.eps)
+
+
 class LayerNorm2d(nn.Module):
     """Layer norm over the ``(H, W)`` axes per channel, in float32, with
     ``[H, W, 1]`` ``scale`` and ``bias`` (port of

@@ -17,6 +17,7 @@ import abc
 import dataclasses
 from typing import Any, ClassVar
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -48,9 +49,6 @@ CONDITIONAL_BUILDERS = (
     "SwinTransformer",
     "NoiseConditionedSwinTransformer",
 )
-# the JAX package's builders that the port has not yet
-_UNPORTED = ("SwinTransformer", "NoiseConditionedSwinTransformer",
-             "LandNet", "FloeNet", "GraphCast")
 
 
 @dataclasses.dataclass
@@ -77,10 +75,6 @@ class ModuleSelector(Selector):
                 "Conditional predictions require a conditional builder, "
                 f"got {self.type} (available: {CONDITIONAL_BUILDERS})"
             )
-        if self.type in _UNPORTED:
-            raise NotImplementedError(
-                f"{self.type} is not ported yet (ROADMAP Queue 1, "
-                '"Other models")')
         super().__post_init__()
 
     @classmethod
@@ -569,5 +563,225 @@ class HEALPixUNetBuilder(ModuleConfig):
         return HEALPixUNet(
             n_in_channels, n_out_channels, encoder=self.encoder,
             decoder=self.decoder, dtype=compute_dtype(self.compute_dtype),
+            device=device,
+        )
+
+
+def _swin_lat_coords(dataset_info, use_cpb_scaling: bool):
+    """1D latitudes for the cos-lat position bias, or None when disabled
+    (port of ace_tpu/models/registry.py:468)."""
+    if not use_cpb_scaling:
+        return None
+    lat = getattr(dataset_info.horizontal_coordinates, "lat", None)
+    if lat is None:
+        raise ValueError(
+            "SwinTransformer requires 1D latitude coordinates for "
+            "cos-lat CPB scaling (set use_cpb_scaling=False to disable)"
+        )
+    return tuple(np.asarray(lat, np.float64).tolist())
+
+
+def _swin_padding_kwargs(padding_conf):
+    if not padding_conf or not padding_conf.get("activate", False):
+        return {}
+    return {
+        "padding_mode": padding_conf.get("mode", "earth"),
+        "pad_lat": tuple(padding_conf.get("pad_lat", [40, 40])),
+        "pad_lon": tuple(padding_conf.get("pad_lon", [40, 40])),
+    }
+
+
+@ModuleSelector.register("NoiseConditionedSwinTransformer")
+@dataclasses.dataclass
+class NoiseConditionedSwinTransformerBuilder(ModuleConfig):
+    """Stochastic Swin U-Net: a fresh Gaussian noise field each forward
+    conditions every block's ConditionalLayerNorm (port of
+    ace_tpu/models/registry.py:497)."""
+
+    embed_dim: int = 96
+    depth_multiplier: int = 1
+    num_heads: list[int] = dataclasses.field(
+        default_factory=lambda: [3, 6, 6, 3]
+    )
+    window_size: list[int] = dataclasses.field(default_factory=lambda: [4, 8])
+    mlp_ratio: float = 4.0
+    drop_path_rate: float = 0.2
+    use_skip: bool = True
+    mlp_layer: str = "mlp"
+    noise_embed_dim: int = 256
+    label_embed_dim: int = 0
+    cpb_hidden_dim: int = 64
+    padding_conf: dict | None = None
+    use_cpb_scaling: bool = True
+    compute_dtype: str = "float32"
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        from ace_tpu_torch.models.swin import SwinTransformerNet
+
+        return SwinTransformerNet(
+            n_in_channels, n_out_channels, tuple(dataset_info.img_shape),
+            embed_dim=self.embed_dim,
+            depth_multiplier=self.depth_multiplier,
+            num_heads=tuple(self.num_heads),
+            window_size=(self.window_size[0], self.window_size[1]),
+            mlp_ratio=self.mlp_ratio,
+            drop_path_rate=self.drop_path_rate,
+            use_skip=self.use_skip,
+            mlp_layer=self.mlp_layer,
+            conditioning="cln",
+            n_labels=len(dataset_info.all_labels),
+            label_embed_dim=self.label_embed_dim,
+            noise_embed_dim=self.noise_embed_dim,
+            cpb_hidden_dim=self.cpb_hidden_dim,
+            lat_coords=_swin_lat_coords(dataset_info, self.use_cpb_scaling),
+            dtype=compute_dtype(self.compute_dtype),
+            device=device,
+            **_swin_padding_kwargs(self.padding_conf),
+        )
+
+
+@ModuleSelector.register("SwinTransformer")
+@dataclasses.dataclass
+class SwinTransformerBuilder(ModuleConfig):
+    """Deterministic Swin U-Net, AdaLN label conditioning when the dataset
+    has labels (port of ace_tpu/models/registry.py:546)."""
+
+    embed_dim: int = 96
+    depth_multiplier: int = 1
+    num_heads: list[int] = dataclasses.field(
+        default_factory=lambda: [3, 6, 6, 3]
+    )
+    window_size: list[int] = dataclasses.field(default_factory=lambda: [4, 8])
+    mlp_ratio: float = 4.0
+    drop_path_rate: float = 0.2
+    use_skip: bool = True
+    mlp_layer: str = "mlp"
+    embed_dim_scalar: int = 0
+    cpb_hidden_dim: int = 64
+    padding_conf: dict | None = None
+    use_cpb_scaling: bool = True
+    compute_dtype: str = "float32"
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        from ace_tpu_torch.models.swin import SwinTransformerNet
+
+        return SwinTransformerNet(
+            n_in_channels, n_out_channels, tuple(dataset_info.img_shape),
+            embed_dim=self.embed_dim,
+            depth_multiplier=self.depth_multiplier,
+            num_heads=tuple(self.num_heads),
+            window_size=(self.window_size[0], self.window_size[1]),
+            mlp_ratio=self.mlp_ratio,
+            drop_path_rate=self.drop_path_rate,
+            use_skip=self.use_skip,
+            mlp_layer=self.mlp_layer,
+            conditioning="adaln",
+            embed_dim_scalar=self.embed_dim_scalar,
+            n_labels=len(dataset_info.all_labels),
+            cpb_hidden_dim=self.cpb_hidden_dim,
+            lat_coords=_swin_lat_coords(dataset_info, self.use_cpb_scaling),
+            dtype=compute_dtype(self.compute_dtype),
+            device=device,
+            **_swin_padding_kwargs(self.padding_conf),
+        )
+
+
+class LandNetModule(nn.Module):
+    """Per-column MLP land-surface net (port of
+    ace_tpu/models/registry.py:592): ``hidden_{i}`` denses with ReLU, a
+    learned ``pos_embed`` ``[1, H, W, dim]`` (standard normal) added after
+    the first hidden layer when asked for, then ``out``."""
+
+    def __init__(self, img_shape, in_channels, hidden_dims, out_channels,
+                 use_positional_embedding=False, device=None):
+        super().__init__()
+        self.n_hidden = len(hidden_dims)
+        width = in_channels
+        for i, dim in enumerate(hidden_dims):
+            self.add_module(f"hidden_{i}", Linear(
+                width, dim, device=device, init="lecun_normal"))
+            width = dim
+        self.pos_embed = None
+        if use_positional_embedding and hidden_dims:
+            self.pos_embed = nn.Parameter(torch.empty(
+                1, *img_shape, hidden_dims[0], device=device))
+            self.reset_parameters()
+        self.out = Linear(width, out_channels, device=device,
+                          init="lecun_normal")
+
+    def reset_parameters(self, generator=None):
+        if self.pos_embed is not None:
+            with torch.no_grad():
+                self.pos_embed.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, x, noise=None, generator=None, deterministic=True):
+        for i in range(self.n_hidden):
+            x = torch.relu(getattr(self, f"hidden_{i}")(x))
+            if i == 0 and self.pos_embed is not None:
+                x = x + self.pos_embed
+        return self.out(x)
+
+
+@ModuleSelector.register("LandNet")
+@dataclasses.dataclass
+class LandNetBuilder(ModuleConfig):
+    """(port of ace_tpu/models/registry.py:626)."""
+
+    hidden_dims: list[int] = dataclasses.field(
+        default_factory=lambda: [64, 64]
+    )
+    network_type: str = "MLP"
+    use_positional_embedding: bool = False
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        if self.network_type != "MLP":
+            raise ValueError("network_type must be MLP")
+        return LandNetModule(
+            tuple(dataset_info.img_shape), n_in_channels,
+            tuple(self.hidden_dims), n_out_channels,
+            use_positional_embedding=self.use_positional_embedding,
+            device=device,
+        )
+
+
+@ModuleSelector.register("FloeNet")
+@ModuleSelector.register("GraphCast")
+@dataclasses.dataclass
+class FloeNetBuilder(ModuleConfig):
+    """GraphCast-backbone sea-ice and ocean emulator (port of
+    ace_tpu/models/registry.py:670). As there, ``is_ocean`` is accepted
+    and no mask is passed: the full grid is used."""
+
+    latent_dimension: int = 256
+    activation: str = "silu"
+    meshes: int = 6
+    M0: int = 4
+    bias: bool = True
+    radius_fraction: float = 1.0
+    layernorm: bool = True
+    processor_steps: int = 4
+    residual: bool = True
+    is_ocean: bool = False
+
+    def build(self, n_in_channels, n_out_channels, dataset_info, device=None):
+        from ace_tpu_torch.models.graphcast import GraphCast
+
+        hc = dataset_info.horizontal_coordinates
+        lat2d, lon2d = np.meshgrid(hc.lat, hc.lon, indexing="ij")
+        return GraphCast(
+            img_shape=dataset_info.img_shape,
+            in_chans=n_in_channels,
+            out_chans=n_out_channels,
+            lat2d=lat2d,
+            lon2d=lon2d,
+            latent_dimension=self.latent_dimension,
+            activation=self.activation.lower(),
+            meshes=self.meshes,
+            M0=self.M0,
+            use_bias=self.bias,
+            radius_fraction=self.radius_fraction,
+            layernorm=self.layernorm,
+            processor_steps=self.processor_steps,
+            residual=self.residual,
             device=device,
         )

@@ -7,7 +7,8 @@ GPU.
                                               --evaluator | --shield |
                                               --som | --ocean |
                                               --coupled | --fcn3 |
-                                              --local | --healpix]
+                                              --local | --healpix |
+                                              --swin | --graphcast]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -87,6 +88,17 @@ then a rollout window as path L-I runs it (5 steps at batch 1; ``N``
 untraced, then 1 traced; ``local_train_trace.json``,
 ``local_rollout_trace.json``); the local blocks' DISCO (``DiscoConvS2``'s
 forward and ``mixed``, and their backward) is a family of its own.
+``--swin`` profiles path W: the flagship's step and pretraining recipe
+(``--train``'s loss, optimizer and EMA) with the
+NoiseConditionedSwinTransformer at its builder's defaults, f32: a train
+step at batch 2 (``N`` untraced, default 3, then 1 traced), then a rollout
+window (5 steps at batch 1; ``swin_train_trace.json``,
+``swin_rollout_trace.json``); its family table counts the softmax, the
+layer norms and the rolls apart (``swin_family``). ``--graphcast``
+profiles path G: the sea-ice recipe with FloeNet at its builder's defaults
+on the 1° grid (a train step at batch 2, then a rollout window of 5 steps
+at batch 1), the gathers and the segment sums apart
+(``graphcast_family``).
 ``--healpix`` profiles path H, DLWP-HPX's recipe
 (``configs/dlwp-hpx64-train.yaml``: HEALPixUNet at its builder's defaults
 on HPX64, float32, 11 inputs and 8 outputs; statistics of unit scale in
@@ -233,6 +245,14 @@ def main(argv=None):
                       help="path L: the flagship with local blocks and "
                            "labels: a train step (batch 2), then a rollout "
                            "window (batch 1)")
+    mode.add_argument("--swin", action="store_true",
+                      help="path W: the flagship recipe with the "
+                           "NoiseConditionedSwinTransformer: a train step "
+                           "(batch 2), then a rollout window (batch 1)")
+    mode.add_argument("--graphcast", action="store_true",
+                      help="path G: the sea-ice recipe with FloeNet at 1 "
+                           "degree: a train step (batch 2), then a rollout "
+                           "window (batch 1)")
     mode.add_argument("--som", action="store_true",
                       help="profile path M: the ACE2-SOM recipe's rollout "
                            "(f32, batch 4), then its bf16 multi-call train "
@@ -247,7 +267,8 @@ def main(argv=None):
         return
     if args.steps is None:
         args.steps = (2 if args.coupled
-                      else 3 if args.fcn3 or args.local or args.healpix
+                      else 3 if (args.fcn3 or args.local or args.healpix
+                                 or args.swin or args.graphcast)
                       else 5
                       if args.train or args.shield or args.som
                       or args.ocean else 100
@@ -339,6 +360,35 @@ def main(argv=None):
         print(f"path H-I rollout: "
               f"{flop * HEALPIX_WINDOW / busy / 1e12:.2f} TFLOP/s of "
               f"convolutions over the busy time")
+        return
+    if args.swin or args.graphcast:
+        kind = "swin" if args.swin else "graphcast"
+        runners, relabel, recipe = {
+            "swin": (_swin_runners, swin_family, "W-R train step (batch "
+                     f"{TRAIN_BATCH} x 2 members, CRPS, f32)"),
+            "graphcast": (_graphcast_runners, graphcast_family,
+                          f"G-R train step (batch {GRAPHCAST_BATCH}, MSE, "
+                          "f32)")}[kind]
+        if kind == "swin":
+            fwd, both = swin_flop()
+            print(f"the NoiseConditionedSwinTransformer: {fwd / 1e12:.4f} "
+                  f"TFLOP of matmuls a sample-step forward, {both / 1e12:.4f}"
+                  f" with the backward (counted on the meta device)")
+        train, rollout = runners(device)
+        if kind == "graphcast":
+            fwd, shared = graphcast_flop(rollout.graphs)
+            print(f"FloeNet's MLPs: {fwd / 1e12:.4f} TFLOP a sample-step "
+                  f"forward, {shared / 1e12:.4f} more for the embeddings "
+                  f"the batch shares (from the graphs' sizes)")
+        print(f"path {recipe}:")
+        _profile(train, args.steps, 1,
+                 os.path.join(args.out, f"{kind}_train_trace.json"),
+                 relabel=lambda path: relabel)
+        print(f"path {recipe[0]} rollout window (batch 1, "
+              f"{INFERENCE_STEPS_IN_MEMORY} steps, f32):")
+        _profile(rollout, args.steps, 1,
+                 os.path.join(args.out, f"{kind}_rollout_trace.json"),
+                 relabel=lambda path: relabel)
         return
     if args.ocean:
         train, rollout = _ocean_runners(device)
@@ -1243,6 +1293,201 @@ def _healpix_runners(device, nside=64, builder=None):
         return outputs
 
     rollout.module = stepper.module
+    return train, rollout
+
+
+# the Swin nets' families beyond ``FAMILIES``: the window attention's
+# softmax, the layer norms (the post-norms, the CLN's channel norm, the
+# patch layers'), the rolls of the shifted windows (the window partitions
+# are strided copies)
+_SWIN_FAMILIES = (("softmax", ("softmax",)),
+                  ("layer norms", ("layer_norm", "layernorm")),
+                  ("rolls", ("roll",)))
+# GraphCast's: the gathers of sender and receiver features (and the sorted
+# edges of the segment sums), the segment sums (and the gathers'
+# gradients), the layer norms
+_GRAPHCAST_FAMILIES = (
+    ("gathers", ("index_elementwise", "indexselect", "index_select",
+                 "vectorized_gather", "gather")),
+    ("segment sums", ("segment_reduce", "segment")),
+    ("layer norms", ("layer_norm", "layernorm")))
+
+
+def _family_by(table):
+    def relabel(event: dict) -> str | None:
+        name = event["name"].lower()
+        for label, patterns in table:
+            if any(p in name for p in patterns):
+                return label
+        return None
+    return relabel
+
+
+swin_family = _family_by(_SWIN_FAMILIES)
+graphcast_family = _family_by(_GRAPHCAST_FAMILIES)
+
+
+def _swin_runners(device, nlat=180, nlon=360, builder=None):
+    """``(train, rollout)`` of path W's network in the pretraining recipe
+    (``flagship.train_recipe``: CRPS over 2 members, AdamW, EMA) at
+    ``nlat`` x ``nlon``: the NoiseConditionedSwinTransformer at its
+    builder's defaults (or ``builder``'s config) in the flagship's step.
+    ``train(n)``: ``n`` train steps on one batch of ``TRAIN_BATCH``
+    (returns their metrics); ``rollout(n)``: ``n`` rollouts of
+    ``INFERENCE_STEPS_IN_MEMORY`` steps at batch 1. Weights from a seed."""
+    from ace_tpu_torch.core.step import StepSelector
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    config, info = flagship.stepper_config(nlat, nlon)
+    step = dict(config.step.config, builder={
+        "type": "NoiseConditionedSwinTransformer", "config": builder or {}})
+    stepper = StepperConfig(step=StepSelector(
+        type="single_module", config=step)).get_stepper(info, device=device)
+    ts = flagship.train_recipe(stepper)
+    ts.init(torch.Generator(device).manual_seed(0))
+    batch = flagship.synthetic_batch(
+        stepper, TRAIN_BATCH, generator=torch.Generator(device).manual_seed(1))
+    ic, forcing = flagship.synthetic_inputs(
+        stepper, INFERENCE_STEPS_IN_MEMORY,
+        generator=torch.Generator(device).manual_seed(2))
+
+    def train(n):
+        return [ts.train_step(batch, torch.Generator(device).manual_seed(3))
+                for _ in range(n)]
+
+    def rollout(n):
+        gen = torch.Generator(device).manual_seed(4)
+        for _ in range(n):
+            outputs = stepper.predict(ic, forcing, generator=gen)[0]
+        return outputs
+
+    rollout.stepper = stepper
+    return train, rollout
+
+
+def swin_flop(nlat=180, nlon=360, n_in=38, n_out=45) -> tuple[float, float]:
+    """The matmul and convolution operations of the
+    NoiseConditionedSwinTransformer at its builder's defaults (path W's
+    network, the flagship recipe's 38 inputs and 45 outputs) a
+    sample-step, forward and forward with backward, counted by
+    ``torch.utils.flop_counter`` on the meta device (no data, no card)."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.coordinates import LatLonCoordinates
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.models.registry import ModuleSelector
+
+    info = DatasetInfo(horizontal_coordinates=LatLonCoordinates(
+        np.linspace(-89.5, 89.5, nlat), np.arange(nlon) * 360.0 / nlon))
+    counts = []
+    with torch.device("meta"):
+        net = from_dict(ModuleSelector, {
+            "type": "NoiseConditionedSwinTransformer", "config": {}}).build(
+            n_in, n_out, info)
+        x = torch.zeros(1, nlat, nlon, n_in)
+        noise = torch.zeros(1, nlat, nlon, net.noise_embed_dim)
+        for backward in (False, True):
+            with FlopCounterMode(display=False) as counter:
+                out = net(x, noise=noise)
+                if backward:
+                    out.sum().backward()
+            counts.append(float(counter.get_total_flops()))
+    return counts[0], counts[1]
+
+
+def graphcast_flop(graphs, latent=256, n_in=4, n_out=4, steps=4):
+    """FloeNet's MLP operations a sample-step forward (2 per multiply-add,
+    each ``GnnMLP`` ``in -> latent -> out`` over its rows: the grid and
+    mesh nodes and the three edge sets of ``graphs``), and those of the
+    edge and mesh embeddings, which the batch shares."""
+    def mlp(rows, width_in, out=latent):
+        return 2.0 * rows * (width_in * latent + latent * out)
+
+    e1, e2, e3 = (len(graphs.g2m_senders), len(graphs.m2m_senders),
+                  len(graphs.m2g_senders))
+    grid, mesh = graphs.n_grid, graphs.n_mesh
+    per_sample = (mlp(grid, n_in + 3) + mlp(e1, 3 * latent)
+                  + mlp(mesh, 2 * latent) + mlp(grid, latent)
+                  + steps * (mlp(e2, 3 * latent) + mlp(mesh, 2 * latent))
+                  + mlp(e3, 3 * latent) + mlp(grid, 2 * latent)
+                  + mlp(grid, latent, n_out))
+    shared = mlp(mesh, 3) + mlp(e1, 4) + mlp(e2, 4) + mlp(e3, 4)
+    return per_sample, shared
+
+
+# path G-R's batch (the sea-ice recipe's)
+GRAPHCAST_BATCH = 2
+_ICE = {"siconc": (0.5, 0.3), "LSRCc": (0.0, 1e-6), "LSNKc": (0.0, 1e-6),
+        "XPRTc": (0.0, 1e-7)}
+
+
+def _graphcast_runners(device, nlat=180, nlon=360, builder=None):
+    """``(train, rollout)`` of path G's recipe (the sea-ice recipe of
+    ``tests/test_ice_train.py``: FloeNet at its builder's defaults, or
+    ``builder``'s config; input masking, the ice corrector's budget
+    correction, MSE, AdamW at 1e-3) at ``nlat`` x ``nlon`` over path O's
+    random land mask (``_ocean_info``): ``train(n)``: ``n`` train steps on
+    one batch of ``GRAPHCAST_BATCH``; ``rollout(n)``: ``n`` rollouts of
+    ``INFERENCE_STEPS_IN_MEMORY`` steps at batch 1. Weights from a seed."""
+    import dataclasses
+    import datetime
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.loss import StepLossConfig
+    from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
+    from ace_tpu_torch.stepper.stepper import PrognosticState, StepperConfig
+    from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
+
+    names = list(_ICE)
+    config = from_dict(StepperConfig, {
+        "input_masking": {"mask_value": 0, "fill_value": 0.0},
+        "step": {"type": "single_module", "config": {
+            "builder": {"type": "FloeNet", "config": builder or {}},
+            "in_names": names, "out_names": names,
+            "normalization": {"network": {
+                "means": {k: v[0] for k, v in _ICE.items()},
+                "stds": {k: v[1] for k, v in _ICE.items()}}},
+            "corrector": {"type": "ice_corrector", "config": {
+                "budget_correction": {"corrected_variables": {
+                    "siconc": ["LSRCc", "LSNKc", "XPRTc"]}}}}}}})
+    info = dataclasses.replace(_ocean_info(nlat, nlon),
+                               vertical_coordinate=None,
+                               timestep=datetime.timedelta(days=1))
+    stepper = config.get_stepper(info, device=device)
+    ts = TrainStepper(
+        stepper, StepperTrainConfig(n_forward_steps=1, loss=from_dict(
+            StepLossConfig, {"type": "MSE"})),
+        OptimizationConfig(lr=1e-3, optimizer_type="AdamW"), EMAConfig())
+    ts.init(torch.Generator(device).manual_seed(0))
+    gen = torch.Generator(device).manual_seed(1)
+    land = torch.as_tensor(info.mask_provider.masks["mask_2d"],
+                           device=device) == 0
+
+    def draw(batch, n_times):
+        """The recipe's fields, NaN over land as in its files."""
+        return {k: (torch.rand(batch, n_times, nlat, nlon, generator=gen,
+                               device=device) * _ICE[k][1] + _ICE[k][0]
+                    ).masked_fill(land, float("nan")) for k in names}
+
+    batch = draw(GRAPHCAST_BATCH, 2)
+    series = draw(1, INFERENCE_STEPS_IN_MEMORY + 1)
+    ic = PrognosticState(data={k: series[k][:, :1]
+                               for k in stepper.prognostic_names})
+    forcing = {k: series[k] for k in stepper.forcing_window_names}
+
+    def train(n):
+        return [ts.train_step(batch, torch.Generator(device).manual_seed(3))
+                for _ in range(n)]
+
+    def rollout(n):
+        for _ in range(n):
+            outputs = stepper.predict(
+                ic, forcing, n_forward=INFERENCE_STEPS_IN_MEMORY)[0]
+        return outputs
+
+    rollout.graphs = stepper.module.graphs
     return train, rollout
 
 

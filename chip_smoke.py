@@ -224,6 +224,30 @@
      ``file://`` URL, the spectrum aggregator on the HEALPix SHT: no
      launch, no sync in ``run_inference``, within 1e-5 of
      ``Stepper.predict``).
+   - path W, the Swin U-Nets through the flagship recipe, after reference
+     phase W (``W_REFERENCE``: small Swin nets over every option, card
+     against CPU, later rollout steps stepwise): W-R, the training entry
+     on ``configs/ace2-era5-train.yaml`` with path R's cuts and the
+     NoiseConditionedSwinTransformer at its builder's defaults (10.2 M
+     parameters, f32; one epoch, then a bit-equal resume; TF32 on before
+     each run and off after it; no launch, no sync in the batch loop);
+     W-I, the inference entry over W-R's best checkpoint (20 steps at
+     batch 1 in windows of 5: no launch, no sync, within 1e-5 of
+     ``Stepper.predict``); W-A, the AdaLN ``SwinTransformer`` with fme's
+     earth pad (40, 40), conditional over path L's two sources (2
+     batches).
+   - path G, FloeNet through the sea-ice recipe of
+     ``tests/test_ice_train.py`` on the 1° grid with path O's land mask,
+     after reference phase G (the fast ``radius_query`` and
+     ``containing_triangle`` equal to their brute-force copies at meshes 6
+     on 8,192 seeded points, the brute force on the card in float64;
+     small GraphCasts with and without a mask, card against CPU and two
+     runs bit-equal; a FloeNet step): G-R, the training entry (FloeNet at
+     its defaults, batch 2, one epoch then a bit-equal resume; prints
+     ``build_graphs``' seconds); G-E, the evaluator over G-R's best
+     checkpoint (20 steps, ``fill_nans: 0.0``: finite metrics, NaN
+     exactly on land, no launch, no sync); G-L, ``LandNet`` with its
+     positional embedding (2 batches).
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -1847,22 +1871,26 @@ def _bare_step_rate(trainer, n_steps=4):
     return n_steps / (time.perf_counter() - t0)
 
 
-def _finite_metrics(path, n_epochs):
+def _finite_metrics(path, n_epochs, label="path R",
+                    required=("train/loss", "val/loss",
+                              "inference/inference_error")):
+    """``metrics.jsonl``'s lines: one per epoch, every value finite, the
+    ``required`` metrics present."""
     import json
 
     with open(path) as f:
         lines = [json.loads(line) for line in f]
     if len(lines) != n_epochs:
-        raise AssertionError(f"path R: metrics.jsonl has {len(lines)} "
+        raise AssertionError(f"{label}: metrics.jsonl has {len(lines)} "
                              f"lines after {n_epochs} epochs")
     bad = [k for line in lines for k, v in line.items()
            if not math.isfinite(v)]
     if bad:
-        raise AssertionError(f"path R: metrics not finite: {bad[:10]}")
+        raise AssertionError(f"{label}: metrics not finite: {bad[:10]}")
     keys = set(lines[-1])
-    for prefix in ("train/loss", "val/loss", "inference/inference_error"):
+    for prefix in required:
         if prefix not in keys:
-            raise AssertionError(f"path R: no {prefix} in metrics.jsonl")
+            raise AssertionError(f"{label}: no {prefix} in metrics.jsonl")
     return lines
 
 
@@ -2173,8 +2201,9 @@ E_START = "1940-01-01T12:00"
 E_STEPS = 50
 E_IN_MEMORY = 25
 # phase E-agg: windows of this many steps (the videos keep float64 host
-# arrays of every step, variable and grid point, on each side)
-E_AGG_WINDOW = 10
+# arrays of every step, variable and grid point, on each side); 10 before
+# paths W and G came, cut to keep the whole run near 1000 s
+E_AGG_WINDOW = 5
 # phase E-agg: card against CPU, the same port code; float32 sums in
 # another order round at the size of the values summed (a variable's
 # values; their squares for a variance; for a trend, the values over the
@@ -6656,17 +6685,19 @@ def _local_blocks(layers):
     return [i for i in L_LOCAL_BLOCKS if i < layers]
 
 
-def local_files(tmp, nlat, nlon, generator, device):
-    """The two sources' files (``L_SOURCES``: training and validation
-    times each, the first also L-I's inference times) of every variable of
-    the recipe but ``L_MISSING``, and the stats files of the first
-    (``L_MISSING`` included); returns the first source's paths with the
-    second's directories under ``"sources"``."""
+def local_files(tmp, nlat, nlon, generator, device,
+                train_times=L_TRAIN_TIMES):
+    """The two sources' files (``L_SOURCES``: ``train_times`` training and
+    ``L_VALID_TIMES`` validation times each, the first also L-I's
+    inference times) of every variable of the recipe but ``L_MISSING``,
+    and the stats files of the first (``L_MISSING`` included); returns the
+    first source's paths with the second's directories under
+    ``"sources"``."""
     names = _recipe_names()
     sources = []
     for i, (label, start) in enumerate(L_SOURCES):
         year = int(start[:4])
-        splits = [("train", L_TRAIN_TIMES, start),
+        splits = [("train", train_times, start),
                   ("valid", L_VALID_TIMES, f"{year + 1}{start[4:]}")]
         if i == 0:
             splits.append(("inference", N_STEPS + 2,
@@ -7753,6 +7784,786 @@ def healpix_paths(counters, smi, device="cuda", nside=H_NSIDE, builder=None):
     return {k: out[k] for k in ("H-R", "H-I")}
 
 
+# path W: the Swin U-Nets through the flagship recipe
+# (``configs/ace2-era5-train.yaml`` with NoiseConditionedSwinTransformer at
+# its builder's defaults in place of the SFNO: embed 96, heads 3-6-6-3,
+# windows 4x8, noise 256, drop path 0.2, the cos-lat position bias, f32)
+W_BUILDER = {"type": "NoiseConditionedSwinTransformer", "config": {}}
+# W-A: the AdaLN Swin over path L's two labelled sources, earth-padded
+# with fme's pads
+W_A_PADDING = {"activate": True, "mode": "earth", "pad_lat": [40, 40],
+               "pad_lon": [40, 40]}
+W_WINDOW = 5
+W_PREDICT_TOL = 1e-5
+# reference W: small Swin nets at 16x32 (windows 2x4, widths 8), drop path
+# off (the card's and the CPU's generators differ)
+W_SMALL = {"embed_dim": 8, "num_heads": [2, 2, 2, 2], "window_size": [2, 4],
+           "cpb_hidden_dim": 16, "drop_path_rate": 0.0}
+W_NOISE = 8
+W_REFERENCE = {
+    # the recipe's options: noise, the cos-lat bias, earth padding, skip
+    "cln-cosl-earth": ({"type": "NoiseConditionedSwinTransformer",
+                        "config": dict(W_SMALL, noise_embed_dim=W_NOISE,
+                                       padding_conf={
+                                           "activate": True, "mode": "earth",
+                                           "pad_lat": [2, 2],
+                                           "pad_lon": [4, 4]})}, False),
+    # labels through the CLN, SwiGLU, no skip, mirror padding, no cos-lat
+    "cln-labels-swiglu-noskip-mirror": (
+        {"type": "NoiseConditionedSwinTransformer", "conditional": True,
+         "config": dict(W_SMALL, noise_embed_dim=W_NOISE, label_embed_dim=3,
+                        mlp_layer="swiglu", use_skip=False,
+                        use_cpb_scaling=False,
+                        padding_conf={"activate": True, "mode": "mirror",
+                                      "pad_lat": [3, 1],
+                                      "pad_lon": [4, 4]})}, True),
+    # AdaLN over the labels, earth padding
+    "adaln-labels-earth": ({"type": "SwinTransformer", "conditional": True,
+                            "config": dict(W_SMALL, padding_conf={
+                                "activate": True, "pad_lat": [2, 2],
+                                "pad_lon": [4, 4]})}, True),
+}
+# (no case pads with zeros after the boundary pad: the label terms fill
+# those cells with a constant across channels, whose layer norm in the next
+# block divides rounding by sqrt(1e-5), and the shifted windows carry that
+# into the grid; card and CPU then differ by 2.2 of the allowed. The zero
+# padding is held against ace_tpu on the CPU, tests/test_torch_swin.py,
+# and runs on the card in W-R and W-A.)
+
+
+def swin_stepper_config(builder, labelled, nlat=16, nlon=32):
+    """A small stepper config of path W's shape (``flagship.stepper_config``
+    at 2 levels) with ``builder`` (a ``{type, config}``) as its network,
+    and its dataset info (with path L's two labels when ``labelled``)."""
+    import dataclasses
+
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.core.step import StepSelector
+    from ace_tpu_torch.stepper.stepper import StepperConfig
+
+    config, info = flagship.stepper_config(nlat, nlon, nz=2)
+    step = config.step.config
+    step["builder"] = builder
+    if labelled:
+        info = dataclasses.replace(
+            info, all_labels=tuple(s for s, _ in L_SOURCES))
+    network = step["normalization"]["network"]
+    network["means"]["PRESsfc"], network["stds"]["PRESsfc"] = 1.0e5, 100.0
+    for name in network["stds"]:
+        if name.startswith("specific_total_water"):
+            network["stds"][name] = 1e-3
+    return StepperConfig(step=StepSelector(type="single_module",
+                                           config=step)), info
+
+
+def _small_inputs(stepper, gen):
+    from ace_tpu_torch import flagship
+
+    ic, forcing = flagship.synthetic_inputs(stepper, 2, batch=2,
+                                            generator=gen)
+    return ic, forcing, flagship.synthetic_batch(
+        stepper, 2, n_forward_steps=2, generator=gen)
+
+
+def reference_swin_phase(counters, device="cuda"):
+    """Reference phase W: the small Swin nets of ``W_REFERENCE`` (every
+    option: CLN with the noise passed in, labels through the CLN and
+    through AdaLN, SwiGLU, no skip, earth and mirror padding, the cos-lat
+    bias off and on), each a 2-step rollout and one MSE train step of 2
+    steps on ``device`` against the CPU from the same weights, inputs and
+    noise (``_reference_case``; the second rollout step against the CPU's
+    step from the card's first, as reference L: a random net carries one
+    rounding of its state onward), within reference S's float32 limits,
+    no launch."""
+    import torch
+
+    from ace_tpu_torch import flagship
+
+    none = {c.__name__: 0 for c in counters}
+    tols = (S_F32_TOL, S_F32_LOSS_TOL, S_F32_GRAD_TOL)
+    labels = torch.ones(2, len(L_SOURCES))
+    noise = torch.randn(2, 16, 32, W_NOISE,
+                        generator=torch.Generator().manual_seed(9))
+    for name, (builder, labelled) in W_REFERENCE.items():
+        cln = builder["type"].startswith("Noise")
+        launches = _reference_case(
+            f"reference W ({name})", counters, device, tols,
+            lambda dt, b=builder, lab=labelled: swin_stepper_config(b, lab),
+            "float32", _small_inputs,
+            prepare=(lambda ts: flagship.fixed_noise(ts.stepper, noise))
+            if cln else None,
+            zero_gradients=lambda names: set(),
+            labels=labels if labelled else None, stepwise=True)
+        if launches != none:
+            raise AssertionError(f"reference W ({name}): launches {launches}")
+
+
+def _swin_config(paths, experiment_dir, builder=None):
+    """The flagship recipe with path R's cuts (``_train_config``) and the
+    network replaced by ``builder`` (``W_BUILDER``: the
+    NoiseConditionedSwinTransformer at its builder's defaults)."""
+    config, _ = _train_config(paths, experiment_dir)
+    config["stepper"]["step"]["config"]["builder"] = builder or W_BUILDER
+    return config
+
+
+def swin_train_path(counters, device="cuda", sizes=None, builder=None,
+                    then=None):
+    """Path W-R: the training entry's ``main`` on ``_swin_config`` over
+    path R's synthetic files (at 180x360 unless ``sizes`` gives ``nlat``,
+    ``nlon``): one epoch, then ``--override max_epochs=2``, which must
+    resume at epoch 1 bit for bit; TF32 turned on before each run and off
+    after it. Checks finite metrics, one line per epoch, the checkpoint
+    files, no launch and no sync in the batch loop; prints the parameters,
+    the loop's rates, the phases and the peak. ``then(paths, best)`` runs
+    inside the context that holds the files. Returns the launches, the
+    rates and the first run's peak."""
+    import contextlib
+
+    import torch
+
+    label = "path W-R"
+    sizes = sizes or {}
+    nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as tmp, files:
+        paths = _training_files(tmp, _recipe_names(), nlat, nlon,
+                                torch.Generator(device).manual_seed(13),
+                                device, splits=R_SPLITS + (
+                                    ("inference", N_STEPS + 2,
+                                     "2002-01-01T00:00"),))
+        out_dir = os.path.join(tmp, "experiment")
+        config = _swin_config(paths, out_dir, builder)
+        path = _write_yaml(os.path.join(tmp, "swin.yaml"), config)
+        print(f"{label}: {TRAIN_CONFIG} at {nlat}x{nlon}, builder "
+              f"{config['stepper']['step']['config']['builder']}, batch "
+              f"{R_BATCH} x {config['stepper_training']['n_ensemble']} "
+              f"members")
+        flags = []
+        runs, launches, rates, restored, _, n_params = _epoch_then_resume(
+            label, path, counters, device, lambda: [_tf32_probe(flags)])
+        ckpt_dir = os.path.join(out_dir, "training_checkpoints")
+        files_found = sorted(os.listdir(ckpt_dir))
+        lines = _finite_metrics(os.path.join(out_dir, "metrics.jsonl"), 2,
+                                label)
+        print(f"{label}: {n_params} parameters; batch loop {rates[0]:.4f} "
+              f"(epoch 1) and {rates[1]:.4f} (epoch 2) train steps/s at "
+              f"batch {R_BATCH} ({rates[1] * R_BATCH:.4f} samples/s); "
+              f"losses by epoch: train "
+              f"{[line['train/loss'] for line in lines]}, validation "
+              f"{[line['val/loss'] for line in lines]}; checkpoint files "
+              f"{files_found}")
+        want_files = {"ckpt.msgpack", "best_ckpt.msgpack", "ema_ckpt.msgpack",
+                      "best_inference_ckpt.msgpack"}
+        if not want_files <= set(files_found):
+            raise AssertionError(f"{label}: checkpoint files {files_found}")
+        _check_tf32_pinned(label, flags)
+        _check_resume(label, runs, restored)
+        _check_no_launches(label, counters, launches)
+        if then is not None:
+            then(paths, os.path.join(ckpt_dir, "best_ckpt.msgpack"))
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates, runs[0]["peak"]
+
+
+def swin_inference_path(counters, paths, ckpt, device="cuda",
+                        n_steps=N_STEPS, window=W_WINDOW):
+    """Path W-I: the inference entry's ``main`` over W-R's best checkpoint
+    from the first time of the inference file, ``n_steps`` steps at batch 1
+    in windows of ``window``, TF32 turned on before: TF32 off after it, no
+    launch, no sync in ``run_inference`` (on the card), the written
+    predictions within ``W_PREDICT_TOL`` of one ``Stepper.predict`` from
+    the same seed, the dry air within 1 Pa. Returns the launches and the
+    rate."""
+    import torch
+
+    from ace_tpu_torch.stepper import checkpoint
+
+    label = "path W-I"
+    cuda = torch.device(device).type == "cuda"
+    flags = []
+    with tempfile.TemporaryDirectory() as tmp, _tf32_probe(flags):
+        runs, written = _entry_from_files(
+            tmp, ckpt, None, None, None, counters, device, n_steps, window,
+            cuda, data_dir=paths["inference"], starts=(0,), label=label)
+    _check_tf32_pinned(label, flags)
+    stepper = checkpoint.load_stepper(ckpt, device=device)
+    names = sorted(set(stepper.prognostic_names)
+                   | set(stepper.forcing_window_names))
+    series = _read_series(paths["inference"], names)
+    errs, worst, drift = _check_written(label, stepper, series, written, [0],
+                                        n_steps)
+    summary, launches, phases, peak = runs[False]
+    rate = summary["total_steps_per_second"]
+    print(f"{label}: {summary['total_steps']} steps at {rate:.4f} steps/s "
+          f"(batch 1, windows of {window}, writer off; "
+          f"{runs[True][0]['total_steps_per_second']:.4f} with it on); "
+          f"phases { {k: round(v, 4) for k, v in sorted(phases.items())} }; "
+          f"peak device memory {peak:.2f} GB; launches {launches}")
+    print(f"{label}: written predictions vs one {n_steps}-step predict: "
+          f"largest error {errs[worst]:.3g} of the channel's spatial std "
+          f"({worst}; tol {W_PREDICT_TOL}); dry-air drift {drift:.4f} Pa")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"{label}: launches {launches}")
+    if not (errs[worst] <= W_PREDICT_TOL and drift < 1.0):
+        raise AssertionError(f"{label}: the written predictions disagree "
+                             "with Stepper.predict")
+    return launches, rate
+
+
+def swin_adaln_path(counters, device="cuda", sizes=None, builder=None):
+    """Path W-A: ``SwinTransformer`` (AdaLN) at its builder's defaults with
+    ``W_A_PADDING`` (or ``builder``), ``conditional`` over path L's two
+    labelled sources (``_local_config``, the missing variable included),
+    through the training entry for one epoch of 2 batches. Checks finite
+    metrics but the missing variable's one-step ones, no launch, no sync in
+    the batch loop. Returns the launches and the rate."""
+    import contextlib
+
+    import torch
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.train.train import main as train_main
+
+    label = "path W-A"
+    sizes = sizes or {}
+    nlat, nlon = sizes.get("nlat", 180), sizes.get("nlon", 360)
+    cuda = torch.device(device).type == "cuda"
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as tmp, files:
+        # 3 training times a source (2 windows of 2): 2 batches of 2
+        paths = local_files(tmp, nlat, nlon,
+                            torch.Generator(device).manual_seed(19), device,
+                            train_times=3)
+        out_dir = os.path.join(tmp, "experiment")
+        builder = builder or {"type": "SwinTransformer",
+                              "config": {"padding_conf": W_A_PADDING}}
+        config, _ = _local_config(paths, out_dir, builder=builder)
+        config.pop("inference")
+        path = _write_yaml(os.path.join(tmp, "swin_adaln.yaml"), config)
+        print(f"{label}: builder {builder} conditional over "
+              f"{[s for s, _ in L_SOURCES]} in path L-R's config")
+        launches, rates = {}, []
+        GlobalTimer.reset()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with _phase_probes(counters, launches, rates, cuda, None):
+            trainer = train_main([path], device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in trainer.stepper.module.parameters())
+        n_batches = trainer.num_batches_seen
+        phases = GlobalTimer.get_instance().get_durations()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        lines = _metrics_lines(label, out_dir, 1)
+        print(f"{label}: {n_params} parameters; {n_batches} batches at "
+              f"{rates[0]:.4f} train steps/s (batch {R_BATCH}); train loss "
+              f"{lines[0]['train/loss']}, validation {lines[0]['val/loss']}; "
+              f"phases { {k: round(v, 4) for k, v in sorted(phases.items())} }"
+              f"; peak device memory {peak:.2f} GB")
+        if n_batches != 2:
+            raise AssertionError(f"{label}: {n_batches} batches, not 2")
+        _check_no_launches(label, counters, launches)
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates[0]
+
+
+def swin_paths(counters, smi, device="cuda", sizes=None, builders=None):
+    """Reference phase W, then paths W-R, W-I and W-A: the launches of
+    each. ``sizes`` and ``builders`` (``{"W-R": ..., "W-A": ...}``) make
+    the small copies the CPU runs."""
+    t0 = time.perf_counter()
+    builders = builders or {}
+    reference_swin_phase(counters, device)
+    out = {}
+    print(smi)
+
+    def then(paths, best):
+        print(smi)
+        out["W-I"], _ = swin_inference_path(counters, paths, best, device)
+
+    out["W-R"], _, _ = swin_train_path(counters, device, sizes,
+                                       builders.get("W-R"), then=then)
+    print(smi)
+    out["W-A"], _ = swin_adaln_path(counters, device, sizes,
+                                    builders.get("W-A"))
+    print(f"path W (reference W, W-R, W-I, W-A): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {k: out[k] for k in ("W-R", "W-I", "W-A")}
+
+
+# path G: FloeNet through the sea-ice recipe of fme's test_ice_train.py
+# (``tests/test_ice_train.py:68-130``: siconc and its three budget terms
+# at daily steps, input masking, the ice corrector's budget correction,
+# MSE, AdamW) on the 1° grid with path O's seeded land mask; FloeNet at
+# its builder's defaults (latent 256, SiLU, meshes 6 from M0 4, 4
+# processor steps, layer norms, residuals)
+G_NAMES = ("siconc", "LSRCc", "LSNKc", "XPRTc")
+G_BUILDER = {"type": "FloeNet", "config": {}}
+G_L_BUILDER = {"type": "LandNet", "config": {
+    "use_positional_embedding": True}}
+# the recipe's batch (its YAML's 2; ~13 GB a sample of saved activations
+# predicted at latent 256, PERF.md §6)
+G_BATCH = 2
+# 9 training days (8 windows: 4 batches of 2), 3 validation days (1
+# batch), 22 days for G-E
+G_SPLITS = (("train", 9, "2000-01-01T00:00"),
+            ("valid", 3, "2001-01-01T00:00"),
+            ("inference", N_STEPS + 2, "2002-01-01T00:00"))
+G_MEANS = {"siconc": 0.5, "LSRCc": 0.0, "LSNKc": 0.0, "XPRTc": 0.0}
+G_STDS = {"siconc": 0.3, "LSRCc": 1e-6, "LSNKc": 1e-6, "XPRTc": 1e-7}
+G_E_STEPS = N_STEPS
+# reference G: the fast graph queries on a seeded sample of the 1° grid at
+# meshes 6, and small GraphCasts at 16x32 (meshes 3, latent 8)
+G_QUERY_SAMPLE = 8192
+G_REFERENCE = {"latent_dimension": 8, "meshes": 3, "M0": 1,
+               "processor_steps": 2}
+
+
+def _ice_draw(name, shape, generator, device):
+    """The ice test's draws: the fraction uniform in [0, 1], its budget
+    terms of 1e-6 (melt negative) and 1e-7."""
+    import torch
+
+    kw = dict(generator=generator, device=device)
+    if name == "siconc":
+        return torch.rand(shape, **kw)
+    if name == "LSRCc":
+        return 1e-6 * torch.rand(shape, **kw)
+    if name == "LSNKc":
+        return -1e-6 * torch.rand(shape, **kw)
+    return 1e-7 * torch.randn(shape, **kw)
+
+
+def ice_files(tmp, nlat, nlon, generator, device, splits=G_SPLITS):
+    """The recipe's netCDF files (its four variables NaN over land, and
+    ``mask_2d``), one directory per split, over path O's grid and seeded
+    land mask (``ocean_grid_and_masks``), and its stats files. Returns the
+    paths, each split's fields and the mask."""
+    import numpy as np
+
+    from ace_tpu_torch.data.store import write_h5
+    from ace_tpu_torch.data.time import TimeCoord
+
+    coords, _, _, masks = ocean_grid_and_masks(nlat, nlon)
+    mask = masks["mask_2d"]
+    paths, series = {}, {}
+    for split, n, start in splits:
+        data = {k: np.where(mask > 0, _ice_draw(
+            k, (n, nlat, nlon), generator, device).cpu().numpy(),
+            np.nan).astype(np.float32) for k in G_NAMES}
+        series[split] = dict(data)
+        data["mask_2d"] = mask
+        dims = {k: ("time", "lat", "lon") for k in G_NAMES}
+        dims["mask_2d"] = ("lat", "lon")
+        paths[split] = os.path.join(tmp, split)
+        os.makedirs(paths[split])
+        write_h5(os.path.join(paths[split], "data.nc"), data, dims,
+                 coords=coords, time=TimeCoord.from_range(start, n, 86400))
+    for label, stats in (("centering", G_MEANS), ("scaling", G_STDS)):
+        paths[label] = os.path.join(tmp, f"{label}.nc")
+        write_h5(paths[label],
+                 {k: np.asarray(np.float32(v)) for k, v in stats.items()},
+                 {k: () for k in stats})
+    return paths, series, mask
+
+
+def _ice_config(paths, experiment_dir, builder=None, batch=G_BATCH):
+    """``tests/test_ice_train.py``'s recipe (fme's ``test_ice_train.py``)
+    over ``ice_files``: one epoch at ``batch``, lr 1e-3, AdamW, MSE over
+    one forward step, input masking refilling land with 0, the ice
+    corrector's budget correction of siconc by its three terms; the
+    network ``builder`` (``G_BUILDER``: FloeNet at its defaults)."""
+    loader = {"num_data_workers": 1, "batch_size": batch}
+    return {
+        "experiment_dir": experiment_dir, "max_epochs": 1,
+        "save_checkpoint": True, "seed": 0,
+        "logging": {"log_to_screen": False, "log_to_file": False},
+        "train_loader": dict(loader, dataset={"data_path": paths["train"]}),
+        "validation_loader": dict(loader,
+                                  dataset={"data_path": paths["valid"]}),
+        "optimization": {"lr": 1e-3, "optimizer_type": "AdamW"},
+        "stepper_training": {"n_forward_steps": 1, "loss": {"type": "MSE"}},
+        "stepper": {
+            "input_masking": {"mask_value": 0, "fill_value": 0.0},
+            "step": {"type": "single_module", "config": {
+                "builder": builder or G_BUILDER,
+                "in_names": list(G_NAMES), "out_names": list(G_NAMES),
+                "normalization": {"network": {
+                    "global_means_path": paths["centering"],
+                    "global_stds_path": paths["scaling"]}},
+                "corrector": {"type": "ice_corrector", "config": {
+                    "budget_correction": {"corrected_variables": {
+                        "siconc": ["LSRCc", "LSNKc", "XPRTc"]}}}}}},
+        },
+    }
+
+
+def _timed_graph_builds(records):
+    """A context in which each ``build_graphs`` of the port's GraphCast
+    appends its seconds to ``records``."""
+    import contextlib
+
+    from ace_tpu_torch.models import graphcast
+
+    build = graphcast.build_graphs
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = build(*args, **kwargs)
+        records.append(time.perf_counter() - t0)
+        return out
+
+    @contextlib.contextmanager
+    def context():
+        graphcast.build_graphs = timed
+        try:
+            yield
+        finally:
+            graphcast.build_graphs = build
+
+    return context()
+
+
+def _graph_query_phase(device, sample=G_QUERY_SAMPLE, meshes=6):
+    """Reference G's graphs: at ``meshes`` (M0 4's finest level) on a seeded
+    sample of ``sample`` points of the 1° grid, the fast ``radius_query``
+    equal to ``radius_query_brute`` (the same pairs in the same order)
+    and the fast ``containing_triangle`` equal to
+    ``containing_triangle_brute`` on ``device`` (float64, every face),
+    index for index; then ``build_graphs`` of the whole grid, timed."""
+    import numpy as np
+
+    from ace_tpu_torch.models import graphcast
+
+    coords, _, _, _ = ocean_grid_and_masks(180, 360)
+    lat2d, lon2d = np.meshgrid(coords["lat"], coords["lon"], indexing="ij")
+    idx = np.sort(np.random.default_rng(11).choice(lat2d.size, sample,
+                                                   replace=False))
+    xyz = graphcast.latlon_to_xyz(lat2d.ravel()[idx], lon2d.ravel()[idx])
+    fine = graphcast.get_mesh_hierarchy(meshes)[-1]
+    radius = graphcast.max_edge_distance(fine)
+    seconds = {}
+    t0 = time.perf_counter()
+    fast = graphcast.radius_query(xyz, fine.vertices, radius)
+    seconds["radius_query"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    brute = graphcast.radius_query_brute(xyz, fine.vertices, radius)
+    seconds["radius_query_brute"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tri = graphcast.containing_triangle(xyz, fine)
+    seconds["containing_triangle"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tri_brute = graphcast.containing_triangle_brute(xyz, fine, device=device)
+    seconds[f"containing_triangle_brute ({device})"] = (
+        time.perf_counter() - t0)
+    pairs_equal = all(np.array_equal(a, b) for a, b in zip(fast, brute))
+    t0 = time.perf_counter()
+    graphs = graphcast.build_graphs(lat2d, lon2d, meshes=meshes, M0=4)
+    build = time.perf_counter() - t0
+    print(f"reference G: {sample} points of the 1° grid against meshes "
+          f"{meshes} ({len(fine.vertices)} nodes, {len(fine.faces)} faces): "
+          f"radius_query {len(fast[0])} pairs, equal to the brute force in "
+          f"order: {pairs_equal}; containing_triangle equal to the brute "
+          f"force on {device}: {int((tri == tri_brute).sum())} of {sample}; "
+          f"seconds {({k: round(v, 2) for k, v in seconds.items()})}; "
+          f"build_graphs of the 1° grid {build:.2f} s ({graphs.n_grid} grid "
+          f"and {graphs.n_mesh} mesh nodes; {len(graphs.g2m_senders)} "
+          f"grid-to-mesh, {len(graphs.m2m_senders)} mesh, "
+          f"{len(graphs.m2g_senders)} mesh-to-grid edges)")
+    if not (pairs_equal and np.array_equal(tri, tri_brute)):
+        raise AssertionError("reference G: a fast graph query differs from "
+                             "the brute force")
+    return build
+
+
+def _graphcast_module_case(device, masked):
+    """Reference G's network: a small GraphCast at 16x32 (``G_REFERENCE``,
+    with a seeded mask of 70% of the grid or none) on ``device`` against
+    the CPU from the same weights and input: the output (zeros off the
+    mask) within reference S's float32 limit of its anomaly plus 1e-5 of
+    its largest value, an MSE loss within its loss limit and every
+    gradient within its gradient limit of the gradient's norm; then two
+    forwards and two backwards on ``device`` give the same bits (the
+    segment sum and the gathers' gradients add in a fixed order)."""
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.models.graphcast import GraphCast
+    from ace_tpu_torch.models.layers import init_weights
+
+    nlat, nlon = 16, 32
+    lat = np.linspace(-90 + 90 / nlat, 90 - 90 / nlat, nlat)
+    lon = (np.arange(nlon) + 0.5) * 360 / nlon
+    lat2d, lon2d = np.meshgrid(lat, lon, indexing="ij")
+    mask = (np.random.default_rng(5).random((nlat, nlon)) > 0.3
+            if masked else None)
+    kw = dict(img_shape=(nlat, nlon), in_chans=4, out_chans=4, lat2d=lat2d,
+              lon2d=lon2d, mask=mask, **G_REFERENCE)
+    gen = torch.Generator().manual_seed(3)
+    cpu = GraphCast(**kw)
+    init_weights(cpu, gen)
+    card = GraphCast(**kw, device=device)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, nlat, nlon, 4, generator=gen)
+    target = torch.randn(2, nlat, nlon, 4, generator=gen)
+
+    def run(module):
+        dev = next(module.parameters()).device
+        module.zero_grad()
+        out = module(x.to(dev))
+        loss = ((out - target.to(dev)) ** 2).mean()
+        loss.backward()
+        return out.detach(), loss.detach(), {
+            k: p.grad.detach().clone() for k, p in module.named_parameters()}
+
+    ref, ref_loss, ref_grads = run(cpu)
+    got, loss, grads = run(card)
+    again, _, grads_again = run(card)
+    anomaly = (ref - ref.mean((1, 2), keepdim=True)).abs().amax((1, 2))
+    allowed = S_F32_TOL * anomaly + 1e-5 * ref.abs().amax((1, 2))
+    out_err = float(((got.cpu() - ref).abs().amax((1, 2)) / allowed).max())
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    gerrs = {k: float((grads[k].cpu().double() - r.double()).norm()
+                      / (S_F32_GRAD_TOL * float(r.double().norm()) + 1e-30))
+             for k, r in ref_grads.items()}
+    worst = max(gerrs, key=gerrs.get)
+    same_bits = torch.equal(got, again) and all(
+        torch.equal(grads[k], grads_again[k]) for k in grads)
+    off_mask = (not masked) or not got.cpu()[:, ~torch.from_numpy(mask)].any()
+    label = f"reference G (GraphCast, {'masked' if masked else 'no mask'})"
+    print(f"{label}: {device} vs CPU: output error {out_err:.3g} of the "
+          f"allowed ({S_F32_TOL} of the anomaly + 1e-5 of the largest); loss "
+          f"{float(loss):.6g} / {float(ref_loss):.6g}, relative error "
+          f"{loss_err:.3g} (tol {S_F32_LOSS_TOL}); worst gradient {worst} "
+          f"{gerrs[worst]:.3g} of the allowed ({S_F32_GRAD_TOL} of its "
+          f"norm); two forwards and backwards on {device} equal bit for "
+          f"bit: {same_bits}; zeros off the mask: {off_mask}")
+    if not (out_err <= 1 and loss_err <= S_F32_LOSS_TOL
+            and gerrs[worst] <= 1 and same_bits and off_mask):
+        raise AssertionError(f"{label}: the card disagrees with the CPU, or "
+                             "repeats do not give the same bits")
+
+
+def reference_graphcast_phase(counters, device="cuda",
+                              sample=G_QUERY_SAMPLE, meshes=6):
+    """Reference phase G: the graph queries (``_graph_query_phase`` at
+    ``sample`` points and ``meshes``), a
+    small GraphCast with and without a mask card against CPU and run
+    twice (``_graphcast_module_case``), and FloeNet through a small
+    stepper of path W's shape (``swin_stepper_config``'s atmosphere: a
+    2-step rollout, its second step against the CPU's step from the
+    card's first, and one MSE train step, ``_reference_case``), no
+    launch. Returns ``build_graphs``' seconds at the 1° grid."""
+    none = {c.__name__: 0 for c in counters}
+    build = _graph_query_phase(device, sample, meshes)
+    for masked in (False, True):
+        _graphcast_module_case(device, masked)
+    launches = _reference_case(
+        "reference G (FloeNet step)", counters, device,
+        (S_F32_TOL, S_F32_LOSS_TOL, S_F32_GRAD_TOL),
+        lambda dt: swin_stepper_config(
+            {"type": "FloeNet", "config": G_REFERENCE}, False),
+        "float32", _small_inputs, zero_gradients=lambda names: set(),
+        stepwise=True)
+    if launches != none:
+        raise AssertionError(f"reference G: launches {launches}")
+    return build
+
+
+def graphcast_train_path(counters, device="cuda", nlat=180, nlon=360,
+                         builder=None, then=None):
+    """Path G-R: the training entry's ``main`` on ``_ice_config`` over
+    ``ice_files`` (FloeNet at its defaults unless ``builder``): one epoch,
+    then a resume that must be bit-equal. Checks finite metrics, one line
+    per epoch, the checkpoint files, no launch, no sync in the batch loop;
+    prints ``build_graphs``' seconds, the parameters, the loop's rates,
+    the phases and the peak. ``then(paths, series, mask, best)`` runs
+    inside the context that holds the files. Returns the launches, the
+    rates and the first run's peak."""
+    import contextlib
+
+    import torch
+
+    label = "path G-R"
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as tmp, files:
+        paths, series, mask = ice_files(
+            tmp, nlat, nlon, torch.Generator(device).manual_seed(23), device)
+        out_dir = os.path.join(tmp, "experiment")
+        config = _ice_config(paths, out_dir, builder)
+        path = _write_yaml(os.path.join(tmp, "ice.yaml"), config)
+        print(f"{label}: the sea-ice recipe at {nlat}x{nlon} "
+              f"({int(mask.sum())} of {mask.size} cells wet), builder "
+              f"{config['stepper']['step']['config']['builder']}, batch "
+              f"{G_BATCH}")
+        builds = []
+        runs, launches, rates, restored, _, n_params = _epoch_then_resume(
+            label, path, counters, device,
+            lambda: [_timed_graph_builds(builds)])
+        ckpt_dir = os.path.join(out_dir, "training_checkpoints")
+        files_found = sorted(os.listdir(ckpt_dir))
+        lines = _finite_metrics(os.path.join(out_dir, "metrics.jsonl"), 2,
+                                label, ("train/loss", "val/loss"))
+        print(f"{label}: build_graphs {[round(s, 2) for s in builds]} s; "
+              f"{n_params} parameters; batch loop {rates[0]:.4f} (epoch 1) "
+              f"and {rates[1]:.4f} (epoch 2) train steps/s at batch "
+              f"{G_BATCH} ({rates[1] * G_BATCH:.4f} samples/s); losses by "
+              f"epoch: train {[line['train/loss'] for line in lines]}, "
+              f"validation {[line['val/loss'] for line in lines]}; "
+              f"checkpoint files {files_found}")
+        want_files = {"ckpt.msgpack", "best_ckpt.msgpack", "ema_ckpt.msgpack"}
+        if not want_files <= set(files_found):
+            raise AssertionError(f"{label}: checkpoint files {files_found}")
+        _check_resume(label, runs, restored)
+        _check_no_launches(label, counters, launches)
+        if then is not None:
+            then(paths, series, mask,
+                 os.path.join(ckpt_dir, "best_ckpt.msgpack"))
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return total, rates, runs[0]["peak"]
+
+
+def graphcast_evaluator_path(counters, paths, mask, ckpt, device="cuda",
+                             n_steps=G_E_STEPS):
+    """Path G-E: the evaluator entry's ``main`` over G-R's best checkpoint
+    for ``n_steps`` steps at batch 1 in windows of 5 from the first time of
+    the inference file, with the ice test's settings (``fill_nans: 0.0``,
+    no step means or spectra). Checks no launch, no sync in
+    ``run_inference`` (on the card), every logged metric finite, and the
+    written predictions NaN exactly on the land cells. Returns the
+    launches and the rate."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.data.store import open_file_dataset
+    from ace_tpu_torch.inference import evaluator
+
+    label = "path G-E"
+    cuda = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "evaluator")
+        path = _write_yaml(os.path.join(tmp, "evaluator.yaml"), {
+            "experiment_dir": out_dir, "checkpoint_path": ckpt,
+            "n_forward_steps": n_steps, "forward_steps_in_memory": 5,
+            "logging": {"log_to_screen": False, "log_to_file": False},
+            "loader": {"dataset": {"data_path": paths["inference"],
+                                   "fill_nans": 0.0},
+                       "start_indices": {"list": [0]}},
+            # the ice test's aggregator settings; the zonal means' images
+            # need matplotlib, which the card's image lacks
+            "aggregator": {"log_step_means": [], "log_spectra": False,
+                           "log_zonal_mean_images": False},
+        })
+        t0 = time.perf_counter()
+        guard = (no_sync_in_run_inference(evaluator) if cuda
+                 else contextlib.nullcontext())
+        with guard:
+            summary, launches = counted(
+                counters, lambda: evaluator.main([path], device=device))
+        seconds = time.perf_counter() - t0
+        ds = open_file_dataset(os.path.join(out_dir,
+                                            "autoregressive_predictions.nc"))
+        pred = {k: np.asarray(ds[k].read(())) for k in G_NAMES}
+    logs = summary["logs"]
+    bad = [k for k, v in logs.items() if not np.isfinite(v)]
+    land = mask == 0
+    nan_on_land = {k: bool(np.isnan(v[..., land]).all()
+                           and np.isfinite(v[..., ~land]).all())
+                   for k, v in pred.items()}
+    print(f"{label}: {n_steps} steps in {seconds:.2f} s (the entry, "
+          f"checkpoint and graphs included); {len(logs)} metrics, not "
+          f"finite: {bad[:5]}; time-mean RMSE of siconc "
+          f"{logs['time_mean/rmse/siconc']:.6g}; predictions NaN exactly on "
+          f"the {int(land.sum())} land cells: {nan_on_land}; launches "
+          f"{launches}")
+    if bad or not all(nan_on_land.values()):
+        raise AssertionError(f"{label}: metrics not finite, or NaN off the "
+                             "land cells")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"{label}: launches {launches}")
+    return launches, n_steps / seconds
+
+
+def landnet_path(counters, paths, device="cuda", builder=None):
+    """Path G-L: ``LandNet`` at its builder's defaults with its positional
+    embedding (or ``builder``) through the training entry on G-R's files:
+    one epoch of 2 batches. Checks finite metrics, no launch, no sync in
+    the batch loop. Returns the launches and the rate."""
+    import torch
+
+    from ace_tpu_torch.core.timing import GlobalTimer
+    from ace_tpu_torch.train.train import main as train_main
+
+    label = "path G-L"
+    cuda = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "experiment")
+        config = _ice_config(paths, out_dir, builder or G_L_BUILDER)
+        # 4 samples: 2 batches of 2
+        config["train_loader"]["dataset"]["subset"] = {"stop": 4}
+        path = _write_yaml(os.path.join(tmp, "landnet.yaml"), config)
+        launches, rates = {}, []
+        GlobalTimer.reset()
+        with _phase_probes(counters, launches, rates, cuda, None):
+            trainer = train_main([path], device=device)
+        n_params = sum(p.numel() for p in trainer.stepper.module.parameters())
+        n_batches = trainer.num_batches_seen
+        del trainer
+        lines = _finite_metrics(os.path.join(out_dir, "metrics.jsonl"), 1,
+                                label, ("train/loss", "val/loss"))
+    print(f"{label}: builder {builder or G_L_BUILDER}; {n_params} "
+          f"parameters; {n_batches} batches at {rates[0]:.4f} train steps/s; "
+          f"train loss {lines[0]['train/loss']}, validation "
+          f"{lines[0]['val/loss']}")
+    if n_batches != 2:
+        raise AssertionError(f"{label}: {n_batches} batches, not 2")
+    _check_no_launches(label, counters, launches)
+    return ({c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}, rates[0])
+
+
+def graphcast_paths(counters, smi, device="cuda", nlat=180, nlon=360,
+                    builders=None, query=(G_QUERY_SAMPLE, 6)):
+    """Reference phase G (its graph queries at ``query``: a sample size
+    and a mesh level), then paths G-R, G-E and G-L: the launches of each.
+    ``nlat``, ``nlon``, ``builders`` (``{"G-R": ..., "G-L": ...}``) and
+    ``query`` make the small copies the CPU runs."""
+    t0 = time.perf_counter()
+    builders = builders or {}
+    reference_graphcast_phase(counters, device, *query)
+    out = {}
+    print(smi)
+
+    def then(paths, series, mask, best):
+        print(smi)
+        out["G-E"], _ = graphcast_evaluator_path(counters, paths, mask, best,
+                                                 device)
+        out["G-L"], _ = landnet_path(counters, paths, device,
+                                     builders.get("G-L"))
+
+    out["G-R"], _, _ = graphcast_train_path(counters, device, nlat, nlon,
+                                            builders.get("G-R"), then=then)
+    print(f"path G (reference G, G-R, G-E, G-L): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {k: out[k] for k in ("G-R", "G-E", "G-L")}
+
+
 def _entry_paths(counters, keep, none, smi, rate_t):
     """Paths I, E (with phase E-agg), R and F (with reference phases R
     and F): the launches of each."""
@@ -8009,7 +8820,21 @@ def main() -> int:
     # reference phase H and paths H-R, H-I: DLWP-HPX's recipe on the HEALPix
     # grid (HEALPixUNet, float32: no kernel of the port)
     by_path.update(healpix_paths(counters, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("path H")
+
+    # reference phase W and paths W-R, W-I, W-A: the Swin U-Nets through the
+    # flagship recipe (float32: no kernel of the port)
+    by_path.update(swin_paths(counters, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("path W")
+
+    # reference phase G and paths G-R, G-E, G-L: FloeNet and LandNet
+    # through the sea-ice recipe (float32: no kernel of the port)
+    by_path.update(graphcast_paths(counters, smi))
+    lap("path G")
     print(f"seconds by section: {sections}; in all "
           f"{sum(sections.values()):.1f} s")
 

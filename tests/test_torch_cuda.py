@@ -826,3 +826,93 @@ def test_healpix_pad_gradient_on_card_matches_cpu(cuda, p):
         grads.append(xd.grad.cpu())
     err = float((grads[1] - grads[0]).abs().max() / grads[0].abs().max())
     assert err <= 1e-6, err
+
+
+def test_graphcast_segment_sum_is_deterministic_on_the_card(cuda):
+    """GraphCast's segment sum at path G's mesh size (the 322,560 directed
+    edges of the merged meshes 4-6 into their 40,962 nodes, two samples
+    of 256 channels) gives the same bits on every run, equals a float64
+    sum within float32 rounding, and so do the gathers' gradients; the
+    library's ``index_add_`` (atomics) is shown beside it (``-s``)."""
+    import numpy as np
+
+    from ace_tpu_torch.models import graphcast as gcast
+
+    hierarchy = gcast.get_mesh_hierarchy(6)[4:]
+    senders, receivers = gcast.faces_to_edges(
+        gcast.merge_meshes(hierarchy).faces)
+    n = len(hierarchy[-1].vertices)
+    module = torch.nn.Module()
+    seg = gcast.Segments(module, "receivers", receivers, n, device=cuda)
+    index, order, lengths = seg.tensors(module)
+    gen = torch.Generator(cuda).manual_seed(0)
+    values = torch.randn(2, len(receivers), 256, generator=gen, device=cuda)
+    runs = [gcast.segment_sum(values, order, lengths) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    ref = torch.zeros(2, n, 256, dtype=torch.float64, device=cuda).index_add_(
+        1, index, values.double())
+    assert float((runs[0].double() - ref).abs().max()) <= 1e-5 * float(
+        ref.abs().max())
+    nodes = torch.randn(2, n, 256, generator=gen, device=cuda)
+    grads = []
+    for _ in range(2):
+        x = nodes.clone().requires_grad_()
+        gcast.gather(x, index, order, lengths).backward(values)
+        grads.append(x.grad)
+    assert torch.equal(grads[0], grads[1])
+    atomics = [torch.zeros(2, n, 256, device=cuda).index_add_(1, index, values)
+               for _ in range(3)]
+    differ = sum(not torch.equal(atomics[0], a) for a in atomics[1:])
+    print(f"segment sum over {len(receivers)} edges into {n} nodes: 3 runs "
+          f"equal; index_add_ runs that differ from its first: {differ} of "
+          f"2 (largest difference "
+          f"{float((atomics[0] - atomics[1]).abs().max()):.3g})")
+    assert np.array_equal(np.bincount(receivers, minlength=n),
+                          lengths.cpu().numpy())
+
+
+def test_a_swin_train_step_is_float32_after_the_entry_picks_its_device(
+        cuda, tmp_path):
+    """A small Swin train step (reference W's first net) with TF32 on
+    differs from the gated float32 step; after the training entry picks
+    its device (its ``main``, stopped at a missing config), the same step
+    equals the gated one. Prints the readings (``-s``)."""
+    import chip_smoke
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.loss import StepLossConfig
+    from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
+    from ace_tpu_torch.stepper.train import StepperTrainConfig, TrainStepper
+    from ace_tpu_torch.train.train import main
+
+    builder, labelled = chip_smoke.W_REFERENCE["cln-cosl-earth"]
+    config, info = chip_smoke.swin_stepper_config(builder, labelled)
+    ts = TrainStepper(
+        config.get_stepper(info, device=cuda),
+        StepperTrainConfig(n_forward_steps=1, loss=from_dict(
+            StepLossConfig, {"type": "MSE"})),
+        OptimizationConfig(lr=1e-4, optimizer_type="AdamW"), EMAConfig())
+    flagship.draw_check_weights(ts.stepper, torch.Generator(cuda).manual_seed(0))
+    batch = flagship.synthetic_batch(ts.stepper, 2, generator=torch.Generator(
+        cuda).manual_seed(1))
+
+    def step(tf32=None):
+        if tf32 is not None:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+        loss, grads = flagship.train_gradients(
+            ts, batch, generator=torch.Generator(cuda).manual_seed(2))
+        return loss, torch.cat([g.flatten() for g in grads.values()])
+
+    gated = step(False)
+    tf32 = step(True)
+    with pytest.raises(FileNotFoundError):
+        main([str(tmp_path / "missing.yaml")], device="cuda")
+    entry = step()
+    errs = [float((x[1] - gated[1]).norm() / gated[1].norm())
+            for x in (tf32, entry)]
+    print(f"Swin train step, TF32 on vs off: gradients {errs[0]:.3g} "
+          f"relative L2; after the entry picked its device: {errs[1]:.3g}")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert errs[0] > 1e-6
+    assert errs[1] == 0.0 and torch.equal(entry[0], gated[0])

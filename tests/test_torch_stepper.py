@@ -254,24 +254,35 @@ def test_jax_checkpoint_config_parses(jax_rollout):
     )
 
 
+# small configs of the builders ported since they were refused here (the
+# graph builders at 2 mesh levels: ace_tpu's brute-force graph queries
+# take minutes at the default 6)
+_SWIN = {"embed_dim": 8, "num_heads": [2, 2, 2, 2], "window_size": [2, 4],
+         "noise_embed_dim": 4}
+_GRAPH = {"latent_dimension": 8, "meshes": 2, "M0": 1, "processor_steps": 1}
+
+
 @pytest.mark.parametrize("override", [
     # the conditional SFNO's options, labels and missing variables, refused
     # here before they were ported, gave their places to the builders of
-    # ace_tpu that are not ported yet
-    {"module": {"type": "SwinTransformer"}},
-    {"module": {"type": "NoiseConditionedSwinTransformer"}},
+    # ace_tpu that were not ported yet; all are now (PORTED_SINCE)
+    {"module": {"type": "SwinTransformer",
+                "config": {k: v for k, v in _SWIN.items()
+                           if k != "noise_embed_dim"}}},
+    {"module": {"type": "NoiseConditionedSwinTransformer", "config": _SWIN}},
     {"module": {"type": "NoiseConditionedSwinTransformer",
-                "conditional": True}},
-    {"module": {"type": "LandNet"}},
-    # ported since: builds as ace_tpu's (PORTED_SINCE)
+                "conditional": True, "config": _SWIN}},
+    {"module": {"type": "LandNet",
+                "config": {"use_positional_embedding": True}}},
     {"module": {"type": "HEALPixUNet", "config": {}}},
-    {"module": {"type": "FloeNet", "allow_missing_variables": True}},
-    {"module": {"type": "GraphCast"}},
+    {"module": {"type": "FloeNet", "allow_missing_variables": True,
+                "config": _GRAPH}},
+    {"module": {"type": "GraphCast", "config": _GRAPH}},
 ])
 def test_unported_options_are_refused(override):
-    """Each builder of ace_tpu that the port lacks is refused, naming
-    that; a builder ported since keeps its case, which holds it against
-    ace_tpu (``_assert_builds_as_ace_tpu``)."""
+    """Each builder of ace_tpu that the port lacked was refused here,
+    naming that; each has been ported since, and its case holds it
+    against ace_tpu (``_assert_builds_as_ace_tpu``)."""
     step = _step_dict(**override.get("builder", {}))
     step.update(override.get("step", {}))
     step["builder"].update(override.get("module", {}))
@@ -283,13 +294,17 @@ def test_unported_options_are_refused(override):
     assert "not ported" in str(info.value)
 
 
-PORTED_SINCE = ("HEALPixUNet",)
+PORTED_SINCE = ("HEALPixUNet", "SwinTransformer",
+                "NoiseConditionedSwinTransformer", "LandNet", "FloeNet",
+                "GraphCast")
 
 
 def _assert_builds_as_ace_tpu(step):
     """The step config of ``step`` parses in both packages to the same
-    builder state, and its network, built through both registries on a
-    HEALPix grid, has ace_tpu's parameters: every name and shape."""
+    builder state, and its network, built through both registries (on a
+    HEALPix grid for HEALPixUNet, else on the 16x32 Gauss grid, with two
+    labels for a conditional builder), has ace_tpu's parameters: every
+    name and shape."""
     from ace_tpu.models.registry import ModuleSelector as JaxModuleSelector
     from ace_tpu_torch.core.config import from_dict
     from ace_tpu_torch.models.registry import ModuleSelector
@@ -300,16 +315,22 @@ def _assert_builds_as_ace_tpu(step):
     builder = selector.get_state()["config"]["builder"]
     assert builder == jselector.get_state()["config"]["builder"]
     n_in, n_out = len(step["in_names"]), len(step["out_names"])
+    labels = ("a", "b") if builder.get("conditional") else ()
+    if builder["type"] == "HEALPixUNet":
+        grid, jgrid = (c.HEALPixCoordinates.from_nside(4)
+                       for c in (coordinates, jax_coords))
+    else:
+        grid, jgrid = (c.LatLonCoordinates(*_grid())
+                       for c in (coordinates, jax_coords))
     net = from_dict(ModuleSelector, builder).build(
-        n_in, n_out, DatasetInfo(
-            horizontal_coordinates=coordinates.HEALPixCoordinates.from_nside(
-                4)), device="cpu")
+        n_in, n_out, DatasetInfo(horizontal_coordinates=grid,
+                                 all_labels=labels), device="cpu")
     jnet = jax_from_dict(JaxModuleSelector, builder).build(
-        n_in, n_out, JaxDatasetInfo(
-            horizontal_coordinates=jax_coords.HEALPixCoordinates.from_nside(
-                4)))
-    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0),
-                            jnp.zeros((1, 12, 4, 4, n_in)))
+        n_in, n_out, JaxDatasetInfo(horizontal_coordinates=jgrid,
+                                    all_labels=labels))
+    x = jnp.zeros((1, *grid.shape, n_in))
+    kwargs = {"labels": jnp.zeros((1, 2))} if labels else {}
+    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0), x, **kwargs)
     ref = flax_params_to_state_dict(jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, s.dtype), shapes))
     assert {k: tuple(v.shape) for k, v in net.state_dict().items()} == {
