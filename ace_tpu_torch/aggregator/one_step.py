@@ -132,3 +132,88 @@ class OneStepAggregator:
                 {k: tuple(f"dim{i}" for i in range(np.ndim(v)))
                  for k, v in diags.items()},
             )
+
+
+class EnsembleOneStepAggregator:
+    """One-step ensemble metrics (port of ace_tpu/aggregator/one_step.py:148
+    EnsembleOneStepAggregator): almost-fair CRPS, the ensemble mean's RMSE
+    and the spread-skill ratio's bias (stdev / unbiased RMSE - 1, per grid
+    cell, then averaged; 0 is calibrated).
+
+    ``record_batch(gen [B, E, ...spatial], target [B, ...spatial])`` keeps
+    its sums on the device; they reach the host at ``get_logs``.
+    """
+
+    # zero-spread cells whose unbiased MSE is below this fraction of the
+    # field's largest MSE are prescribed
+    _PRESCRIBED_MSE_RTOL = 1e-6
+
+    def __init__(self, ops):
+        self._ops = ops
+        self._device: dict[str, torch.Tensor] = {}
+        self._n_ens: int | None = None
+        self._count = 0
+        self._crps: dict[str, float] = {}
+        self._mse: dict[str, float] = {}
+        self._mse_map: dict[str, np.ndarray] = {}
+        self._var_map: dict[str, np.ndarray] = {}
+
+    def record_batch(self, gen: TensorMapping, target: TensorMapping):
+        from ace_tpu_torch.core.loss import get_crps
+
+        self._count += 1
+        for name in gen:
+            if name not in target:
+                continue
+            g, t = gen[name].float(), target[name].float()
+            self._n_ens = g.shape[1]
+            # the members' deviations from the first: equal members give
+            # a mean equal to them and a variance of exactly 0 (a
+            # prescribed cell), not rounding
+            d = g - g[:, :1]
+            mean = g[:, 0] + d.mean(dim=1)
+            _add(self._device, f"crps/{name}",
+                 get_crps(g, t[:, None], alpha=0.95).mean())
+            _add(self._device, f"mse_map/{name}",
+                 ((mean - t) ** 2).mean(dim=0))
+            _add(self._device, f"var_map/{name}",
+                 d.var(dim=1, correction=1).mean(dim=0))
+            _add(self._device, f"scalar_mse/{name}", self._ops.area_weighted_mean(
+                (mean - t) ** 2, name=name).mean())
+
+    def _drain(self):
+        if not self._device:
+            return
+        host = {k: v.cpu().double().numpy() for k, v in self._device.items()}
+        self._device = {}
+        for key, value in host.items():
+            kind, name = key.split("/", 1)
+            store = {"crps": self._crps, "scalar_mse": self._mse,
+                     "mse_map": self._mse_map, "var_map": self._var_map}[kind]
+            store[name] = store.get(name, 0.0) + (
+                float(value) if value.ndim == 0 else value)
+
+    def _ssr_bias_map(self, name: str) -> np.ndarray:
+        n_ens = max(self._n_ens or 1, 1)
+        total_var = self._var_map[name]
+        total_umse = self._mse_map[name] - total_var / n_ens
+        spread = np.sqrt(total_var)
+        skill = np.sqrt(np.clip(total_umse, 0.0, None))
+        ssr = np.where(skill > 0, spread / np.maximum(skill, 1e-300) - 1.0,
+                       -1.0)
+        mse_floor = self._PRESCRIBED_MSE_RTOL * float(
+            np.max(np.square(skill), initial=0.0))
+        prescribed = (total_var == 0) & (total_umse <= mse_floor)
+        return np.where(prescribed, 0.0, ssr)
+
+    def get_logs(self, label: str = "ensemble") -> dict[str, float]:
+        self._drain()
+        logs = {}
+        n = max(self._count, 1)
+        for name in self._crps:
+            mse = self._mse[name] / n
+            logs[f"{label}/crps/{name}"] = self._crps[name] / n
+            logs[f"{label}/rmse_of_ensemble_mean/{name}"] = mse ** 0.5
+            logs[f"{label}/spread_skill_ratio_bias/{name}"] = float(
+                np.mean(self._ssr_bias_map(name)))
+        return logs

@@ -8,7 +8,8 @@ GPU.
                                               --som | --ocean |
                                               --coupled | --fcn3 |
                                               --local | --healpix |
-                                              --swin | --graphcast]
+                                              --swin | --graphcast |
+                                              --downscaling]
     python -m ace_tpu_torch.profile_flagship --read TRACE --traced-steps N
 
 Builds the ACE2-ERA5 flagship stepper (``ace_tpu_torch/flagship.py``) on
@@ -110,6 +111,19 @@ runs it (5 steps at batch 1: ``N`` untraced, then 1 traced;
 convolutions' operations counted from their shapes; its family table
 counts the cuDNN convolutions and the neighbour pad's gathers (and their
 backward) as families of their own (``healpix_family``).
+``--downscaling`` profiles path D, the HiRO-ACE global recipe
+(``configs/baselines/downscaling-hiro-global/train.yaml``: SongUNet at
+model_channels 128 over 7 levels, f32, residual prediction with the fine
+topography, x32 on 16x16 coarse patches, so 512x512 at the fine
+resolution; statistics of unit scale in place of its files, weights from
+a seed): a train step as path D-R's batch loop runs it (batch
+``DOWNSCALING_BATCH``, the EDM loss with dropout, Adam, EMA: ``N``
+untraced, default 3, then 1 traced), then a Heun step of path D-G's
+sampler (two network evaluations at batch 1; ``downscaling_train_trace.json``,
+``downscaling_sampler_trace.json``), with the convolutions' operations
+counted from their shapes; its family table counts the cuDNN
+convolutions, the group norms, the attention's softmax and the SiLUs
+apart (``downscaling_family``).
 Convolutions run with TF32 off, as every profile here.
 Writes the Chrome trace to
 ``DIR/flagship_trace.json`` (``flagship_train_trace.json``,
@@ -253,6 +267,10 @@ def main(argv=None):
                       help="path G: the sea-ice recipe with FloeNet at 1 "
                            "degree: a train step (batch 2), then a rollout "
                            "window (batch 1)")
+    mode.add_argument("--downscaling", action="store_true",
+                      help="path D: the HiRO-ACE recipe's SongUNet at full "
+                           "width: a train step (batch 6 of 512x512 "
+                           "patches), then a sampler step (batch 1)")
     mode.add_argument("--som", action="store_true",
                       help="profile path M: the ACE2-SOM recipe's rollout "
                            "(f32, batch 4), then its bf16 multi-call train "
@@ -268,7 +286,8 @@ def main(argv=None):
     if args.steps is None:
         args.steps = (2 if args.coupled
                       else 3 if (args.fcn3 or args.local or args.healpix
-                                 or args.swin or args.graphcast)
+                                 or args.swin or args.graphcast
+                                 or args.downscaling)
                       else 5
                       if args.train or args.shield or args.som
                       or args.ocean else 100
@@ -360,6 +379,28 @@ def main(argv=None):
         print(f"path H-I rollout: "
               f"{flop * HEALPIX_WINDOW / busy / 1e12:.2f} TFLOP/s of "
               f"convolutions over the busy time")
+        return
+    if args.downscaling:
+        train, sample = _downscaling_runners(device)
+        flop = song_unet_flop(sample.model)
+        print(f"SongUNet's convolutions: {flop / 1e12:.4f} TFLOP a "
+              f"{DOWNSCALING_FINE}^2 sample forward (from their shapes), "
+              f"{3 * flop / 1e12:.4f} with the backward (x3)")
+        print(f"path D-R train step (batch {DOWNSCALING_BATCH}, f32):")
+        busy = _profile(train, args.steps, 1,
+                        os.path.join(args.out, "downscaling_train_trace.json"),
+                        relabel=lambda path: downscaling_family)
+        print(f"path D-R train step: "
+              f"{3 * flop * DOWNSCALING_BATCH / busy / 1e12:.2f} TFLOP/s of "
+              f"convolutions over the busy time (f32 peak 67)")
+        print("path D-G sampler step (a Heun step: 2 network evaluations at "
+              "batch 1, f32):")
+        busy = _profile(sample, args.steps, 1,
+                        os.path.join(args.out,
+                                     "downscaling_sampler_trace.json"),
+                        relabel=lambda path: downscaling_family)
+        print(f"path D-G sampler step: {2 * flop / busy / 1e12:.2f} TFLOP/s "
+              f"of convolutions over the busy time (f32 peak 67)")
         return
     if args.swin or args.graphcast:
         kind = "swin" if args.swin else "graphcast"
@@ -1489,6 +1530,128 @@ def _graphcast_runners(device, nlat=180, nlon=360, builder=None):
 
     rollout.graphs = stepper.module.graphs
     return train, rollout
+
+
+DOWNSCALING_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+    "baselines", "downscaling-hiro-global", "train.yaml")
+DOWNSCALING_BATCH = 6
+DOWNSCALING_PATCH = 16
+DOWNSCALING_FACTOR = 32
+DOWNSCALING_FINE = DOWNSCALING_PATCH * DOWNSCALING_FACTOR
+# SongUNet's families beyond FAMILIES: cuDNN's convolutions (forward, data
+# and weight gradients, their layout transposes), the group norms (forward
+# and backward), the bottleneck attention's softmax, the SiLUs
+_DOWNSCALING_FAMILIES = (
+    ("convolutions (cuDNN, f32)", _CONVOLUTION[:-2] + ("xmma", "sm90")),
+    ("group norms", ("group_norm", "groupnorm", "rowwisemoments",
+                     "computefusedparams", "gammabeta")),
+    ("softmax", ("softmax",)),
+    ("SiLUs", ("silu",)))
+downscaling_family = _family_by(_DOWNSCALING_FAMILIES)
+
+
+def song_unet_flop(model) -> float:
+    """The operations (2 per multiply-add) of the convolutions (the
+    ``_Conv`` modules) of ``model``'s network in one forward of a
+    ``DOWNSCALING_FINE``-sized sample at batch 1, counted from each call's
+    kernel and output shapes (forward hooks)."""
+    from ace_tpu_torch.downscaling.song_unet import _Conv
+
+    total = [0.0]
+
+    def count(module, args, out):
+        out_c, in_c, kh, kw = module.kernel.shape
+        total[0] += 2.0 * in_c * kh * kw * out[0].numel()
+
+    net = model.net
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, _Conv)]
+    fine = net.img_resolution
+    n_out = len(model.config.out_names)
+    c_in = net.enc_plan[0].cin
+    device = next(net.parameters()).device
+    try:
+        with torch.no_grad():
+            net(torch.zeros(1, fine, fine, n_out, device=device),
+                torch.zeros(1, fine, fine, c_in - n_out, device=device),
+                torch.zeros(1, device=device))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return total[0]
+
+
+def _downscaling_runners(device, module=None, batch=DOWNSCALING_BATCH,
+                         patch=DOWNSCALING_PATCH, factor=DOWNSCALING_FACTOR):
+    """``(train, sample)`` of path D's recipe (``DOWNSCALING_CONFIG``: its
+    model, Adam and EMA; unit statistics in place of its files; a random
+    static field), ``patch`` x ``patch`` coarse cells ``factor`` times
+    finer: ``train(n)`` ``n`` train steps on one batch of ``batch``
+    (dropout on, draws from a generator); ``sample(n)`` ``n`` Heun steps of
+    the sampler (two denoiser calls each) at batch 1. Weights from a seed;
+    ``module`` (a ``{type, config}``), ``batch``, ``patch`` and ``factor``
+    make the small copy the CPU runs."""
+    import numpy as np
+    import yaml
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.coordinates import LatLonCoordinates
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.core.optimization import EMAConfig, OptimizationConfig
+    from ace_tpu_torch.downscaling.models import DiffusionModelConfig
+
+    with open(DOWNSCALING_CONFIG) as f:
+        data = yaml.safe_load(f)
+    model_dict = dict(data["model"], downscale_factor=factor)
+    if module is not None:
+        model_dict["module"] = module
+    names = set(model_dict["in_names"]) | set(model_dict["out_names"])
+    unit = {"means": {k: 0.0 for k in names}, "stds": {k: 1.0 for k in names}}
+    model_dict["normalization"] = {"coarse": unit, "fine": unit}
+    info = DatasetInfo(horizontal_coordinates=LatLonCoordinates(
+        lat=np.linspace(-60.0, 60.0, patch), lon=np.linspace(0.0, 90.0,
+                                                             patch)))
+    gen = torch.Generator(device).manual_seed(0)
+    fine = patch * factor
+    static = torch.randn(fine, fine, 1, generator=gen, device=device)
+    model = from_dict(DiffusionModelConfig, model_dict).build(
+        info, static_inputs=static.cpu().numpy(), device=device)
+    model.init_params(gen)
+    params = list(model.net.parameters())
+    opt = from_dict(OptimizationConfig, data["optimization"]).build(1)
+    opt.init(params)
+    ema = from_dict(EMAConfig, data["ema"]).build()
+    ema.init(params)
+    coarse = {k: torch.randn(batch, patch, patch, generator=gen,
+                             device=device) for k in model.config.in_names}
+    target = {k: torch.randn(batch, fine, fine, generator=gen, device=device)
+              for k in model.config.out_names}
+
+    def train(n):
+        losses = []
+        for _ in range(n):
+            loss = model.loss_fn(coarse, target, gen)
+            grads = torch.autograd.grad(loss, params)
+            opt.step(params, list(grads))
+            ema(params)
+            losses.append(loss.detach())
+        return losses
+
+    cond, _ = model._pack({k: v[:1] for k, v in coarse.items()}, None)
+    denoiser = model._denoiser()
+    x = torch.randn(1, fine, fine, len(model.config.out_names),
+                    generator=gen, device=device)
+
+    def sample(n):
+        with torch.no_grad():
+            for _ in range(n):
+                d = denoiser(x, cond, 10.0)
+                d = denoiser(d, cond, 5.0)
+        return d
+
+    sample.model = model
+    return train, sample
 
 
 def _train_runner(device, fused):

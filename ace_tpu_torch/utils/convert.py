@@ -1,6 +1,8 @@
 """Conversion between the JAX package's flax parameter trees and the
 port's ``state_dict``: parameters, gradients and the optimizer's
-moments."""
+moments. The downscaling networks (SongUNetV2, the compact UNet, SwinIR)
+map by the same rules: their modules carry flax's names, and the compact
+UNet's attention kernels (3-D, ``DenseGeneral``'s) keep flax's layout."""
 
 import numpy as np
 import torch

@@ -76,8 +76,10 @@
      train step as on path T, 16 K1 per validation batch, 8 K1 per
      inference step, no K2 or K3) and no synchronizing call inside the
      batch loop; it prints the rate over epoch 2 beside path T's, the
-     ``GlobalTimer`` phases, each checkpoint's bytes and seconds to write
-     and read back, the free disk and host memory before the first write
+     ``GlobalTimer`` phases, each checkpoint's bytes and seconds to write,
+     the seconds to read ``ckpt.msgpack`` (at the resume) and
+     ``best_ckpt.msgpack``, the free disk and host memory before the first
+     write
      (and fails if they cannot hold the checkpoints) and the peak memory.
    - path S, the ACE2-SHiELD AMIP recipe
      (``configs/baselines/amip-c96-shield/train-ace2.yaml``:
@@ -128,7 +130,7 @@
      3 steps in float32: the outputs with NaN on the same cells, the loss
      and every gradient): O-R, the training entry over three synthetic
      stores read through the YAML's ``merge`` lists with the cuts of
-     ``_ocean_config`` (batch 4, 4 batches, 1 validation batch, 4 inline
+     ``_ocean_config`` (batch 4, 2 batches, 1 validation batch, 4 inline
      steps from 8 initial conditions, one epoch, then a resume that must
      be bit-equal): finite losses, no launch, no sync in the batch loop,
      the masked outputs NaN exactly on the dry cells and finite elsewhere,
@@ -176,7 +178,7 @@
      small FCN3 of its shape, 32x64, 2 levels with a diagnostic in each,
      4 layers, card against CPU: one forward step and one MSE train step):
      N-R, the training entry over synthetic files with the cuts of
-     ``_fcn3_config`` (batch 4, 4 batches, 1 validation batch, one epoch,
+     ``_fcn3_config`` (batch 4, 2 batches, 1 validation batch, one epoch,
      then a resume that must be bit-equal), TF32 turned on before each
      run: both TF32 flags off after it, finite metrics, one
      ``metrics.jsonl`` line per epoch, the checkpoint files, no launch, no
@@ -248,6 +250,23 @@
      checkpoint (20 steps, ``fill_nans: 0.0``: finite metrics, NaN
      exactly on land, no launch, no sync); G-L, ``LandNet`` with its
      positional embedding (2 batches).
+   - path D, the HiRO-ACE global downscaling recipe
+     (``configs/baselines/downscaling-hiro-global/train.yaml``: SongUNet
+     at model_channels 128 over 7 levels, 54.6 M parameters, f32, residual
+     prediction with the fine topography, x32 on 16x16 coarse patches,
+     18 Heun steps) over synthetic files (``D_SIZES``: 32x64 coarse cells
+     inside the recipe's lat_extent), after reference phase D (small
+     SongUNets of each encoder and decoder type, the compact UNet and
+     SwinIR, card against CPU: outputs, EDM loss, gradients, one sampler
+     call; the dropout's keep rate): D-R, the downscaling training entry
+     (batch 6, 4 batches an epoch, validation each epoch; one epoch, then
+     a bit-equal resume; TF32 on before each run and off after it; no
+     launch, no sync in the batch loop); D-G, the downscaler entry over
+     D-R's checkpoint (one event of 2x2 patches, 2 samples: 35 network
+     calls a patch-sample, no sync in the sampler, the first patch's
+     cells equal to ``PatchPredictor.generate`` on the same draws); D-E,
+     the evaluator entry (one patch-sized region, one time and one
+     event: every metric finite).
    The rollouts check finite outputs, the dry-air mass, the prescribed SST
    and the launch counts, and print steps/s and peak device memory; the
    train steps check finite losses and gradient norms, a loss after the
@@ -1982,7 +2001,8 @@ def train_entry_path(counters, device="cuda", sizes=None, path_t_rate=None,
         ckpt_dir = os.path.join(out_dir, "training_checkpoints")
         files_found = sorted(os.listdir(ckpt_dir))
         read_back = {}
-        for name in files_found:
+        # the restore timed ckpt.msgpack's read; of the others, path F's
+        for name in [n for n in files_found if n == "best_ckpt.msgpack"]:
             t0 = time.perf_counter()
             load_msgpack(os.path.join(ckpt_dir, name))
             read_back[name] = time.perf_counter() - t0
@@ -4277,9 +4297,9 @@ O_TIMESTEP = 5 * 86400
 O_CALENDAR = "noleap"
 # the share of the grid the synthetic land mask covers
 O_LAND = 0.3
-# batch 4 for both loaders (the YAML: 16); the training files hold 20
-# five-daily times before the training subset's stop (16 windows of the
-# YAML's 4 forward steps: 4 batches, one epoch), the validation files 8
+# batch 4 for both loaders (the YAML: 16); the training files hold 12
+# five-daily times before the training subset's stop (8 windows of the
+# YAML's 4 forward steps: 2 batches, one epoch), the validation files 8
 # from its start (1 batch); the inline entry runs 4 steps (1440) from the
 # YAML's first initial condition and the 7 times after it (8 initial
 # conditions, as the YAML's 8 starts 20 years apart, which an evenly
@@ -4289,7 +4309,7 @@ O_BATCH = 4
 O_INFERENCE_STEPS = 4
 O_INFERENCE_STARTS = 8
 O_E_STEPS = 20
-O_SPLITS = (("train", 20, "0305-01-01"), ("valid", 8, "0306-01-01"),
+O_SPLITS = (("train", 12, "0305-01-01"), ("valid", 8, "0306-01-01"),
             ("inference", O_INFERENCE_STARTS + O_INFERENCE_STEPS,
              "0151-01-06"),
             ("evaluator", O_E_STEPS + 1, "0311-01-01"))
@@ -5164,11 +5184,11 @@ C_STATIC_NAMES = ("land_fraction", "lake_fraction", "HGTsfc")
 C_ATMOS_TIMESTEP = 6 * 3600
 C_INNER = O_TIMESTEP // C_ATMOS_TIMESTEP
 # batch 1 for both loaders (the YAMLs: 16); ocean times per split, each
-# atmosphere time 20 i at ocean time i: the training files 6 (2 pairs of
-# the YAML's 4 coupled steps: 2 batches an epoch), the validation files 5
+# atmosphere time 20 i at ocean time i: the training files 5 (1 pair of
+# the YAML's 4 coupled steps: 1 batch an epoch), the validation files 5
 # (1 pair), the evaluator's 5 (4 coupled steps from its start)
 C_BATCH = 1
-C_SPLITS = (("train", 6, "0151-01-06"), ("valid", 5, "0306-01-01"),
+C_SPLITS = (("train", 5, "0151-01-06"), ("valid", 5, "0306-01-01"),
             ("evaluator", 5, "0311-01-01"))
 # path C-F: 2 coupled steps (4), the training subset cut to its first 2
 # ocean starts (2 pairs); path C-E: 4 coupled steps (2920) in windows of
@@ -6312,12 +6332,12 @@ def coupled_paths(counters, smi, sizes=None, device="cuda"):
 
 FCN3_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "fcn3-train.yaml")
-# path N-R: the YAML's batch of 4 for both loaders, 4 training batches (16
-# windows of its one forward step: 17 six-hourly times) and 1 validation
+# path N-R: the YAML's batch of 4 for both loaders, 2 training batches (8
+# windows of its one forward step: 9 six-hourly times) and 1 validation
 # batch (5 times); N-I reads a file of its own, N_STEPS steps from each of
 # its first two times
 N_BATCH = 4
-N_SPLITS = (("train", 17, "2000-01-01T00:00"),
+N_SPLITS = (("train", 9, "2000-01-01T00:00"),
             ("valid", 5, "2001-01-01T00:00"),
             ("inference", N_STEPS + 2, "2002-01-01T00:00"))
 N_WINDOW = 5
@@ -6667,10 +6687,10 @@ L_SOURCES = (("era5", "2000-01-01T00:00"), ("shield", "2010-01-01T00:00"))
 # read), absent from both sources: its targets are NaN placeholders and its
 # presence is 0 in every row
 L_MISSING = "USWRFsfc"
-# per source: 5 training times (4 windows of 2, so the two sources give 4
-# batches of 2, as path R's 9 times do) and 3 validation times (2 + 2
+# per source: 3 training times (2 windows of 2, so the two sources give 2
+# batches of 2) and 3 validation times (2 + 2
 # windows: 2 batches); the first source also holds L-I's 22 times
-L_TRAIN_TIMES, L_VALID_TIMES = 5, 3
+L_TRAIN_TIMES, L_VALID_TIMES = 3, 3
 L_WINDOW = 5
 L_PREDICT_TOL = 1e-5
 # K2 at the conditioning width of path L: 32 noise channels and 2 labels
@@ -8564,6 +8584,644 @@ def graphcast_paths(counters, smi, device="cuda", nlat=180, nlon=360,
     return {k: out[k] for k in ("G-R", "G-E", "G-L")}
 
 
+# path D: the HiRO-ACE global recipe
+# (``configs/baselines/downscaling-hiro-global/train.yaml``: SongUNet at
+# model_channels 128, channel_mult [1, 2, 2, 2, 2, 2, 2], one block a
+# level, the bottleneck's attention only, residual prediction, fine
+# topography, Adam 1e-4, EMA 0.999, 16x16 coarse patches, 18 Heun steps)
+# at 100 km -> 3.125 km over synthetic files: the coarse grid 32x64 inside
+# the recipe's lat_extent [-66, 70] (one row outside it on each side), the
+# fine grid 32 times finer
+D_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "baselines", "downscaling-hiro-global",
+                        "train.yaml")
+D_SIZES = {"nlat": 32, "nlon": 64, "factor": 32, "patch": 16, "batch": 6,
+           "batches": 4, "train_times": 6, "valid_times": 2, "samples": 2}
+D_COARSE = ("PRATEsfc", "eastward_wind_at_ten_meters",
+            "northward_wind_at_ten_meters")
+D_FINE = ("PRATEsfc",)
+# the draws of the synthetic fields: (mean, std, positive)
+D_DRAWS = {"PRATEsfc": (0.0, 3e-5, True),
+           "eastward_wind_at_ten_meters": (0.0, 6.0, False),
+           "northward_wind_at_ten_meters": (0.0, 4.0, False),
+           "HGTsfc": (400.0, 800.0, True)}
+D_PREDICT_TOL = 1e-5
+# reference D: small nets of each backbone, card against CPU
+D_SMALL_SONG = {"model_channels": 16, "channel_mult": [1, 2, 2],
+                "num_blocks": 1, "attn_resolutions": [8], "dropout": 0.0,
+                "channel_mult_emb": 4}
+D_REFERENCE = {
+    "song-standard": {"type": "unet_diffusion_song",
+                      "config": dict(D_SMALL_SONG)},
+    "song-residual": {"type": "unet_diffusion_song_v2", "config": dict(
+        D_SMALL_SONG, encoder_type="residual")},
+    "song-skip-fourier": {"type": "unet_diffusion_song_v2", "config": dict(
+        D_SMALL_SONG, encoder_type="skip", decoder_type="skip",
+        embedding_type="fourier")},
+    "unet": {"type": "unet", "config": {"base_channels": 8,
+                                        "channel_mults": [1, 2],
+                                        "num_res_blocks": 1,
+                                        "attn_levels": [1]}},
+}
+
+
+def _downscaling_draw(name, shape, generator, device):
+    import torch
+
+    mean, std, positive = D_DRAWS[name]
+    v = torch.randn(shape, generator=generator, device=device)
+    return ((v.abs() if positive else v) * std + mean).cpu().numpy()
+
+
+def downscaling_files(tmp, generator, device, sizes=None):
+    """Path D's netCDF files: coarse (the three inputs) and fine
+    (PRATEsfc) training and validation directories, the four stats files
+    the recipe names, and the fine ``HGTsfc`` static file over the region
+    the recipe's lat_extent keeps; drawn from ``generator`` on
+    ``device``. Returns their paths."""
+    import numpy as np
+
+    from ace_tpu_torch.data.store import write_h5
+    from ace_tpu_torch.data.time import TimeCoord
+
+    s = dict(D_SIZES, **(sizes or {}))
+    nlat, nlon, f = s["nlat"], s["nlon"], s["factor"]
+    # coarse rows: nlat inside [-66, 70] and one outside on each side
+    step = 136.0 / nlat
+    lat = -66.0 + step / 2 + step * np.arange(-1, nlat + 1)
+    lon = np.linspace(0.0, 360.0, nlon, endpoint=False)
+    fine_lat = -66.0 - step + step / f * (np.arange((nlat + 2) * f) + 0.5)
+    fine_lon = np.linspace(0.0, 360.0, nlon * f, endpoint=False)
+    paths, train = {}, {}
+    for split, n, start in (("train", s["train_times"], "2014-01-01T00:00"),
+                            ("valid", s["valid_times"], "2023-01-01T00:00")):
+        time = TimeCoord.from_range(start, n, 21600)
+        for res, names, la, lo in (("coarse", D_COARSE, lat, lon),
+                                   ("fine", D_FINE, fine_lat, fine_lon)):
+            data = {k: _downscaling_draw(k, (n, len(la), len(lo)),
+                                         generator, device) for k in names}
+            if split == "train":
+                train[res] = data
+            key = f"{res}_{split}"
+            paths[key] = os.path.join(tmp, key)
+            os.makedirs(paths[key])
+            write_h5(os.path.join(paths[key], "data.nc"), data,
+                     {k: ("time", "lat", "lon") for k in data},
+                     coords={"lat": la, "lon": lo}, time=time)
+    for res, data in train.items():
+        for label, fn in (("centering", np.mean), ("scaling", np.std)):
+            paths[f"{res}_{label}"] = os.path.join(tmp, f"{res}_{label}.nc")
+            write_h5(paths[f"{res}_{label}"],
+                     {k: np.asarray(fn(v), np.float32)
+                      for k, v in data.items()}, {k: () for k in data})
+    paths["static"] = os.path.join(tmp, "topography.nc")
+    write_h5(paths["static"], {"HGTsfc": _downscaling_draw(
+        "HGTsfc", (nlat * f, nlon * f), generator, device)},
+        {"HGTsfc": ("lat", "lon")})
+    paths["lat"], paths["lon"] = lat, lon
+    return paths
+
+
+def _downscaling_config(paths, experiment_dir, sizes=None, module=None):
+    """The recipe with path D's cuts: the synthetic files, the downscale
+    factor, the static field, batch ``D_SIZES['batch']``, that many
+    batches an epoch (``sample_with_replacement``), validation every
+    epoch over the validation times, one epoch, no Weights & Biases;
+    ``sizes`` and ``module`` (a ``{type, config}``) make the small copies
+    the CPU runs."""
+    import yaml
+
+    s = dict(D_SIZES, **(sizes or {}))
+    with open(D_CONFIG) as fh:
+        config = yaml.safe_load(fh)
+    model = config["model"]
+    model["downscale_factor"] = s["factor"]
+    if module is not None:
+        model["module"] = module
+    if "steps" in s:
+        model["num_diffusion_generation_steps"] = s["steps"]
+    for res in ("coarse", "fine"):
+        model["normalization"][res] = {
+            "global_means_path": paths[f"{res}_centering"],
+            "global_stds_path": paths[f"{res}_scaling"]}
+    for key, split in (("train_data", "train"),
+                       ("validation_data", "valid")):
+        block = config[key]
+        for res in ("coarse", "fine"):
+            block[res] = [{"data_path": paths[f"{res}_{split}"],
+                           "file_pattern": "data.nc"}]
+        block["batch_size"] = s["batch"]
+    config["train_data"]["sample_with_replacement"] = (s["batch"]
+                                                       * s["batches"])
+    config["coarse_patch_extent_lat"] = s["patch"]
+    config["coarse_patch_extent_lon"] = s["patch"]
+    config.update(experiment_dir=experiment_dir, max_epochs=1,
+                  validate_interval=1,
+                  static_inputs={"HGTsfc": paths["static"]})
+    config["logging"] = {"log_to_wandb": False, "log_to_screen": False,
+                         "log_to_file": True}
+    return config
+
+
+def _downscaling_state_checksums(trainer):
+    """``_tensor_checksums`` of the downscaling trainer's weights, Adam
+    moments, EMA, generator and batch sampler states, with its counters."""
+    import numpy as np
+    import torch
+
+    opt = trainer.optimization
+    _, keys, pos, _, _ = trainer.np_rng.get_state()
+    tensors = {"generator": trainer.generator.get_state().to(trainer.device),
+               "np_rng": torch.as_tensor(keys.view(np.int32),
+                                         device=trainer.device)}
+    for label, group in (("param", trainer.params), ("mu", opt.mu),
+                         ("nu", opt.nu), ("ema", trainer.ema.ema_params)):
+        for i, t in enumerate(group):
+            tensors[f"{label}/{i}"] = t
+    out = _tensor_checksums(tensors)
+    out["counts"] = (int(pos), opt.adam_count, opt.schedule_count,
+                     trainer.ema.num_updates, trainer.num_batches_seen)
+    return out
+
+
+def _count_calls(owner, name, calls):
+    """A context that appends one to ``calls`` at each call of
+    ``owner.<name>``."""
+    import contextlib
+
+    fn = getattr(owner, name)
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return fn(*args, **kwargs)
+
+    @contextlib.contextmanager
+    def context():
+        setattr(owner, name, counted)
+        try:
+            yield calls
+        finally:
+            setattr(owner, name, fn)
+
+    return context()
+
+
+def downscaling_train_path(counters, device="cuda", sizes=None, module=None,
+                           then=None):
+    """Path D-R: the downscaling training entry (``python -m
+    ace_tpu_torch.downscaling``'s ``main``) on ``_downscaling_config``: one
+    epoch, then ``--override max_epochs=2``, which must resume at epoch 1
+    from ``ckpt.msgpack`` bit for bit; TF32 turned on before each run and
+    off after it. Checks finite losses, one metrics line per epoch, the
+    checkpoint files, no launch, no sync in the batch loop; prints the
+    parameters, the loop's train steps/s, the peak and each checkpoint's
+    bytes and seconds. ``then(paths, ckpt, config)`` runs inside the
+    context that holds the files. Returns the launches, the rates and the
+    first run's peak."""
+    import contextlib
+
+    import torch
+
+    from ace_tpu_torch.downscaling import train as ds_train
+
+    label = "path D-R"
+    s = dict(D_SIZES, **(sizes or {}))
+    cuda = torch.device(device).type == "cuda"
+    _, missing = inference_packages()
+    files = h5py_in_memory() if "h5py" in missing else (
+        contextlib.nullcontext())
+    trainer_cls = ds_train.DownscalingTrainer
+    with tempfile.TemporaryDirectory() as tmp, files:
+        t0 = time.perf_counter()
+        paths = downscaling_files(tmp, torch.Generator(device).manual_seed(23),
+                                  device, sizes)
+        out_dir = os.path.join(tmp, "experiment")
+        config = _downscaling_config(paths, out_dir, sizes, module)
+        path = _write_yaml(os.path.join(tmp, "downscaling.yaml"), config)
+        print(f"{label}: {D_CONFIG} at {s['nlat']}x{s['nlon']} coarse, "
+              f"x{s['factor']}, patches {s['patch']}x{s['patch']}, batch "
+              f"{s['batch']} x {s['batches']} batches; files in "
+              f"{time.perf_counter() - t0:.1f} s")
+        runs, launches, rates, restored, saves = [], [], [], {}, []
+        restore = trainer_cls.restore
+
+        def restore_and_read(self, ckpt):
+            restore(self, ckpt)
+            restored.update(_downscaling_state_checksums(self))
+
+        save = trainer_cls._save
+
+        def timed_save(self, epoch):
+            t = time.perf_counter()
+            save(self, epoch)
+            if cuda:
+                torch.cuda.synchronize()
+            saves.append(time.perf_counter() - t)
+
+        flags = []
+        for argv in ([path], [path, "--override", "max_epochs=2"]):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            with contextlib.ExitStack() as stack:
+                seconds = stack.enter_context(
+                    _no_sync_in(trainer_cls, "_train_batches") if cuda
+                    else contextlib.nullcontext([]))
+                stack.enter_context(_tf32_probe(flags))
+                trainer_cls.restore = restore_and_read
+                trainer_cls._save = timed_save
+                stack.callback(setattr, trainer_cls, "restore", restore)
+                stack.callback(setattr, trainer_cls, "_save", save)
+                trainer, counts = counted(
+                    counters, lambda: ds_train.main(argv, device=device))
+            launches.append(counts)
+            rates.extend(s["batches"] / t for t in seconds)
+            runs.append({"start_epoch": trainer.start_epoch,
+                         "state": _downscaling_state_checksums(trainer),
+                         "peak": (torch.cuda.max_memory_allocated() / 1e9
+                                  if cuda else 0.0)})
+            n_params = sum(p.numel() for p in trainer.params)
+            del trainer
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        ckpt_dir = os.path.join(out_dir, "checkpoints")
+        found = sorted(os.listdir(ckpt_dir))
+        sizes_b = {f: os.path.getsize(os.path.join(ckpt_dir, f))
+                   for f in found}
+        with open(os.path.join(out_dir, "metrics.jsonl")) as fh:
+            lines = [json.loads(line) for line in fh]
+        print(f"{label}: {n_params} parameters; batch loop "
+              f"{[round(r, 4) for r in rates]} train steps/s at batch "
+              f"{s['batch']} (patches {s['patch'] * s['factor']}^2); losses "
+              f"by epoch: train {[x['train_loss'] for x in lines]}, "
+              f"validation {[x['val_loss'] for x in lines]}; peak device "
+              f"memory {[round(r['peak'], 2) for r in runs]} GB; checkpoint "
+              f"saves {[round(t, 3) for t in saves]} s; files {sizes_b} "
+              f"bytes (ckpt.msgpack holds the training state; on {device} "
+              "the netCDF files are in host memory where h5py is missing, "
+              "the checkpoints on the disk)")
+        _check_tf32_pinned(label, flags)
+        if not (len(lines) == 2 and all(
+                math.isfinite(x[k]) for x in lines
+                for k in ("train_loss", "val_loss"))):
+            raise AssertionError(f"{label}: metrics {lines}")
+        if set(found) != {"ckpt.msgpack", "ema_ckpt.msgpack"}:
+            raise AssertionError(f"{label}: checkpoint files {found}")
+        _check_resume(label, runs, restored)
+        none = {c.__name__: 0 for c in counters}
+        print(f"{label}: launches per run {launches} (want none)")
+        if any(n != none for n in launches):
+            raise AssertionError(f"{label}: launches {launches}")
+        if then is not None:
+            then(paths, os.path.join(ckpt_dir, "ckpt.msgpack"), config)
+    total = {c.__name__: sum(n[c.__name__] for n in launches)
+             for c in counters}
+    return total, rates, runs[0]["peak"]
+
+
+def _event_region(paths, s, patches):
+    """Lat/lon extents around the first ``patches`` x ``patches`` coarse
+    patches (overlap 1) from the grid's second row and column, and the
+    number of coarse cells each way."""
+    n = patches * s["patch"] - (patches - 1)
+    lat, lon = paths["lat"], paths["lon"]
+    return ([float(lat[1]), float(lat[n])], [float(lon[1]), float(lon[n])],
+            n)
+
+
+def downscaling_predict_path(counters, paths, ckpt, device="cuda",
+                             sizes=None):
+    """Path D-G: the downscaler entry (``downscaling.predict.main``) over
+    D-R's checkpoint: one event of 2x2 coarse patches (overlap 1) at a
+    validation time with ``D_SIZES['samples']`` samples kept, TF32 turned
+    on before. Checks TF32 off after it, no launch, exactly ``2 steps -
+    1`` network evaluations per patch-sample, no sync inside the sampler,
+    finite output, and the written samples within ``D_PREDICT_TOL`` of
+    ``PatchPredictor.generate`` of the first patch on the same draws (the
+    event's generator, seeded as the entry seeds it; the first patch
+    draws first) where no other patch overlaps it. Returns the launches
+    and the seconds per patch-sample."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.data.dataset import XarrayDataConfig
+    from ace_tpu_torch.data.store import open_file_dataset
+    from ace_tpu_torch.downscaling import models, predict
+    from ace_tpu_torch.downscaling.train import load_downscaling_model
+
+    label = "path D-G"
+    s = dict(D_SIZES, **(sizes or {}))
+    cuda = torch.device(device).type == "cuda"
+    lat_ext, lon_ext, n = _event_region(paths, s, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        event = {"name": "d_g", "date": "2023-01-01T06:00",
+                 "lat_extent": lat_ext, "lon_extent": lon_ext,
+                 "n_samples": s["samples"], "save_generated_samples": True}
+        config = {"experiment_dir": os.path.join(tmp, "out"),
+                  "checkpoint_path": ckpt,
+                  "coarse_data": {"data_path": paths["coarse_valid"],
+                                  "file_pattern": "data.nc"},
+                  "n_timesteps": 0, "events": [event],
+                  "coarse_patch_extent_lat": s["patch"],
+                  "coarse_patch_extent_lon": s["patch"],
+                  "logging": {"log_to_screen": False, "log_to_file": False}}
+        path = _write_yaml(os.path.join(tmp, "predict.yaml"), config)
+        net_calls, flags = [], []
+        from ace_tpu_torch.downscaling.song_unet import SongUNetV2
+        from ace_tpu_torch.downscaling.unet import DiffusionUNet
+
+        with contextlib.ExitStack() as stack:
+            seconds = stack.enter_context(
+                _no_sync_in(models, "stochastic_sampler") if cuda
+                else contextlib.nullcontext([]))
+            for cls in (SongUNetV2, DiffusionUNet):
+                stack.enter_context(_count_calls(cls, "forward", net_calls))
+            stack.enter_context(_tf32_probe(flags))
+            _, launches = counted(counters,
+                                  lambda: predict.main([path], device=device))
+        _check_tf32_pinned(label, flags)
+        written = open_file_dataset(os.path.join(tmp, "out",
+                                                 "d_g_event.nc"))
+        samples = np.asarray(written["PRATEsfc"].read(()))
+        model = load_downscaling_model(ckpt, device=device)
+        steps = model.config.num_diffusion_generation_steps
+        n_calls = s["samples"] * 4
+        per_sample = len(net_calls) / n_calls
+        data = XarrayDataConfig(data_path=paths["coarse_valid"],
+                                file_pattern="data.nc").build()
+        window, _ = data.get_window(1, 1, model.config.in_names)
+        y0, y1, xs, contiguous = predict._region_indices(
+            data.dataset_info.horizontal_coordinates.lat,
+            data.dataset_info.horizontal_coordinates.lon, lat_ext, lon_ext)
+        coarse = predict._crop_window(window, y0, y1, xs, contiguous,
+                                      torch.device(device))
+        static = predict._crop_static(model, y0, y1, xs, contiguous)
+        # the first patch's draws come first: its prediction, where no
+        # other patch overlaps it, is the composite's
+        generator = torch.Generator(device).manual_seed(
+            predict._named_seed(0, "d_g"))
+        p = s["patch"]
+        first = models.PatchPredictor(model, (p, p)).generate(
+            {k: v[..., :p, :p] for k, v in coarse.items()}, generator,
+            n_samples=s["samples"],
+            static=static[:p * s["factor"], :p * s["factor"]])
+        alone = (p - 1) * s["factor"]
+        again = first["PRATEsfc"][0, :, :alone, :alone].cpu().numpy()
+    err = float(np.abs(samples[:, :alone, :alone] - again).max())
+    scale = float(np.abs(again).max())
+    per_patch_sample = (sum(seconds) / len(seconds)) if seconds else 0.0
+    print(f"{label}: event of {n}x{n} coarse cells (2x2 patches of "
+          f"{s['patch']}, overlap 1) -> {samples.shape}, "
+          f"{s['samples']} samples: {len(seconds)} sampler calls, "
+          f"{per_patch_sample:.4f} s per patch-sample (host clock, ending in "
+          f"a synchronize); {per_sample} network evaluations per "
+          f"patch-sample (want {2 * steps - 1}); the first patch's cells "
+          f"against PatchPredictor.generate of that patch on the same draws: "
+          f"largest error {err:.3g} (tol "
+          f"{D_PREDICT_TOL} of {scale:.3g}); launches {launches}")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"{label}: launches {launches}")
+    if per_sample != 2 * steps - 1:
+        raise AssertionError(f"{label}: {per_sample} evaluations a sample")
+    if not (np.isfinite(samples).all() and err <= D_PREDICT_TOL * scale):
+        raise AssertionError(f"{label}: the written samples disagree with "
+                             "PatchPredictor.generate")
+    return launches, per_patch_sample
+
+
+def downscaling_evaluator_path(counters, paths, ckpt, device="cuda",
+                               sizes=None):
+    """Path D-E: the evaluator entry (``downscaling.evaluator.main``) over
+    D-R's checkpoint on the validation pair cropped (the ``data`` block's
+    extents) to one coarse patch: one time, and one event over the same
+    region, ``D_SIZES['samples']`` samples each, TF32 turned on before.
+    Checks TF32 off after it, no launch, the generation and ensemble
+    metrics finite and present, the diagnostics file. Returns the
+    launches."""
+    import torch
+
+    from ace_tpu_torch.downscaling import evaluator
+
+    label = "path D-E"
+    s = dict(D_SIZES, **(sizes or {}))
+    lat_ext, lon_ext, _ = _event_region(paths, s, 1)
+    extent = {"lat_extent": {"start": lat_ext[0], "stop": lat_ext[1]},
+              "lon_extent": {"start": lon_ext[0], "stop": lon_ext[1]}}
+    with tempfile.TemporaryDirectory() as tmp:
+        config = {
+            "experiment_dir": os.path.join(tmp, "out"),
+            "checkpoint_path": ckpt,
+            "data": {"coarse": [{"data_path": paths["coarse_valid"],
+                                 "file_pattern": "data.nc"}],
+                     "fine": [{"data_path": paths["fine_valid"],
+                               "file_pattern": "data.nc"}], **extent},
+            "events": [{"name": "d_e", "date": "2023-01-01T06:00",
+                        "n_samples": s["samples"]}],
+            "n_samples": s["samples"], "n_timesteps": 1,
+            "coarse_patch_extent_lat": s["patch"],
+            "coarse_patch_extent_lon": s["patch"],
+            "logging": {"log_to_screen": False, "log_to_file": False}}
+        path = _write_yaml(os.path.join(tmp, "evaluator.yaml"), config)
+        flags = []
+        t0 = time.perf_counter()
+        with _tf32_probe(flags):
+            logs, launches = counted(
+                counters, lambda: evaluator.main([path], device=device))
+        seconds = time.perf_counter() - t0
+        _check_tf32_pinned(label, flags)
+        diagnostics = os.path.exists(os.path.join(
+            tmp, "out", "generation_diagnostics.nc"))
+    want = [f"downscaling/{m}/PRATEsfc" for m in (
+        "crps", "rmse_of_ensemble_mean", "spread_skill_ratio_bias",
+        "metrics/crps", "metrics/rmse", "metrics/psnr", "metrics/ssim",
+        "metrics/relative_crps_bicubic", "metrics/relative_mse_bicubic")]
+    want += [f"event/d_e/{m}/PRATEsfc" for m in (
+        "crps", "rmse_of_ensemble_mean", "spread_skill_ratio_bias")]
+    print(f"{label}: {seconds:.2f} s; logs "
+          f"{ {k: round(v, 6) for k, v in sorted(logs.items())} }; "
+          f"diagnostics file {diagnostics}; launches {launches}")
+    if launches != {c.__name__: 0 for c in counters}:
+        raise AssertionError(f"{label}: launches {launches}")
+    missing = [k for k in want if k not in logs]
+    # the SSIM's window needs 11 cells: a small patch has none
+    if s["patch"] * s["factor"] < 11:
+        missing = [k for k in missing if "ssim" not in k]
+    if missing or not all(math.isfinite(v) for v in logs.values()):
+        raise AssertionError(f"{label}: logs {logs} (missing {missing})")
+    if not diagnostics:
+        raise AssertionError(f"{label}: no generation_diagnostics.nc")
+    return launches
+
+
+def reference_downscaling_phase(counters, device="cuda", fine=16):
+    """Reference phase D: small diffusion models of each backbone of
+    ``D_REFERENCE`` (SongUNetV2 standard, residual, skip with the Fourier
+    embedding; the compact UNet) and a small SwinIR, each on ``device``
+    against the CPU from the same weights and inputs: the network's output
+    within ``S_F32_TOL`` of each channel's anomaly plus 1e-5 of its largest
+    value, the EDM loss (fixed sigma and noise; SwinIR's MSE) within
+    ``S_F32_LOSS_TOL``, every gradient within ``S_F32_GRAD_TOL`` of its norm
+    plus 1e-6 of the largest; one sampler call (3 Heun steps with churn,
+    the same latents and noise) within the outputs' limit; and the keep
+    rate of the port's dropout on the card by its statistics. No launch."""
+    import numpy as np
+    import torch
+
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.coordinates import LatLonCoordinates
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.downscaling import models
+    from ace_tpu_torch.downscaling.song_unet import dropout
+    from ace_tpu_torch.models.layers import init_weights
+
+    label = "reference D"
+    coarse_hw = (fine // 2, fine // 2)
+    info = DatasetInfo(horizontal_coordinates=LatLonCoordinates(
+        lat=np.linspace(-40.0, 40.0, coarse_hw[0]),
+        lon=np.linspace(0.0, 350.0, coarse_hw[1])))
+    norm = {"coarse": {"means": {"a": 0.0, "b": 1.0},
+                       "stds": {"a": 1.0, "b": 2.0}},
+            "fine": {"means": {"a": 0.5}, "stds": {"a": 1.5}}}
+    gen = torch.Generator().manual_seed(31)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen)
+
+    coarse = {"a": draw(2, *coarse_hw), "b": draw(2, *coarse_hw)}
+    target = {"a": draw(2, fine, fine)}
+    cases = {name: ("diffusion", module) for name, module in
+             D_REFERENCE.items()}
+    cases["swinir"] = ("deterministic", None)
+    none = {c.__name__: 0 for c in counters}
+    for name, (kind, module) in cases.items():
+        results, start = [], gen.get_state()
+        for dev in ("cpu", device):
+            gen.set_state(start)
+            if kind == "diffusion":
+                cfg = from_dict(models.DiffusionModelConfig, {
+                    "in_names": ["a", "b"], "out_names": ["a"],
+                    "normalization": norm, "module": module,
+                    "downscale_factor": 2, "predict_residual": True,
+                    "churn": 0.5, "num_diffusion_generation_steps": 3})
+                model = cfg.build(info, device=dev)
+            else:
+                cfg = from_dict(models.DeterministicModelConfig, {
+                    "in_names": ["a", "b"], "out_names": ["a"],
+                    "normalization": norm, "downscale_factor": 2,
+                    "embed_dim": 16, "depths": [2], "num_heads": 2,
+                    "window_size": [2, 4]})
+                model = cfg.build(info, device=dev)
+            if dev == "cpu":
+                # the initial weights, each tensor moved by a draw of its
+                # scale (the zero-initialized output layers count too)
+                wgen = torch.Generator().manual_seed(3)
+                init_weights(model.net, wgen)
+                with torch.no_grad():
+                    for p in model.net.parameters():
+                        fan = p[0].numel() if p.dim() > 1 else 1
+                        p.add_(0.3 * torch.randn(p.shape, generator=wgen)
+                               / fan ** 0.5)
+                weights = model.net.state_dict()
+            else:
+                model.net.load_state_dict(weights)
+
+            def run(model=model, dev=dev):
+                c = {k: v.to(dev) for k, v in coarse.items()}
+                t = {k: v.to(dev) for k, v in target.items()}
+                if kind == "diffusion":
+                    cond, _ = model._pack(c, None)
+                    x = draw(2, fine, fine, 1).to(dev)
+                    out = model.net(x, cond, torch.full((2,), 0.3,
+                                                        device=dev))
+                    loss = model.loss_fn(c, t, sigma=torch.tensor(
+                        [0.2, 3.0], device=dev), noise=draw(
+                        2, fine, fine, 1).to(dev))
+                else:
+                    out = model.net(model._cond(c))
+                    loss = model.loss_fn(c, t)
+                params = list(model.net.parameters())
+                grads = torch.autograd.grad(loss, params)
+                sample = None
+                if kind == "diffusion":
+                    latents = [draw(2, fine, fine, 1).to(dev)]
+                    eps = [[draw(2, fine, fine, 1).to(dev) for _ in range(3)]]
+                    sample = model.generate(c, latents=latents,
+                                            eps=eps)["a"]
+                names = [k for k, _ in model.net.named_parameters()]
+                return (out.detach().cpu(), float(loss.detach()),
+                        {k: g.cpu() for k, g in zip(names, grads)},
+                        None if sample is None else sample.cpu())
+
+            res, counts = counted(counters, run)
+            results.append(res)
+            if counts != none:
+                raise AssertionError(f"{label} ({name}): launches {counts}")
+        (ref, ref_loss, ref_grads, ref_sample), (got, loss, grads, sample) = (
+            results)
+
+        def ratio(g, r):
+            anomaly = (r - r.mean((1, 2), keepdim=True)).abs().amax((1, 2))
+            allowed = S_F32_TOL * anomaly + 1e-5 * r.abs().amax((1, 2))
+            return float(((g - r).abs().amax((1, 2)) / allowed).max())
+
+        out_ratio = ratio(got, ref)
+        sample_ratio = (ratio(sample, ref_sample) if sample is not None
+                        else 0.0)
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        largest = max(float(r.double().norm()) for r in ref_grads.values())
+        gerrs = {k: float((grads[k].double() - r.double()).norm())
+                 / (S_F32_GRAD_TOL * float(r.double().norm())
+                    + 1e-6 * largest) for k, r in ref_grads.items()}
+        worst = max(gerrs, key=gerrs.get)
+        print(f"{label} ({name}): {device} vs CPU: output "
+              f"{out_ratio:.3g} of the allowed, loss {loss:.6g} / "
+              f"{ref_loss:.6g} (relative {loss_err:.3g}, tol "
+              f"{S_F32_LOSS_TOL}), gradients {gerrs[worst]:.3g} of the "
+              f"allowed ({worst}) over {len(gerrs)} parameters, sampler "
+              f"{sample_ratio:.3g} of the allowed")
+        if not (out_ratio <= 1 and sample_ratio <= 1
+                and loss_err <= S_F32_LOSS_TOL and gerrs[worst] <= 1):
+            raise AssertionError(f"{label} ({name}): the card disagrees "
+                                 "with the CPU")
+    ones = torch.ones(8, 128, 64, 64, device=device)
+    kept = dropout(ones, 0.1, False,
+                   torch.Generator(device).manual_seed(5))
+    rate = float((kept != 0).float().mean())
+    sd = (0.9 * 0.1 / ones.numel()) ** 0.5
+    print(f"{label}: the port's dropout at 0.10 on {device} keeps {rate:.6f} "
+          f"of {ones.numel()} (want 0.9 within {5 * sd:.2g}); kept values "
+          f"{float(kept.max()):.7g}")
+    if not (abs(rate - 0.9) <= 5 * sd
+            and torch.allclose(kept[kept != 0], torch.tensor(
+                1 / 0.9, device=device))):
+        raise AssertionError(f"{label}: the dropout's keep rate")
+
+
+def downscaling_paths(counters, smi, device="cuda", sizes=None, module=None):
+    """Reference phase D, then paths D-R, D-G and D-E: the launches of
+    each. ``sizes`` and ``module`` make the small copies the CPU runs."""
+    t0 = time.perf_counter()
+    reference_downscaling_phase(counters, device)
+    out = {}
+    print(smi)
+
+    def then(paths, ckpt, config):
+        print(smi)
+        out["D-G"], _ = downscaling_predict_path(counters, paths, ckpt,
+                                                 device, sizes)
+        print(smi)
+        out["D-E"] = downscaling_evaluator_path(counters, paths, ckpt,
+                                                device, sizes)
+
+    out["D-R"], _, _ = downscaling_train_path(counters, device, sizes,
+                                              module, then=then)
+    print(f"path D (reference D, D-R, D-G, D-E): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {k: out[k] for k in ("D-R", "D-G", "D-E")}
+
+
 def _entry_paths(counters, keep, none, smi, rate_t):
     """Paths I, E (with phase E-agg), R and F (with reference phases R
     and F): the launches of each."""
@@ -8834,7 +9492,15 @@ def main() -> int:
     # reference phase G and paths G-R, G-E, G-L: FloeNet and LandNet
     # through the sea-ice recipe (float32: no kernel of the port)
     by_path.update(graphcast_paths(counters, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("path G")
+
+    # reference phase D and paths D-R, D-G, D-E: the HiRO-ACE global
+    # downscaling recipe (SongUNet at full width, float32: no kernel of the
+    # port)
+    by_path.update(downscaling_paths(counters, smi))
+    lap("path D")
     print(f"seconds by section: {sections}; in all "
           f"{sum(sections.values()):.1f} s")
 

@@ -49,6 +49,48 @@ def test_baseline_configs_build_in_the_port(name, schema):
         assert config.n_forward_steps > 0
 
 
+@pytest.mark.parametrize("name", [
+    "baselines/downscaling-hiro-global/train.yaml",
+    "baselines/downscaling/train-conus-100km-to-25km-augusta.yaml",
+    "baselines/downscaling/train-conus-25km-to-3km-augusta.yaml",
+    "baselines/downscaling/eval-ca-25km-to-3km-augusta.yaml",
+    "baselines/downscaling/eval-conus-25km-to-3km-augusta.yaml",
+    "baselines/downscaling/eval-fl-25km-to-3km-augusta.yaml",
+    "downscaling-train.yaml",
+])
+def test_downscaling_configs_build_in_the_port(name):
+    """Each downscaling YAML, Weights & Biases off, builds in the port's
+    schema (the training or the evaluator entry's), its model config and
+    network options included."""
+    from ace_tpu_torch.downscaling.evaluator import DownscalingEvaluatorConfig
+    from ace_tpu_torch.downscaling.models import (
+        DiffusionModelConfig,
+        DiffusionModuleSelector,
+        LogNormalNoiseDistribution,
+    )
+    from ace_tpu_torch.downscaling.train import DownscalingTrainConfig
+
+    data = prepare_config(os.path.join(ROOT, "configs", name),
+                          ["logging.log_to_wandb=false"])
+    if "eval" in os.path.basename(name):
+        config = from_dict(DownscalingEvaluatorConfig, data)
+        assert config.events and config.data.lat_extent is not None
+        return
+    config = from_dict(DownscalingTrainConfig, data)
+    model = config.model
+    assert isinstance(model, DiffusionModelConfig)
+    assert config.coarse_patch_extent_lat is not None
+    if "hiro" in name:
+        assert isinstance(model.module, DiffusionModuleSelector)
+        song = model.module.instance
+        assert (song.model_channels, song.channel_mult, song.num_blocks) == (
+            128, [1, 2, 2, 2, 2, 2, 2], 1)
+        assert model.training_noise_distribution == (
+            LogNormalNoiseDistribution(-1.2, 1.8))
+        assert model.predict_residual and model.use_fine_topography
+        assert config.train_data.sample_with_replacement == 160
+
+
 def _flagship_checkpoint(path):
     from ace_tpu_torch import flagship
     from ace_tpu_torch.stepper import checkpoint
@@ -84,6 +126,8 @@ def test_chip_smoke_path_e_runs_on_the_cpu(small_checkpoint, route,
 
     if route == "memory":
         _memory_route(monkeypatch, chip_smoke)
+    # no figures, as on the card
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     launches, summary, phases, _ = chip_smoke.evaluator_path(
         [k1.dhconv_filter], small_checkpoint, device="cpu", n_steps=6,
         in_memory=3)

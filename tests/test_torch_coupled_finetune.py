@@ -10,7 +10,9 @@ atmosphere's loss over its first 2 steps, ``CosineAnnealingLR``) for one
 epoch of 2 coupled steps, and the evaluator YAML over the directory (4
 coupled steps in windows of 2, ``EVAL_AGGREGATOR``)."""
 
+import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -42,10 +44,24 @@ EVAL_AGGREGATOR = {"log_spectra": False, "log_zonal_mean_images": False,
                    "log_annual_means": False}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_figures():
+    """The entries' figures left out (both packages skip a figure they
+    cannot draw), but the port's evaluator's (``finetune_runs``):
+    rendering them is most of what an evaluator run costs at this size.
+    Yields matplotlib."""
+    import matplotlib
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "matplotlib", None)
+        yield matplotlib
+
+
 @pytest.fixture(scope="module")
-def finetune_runs(tmp_path_factory):
+def finetune_runs(tmp_path_factory, _no_figures):
     """Both packages' finetune and evaluator entries from one coupled
-    checkpoint directory; the port's learning rate at each update."""
+    checkpoint directory, the port's evaluator drawing its figures; the
+    port's learning rate at each update."""
     tmp = tmp_path_factory.mktemp("coupled_finetune")
     files = coupled_files(tmp)
     base = chip_smoke.coupled_checkpoints(str(tmp), files[False], "cpu",
@@ -74,9 +90,12 @@ def finetune_runs(tmp_path_factory):
         config = chip_smoke._coupled_evaluator_config(
             files[one], str(ckpt), str(tmp / f"eval_{name}"))
         config["aggregator"] = EVAL_AGGREGATOR
-        out[f"eval_{name}"] = evaluate([chip_smoke._write_yaml(
-            str(tmp / f"eval_{name}.yaml"),
-            single(config) if one else config)])
+        with pytest.MonkeyPatch.context() as figures:
+            if name == "port":
+                figures.setitem(sys.modules, "matplotlib", _no_figures)
+            out[f"eval_{name}"] = evaluate([chip_smoke._write_yaml(
+                str(tmp / f"eval_{name}.yaml"),
+                single(config) if one else config)])
     return tmp, out
 
 
@@ -150,3 +169,16 @@ def test_evaluator_entry_matches_ace_tpu(finetune_runs):
         if abs(logs[k] - r) > allowed:
             bad.append((k, logs[k], r))
     assert not bad, bad[:5]
+
+
+@pytest.mark.parametrize("component", ["atmosphere", "ocean"])
+def test_the_port_draws_every_coupled_figure(finetune_runs, component):
+    """The port's coupled evaluator draws each map of each component's
+    diagnostics (the ocean's NaN on the dry cells), none failing."""
+    from tests.test_torch_ocean_path import expected_figures
+
+    tmp, _ = finetune_runs
+    drawn = set(os.listdir(tmp / "eval_port" / "plots" / component))
+    want = expected_figures(tmp / "eval_port" / "diagnostics" / component)
+    assert want
+    assert drawn == want, sorted(drawn ^ want)

@@ -5,6 +5,8 @@ memory as where h5py is missing, and ``profile_flagship --coupled``'s
 runners at the same size: every gate holds, with no launch (the CPU takes
 the kernels' plain versions)."""
 
+import sys
+
 import numpy as np
 import torch
 
@@ -25,6 +27,8 @@ def test_chip_smoke_path_c_runs_on_the_cpu(monkeypatch, capsys):
     present.pop("h5py", None)
     monkeypatch.setattr(chip_smoke, "inference_packages",
                         lambda: (present, ["h5py"]))
+    # no figures, as on the card
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     counters = [k1.dhconv_filter, k1.dhconv_filter_dx, k1.dhconv_filter_dw]
     out = chip_smoke.coupled_paths(counters, "cpu", sizes=SIZES,
                                    device="cpu")

@@ -916,3 +916,58 @@ def test_a_swin_train_step_is_float32_after_the_entry_picks_its_device(
     assert not torch.backends.cuda.matmul.allow_tf32
     assert errs[0] > 1e-6
     assert errs[1] == 0.0 and torch.equal(entry[0], gated[0])
+
+
+def test_a_songunet_train_step_is_float32_after_the_entry_picks_its_device(
+        cuda, tmp_path):
+    """A small SongUNet diffusion model's EDM loss gradients (reference
+    D's first net, fixed sigma and noise) with TF32 on differ from the
+    gated float32 ones; after the downscaling training entry picks its
+    device (its ``main``, stopped at a missing config), they equal the
+    gated ones. Prints the readings (``-s``)."""
+    import numpy as np
+
+    import chip_smoke
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.core.coordinates import LatLonCoordinates
+    from ace_tpu_torch.core.dataset_info import DatasetInfo
+    from ace_tpu_torch.downscaling.models import DiffusionModelConfig
+    from ace_tpu_torch.downscaling.train import main
+    from ace_tpu_torch.models.layers import init_weights
+
+    info = DatasetInfo(horizontal_coordinates=LatLonCoordinates(
+        lat=np.linspace(-40.0, 40.0, 16), lon=np.linspace(0.0, 350.0, 16)))
+    model = from_dict(DiffusionModelConfig, {
+        "in_names": ["a"], "out_names": ["a"],
+        "normalization": {"coarse": {"means": {"a": 0.0},
+                                     "stds": {"a": 1.0}},
+                          "fine": {"means": {"a": 0.0}, "stds": {"a": 1.0}}},
+        "module": chip_smoke.D_REFERENCE["song-standard"],
+        "downscale_factor": 2}).build(info, device=cuda)
+    init_weights(model.net, torch.Generator(cuda).manual_seed(0))
+    gen = torch.Generator(cuda).manual_seed(1)
+    coarse = {"a": torch.randn(2, 16, 16, generator=gen, device=cuda)}
+    fine = {"a": torch.randn(2, 32, 32, generator=gen, device=cuda)}
+    sigma = torch.tensor([0.5, 4.0], device=cuda)
+    noise = torch.randn(2, 32, 32, 1, generator=gen, device=cuda)
+
+    def step(tf32=None):
+        if tf32 is not None:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+        loss = model.loss_fn(coarse, fine, sigma=sigma, noise=noise)
+        grads = torch.autograd.grad(loss, list(model.net.parameters()))
+        return loss, torch.cat([g.flatten() for g in grads])
+
+    gated = step(False)
+    tf32 = step(True)
+    with pytest.raises(FileNotFoundError):
+        main([str(tmp_path / "missing.yaml")], device="cuda")
+    entry = step()
+    errs = [float((x[1] - gated[1]).norm() / gated[1].norm())
+            for x in (tf32, entry)]
+    print(f"SongUNet EDM step, TF32 on vs off: gradients {errs[0]:.3g} "
+          f"relative L2; after the entry: {errs[1]:.3g}")
+    # cuDNN's weight gradients may sum in another order from run to run:
+    # float32 rounding, far below TF32's
+    assert errs[0] > 1e-4 and errs[1] <= 1e-6

@@ -8,6 +8,7 @@ from its best checkpoint, equal to ``Stepper.predict``; and
 same size. No JAX runs here."""
 
 import json
+import sys
 
 import numpy as np
 import torch
@@ -30,6 +31,8 @@ def test_chip_smoke_path_n_runs_on_the_cpu(monkeypatch, capsys):
     present.pop("h5py", None)
     monkeypatch.setattr(chip_smoke, "inference_packages",
                         lambda: (present, ["h5py"]))
+    # no figures, as on the card
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     counters = [k1.dhconv_filter, k1.dhconv_filter_dx, k1.dhconv_filter_dw]
     out = chip_smoke.fcn3_paths(counters, "cpu", sizes=SIZES, device="cpu")
     none = {c.__name__: 0 for c in counters}

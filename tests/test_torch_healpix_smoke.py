@@ -9,6 +9,8 @@ the initial condition given as a ``file://`` URL, equal to
 --healpix``'s runners and families at the same size. No JAX runs
 here."""
 
+import sys
+
 import numpy as np
 import torch
 
@@ -30,6 +32,8 @@ def test_chip_smoke_path_h_runs_on_the_cpu(monkeypatch, capsys):
     present.pop("h5py", None)
     monkeypatch.setattr(chip_smoke, "inference_packages",
                         lambda: (present, ["h5py"]))
+    # no figures, as on the card
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     counters = [k1.dhconv_filter, k1.dhconv_filter_dx, k1.dhconv_filter_dw]
     out = chip_smoke.healpix_paths(counters, "cpu", device="cpu",
                                    nside=NSIDE, builder=BUILDER)

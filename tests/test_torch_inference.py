@@ -6,6 +6,7 @@ by either package and read by the other."""
 
 import json
 import os
+import sys
 from datetime import timedelta
 
 import jax
@@ -44,6 +45,16 @@ PROGNOSTIC = ["air_temperature_0", "air_temperature_1",
 DIAGNOSTIC = ["PRATEsfc", "LHTFLsfc"]
 FORCING = ["DSWRFtoa", "ocean_fraction"]
 NAMES = PROGNOSTIC + DIAGNOSTIC + FORCING
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_figures():
+    """The entries' figures left out, as on the card, which has no
+    matplotlib (both packages skip a figure they cannot draw, and no test
+    here reads one)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "matplotlib", None)
+        yield
 
 
 def _noise(batch: int) -> np.ndarray:

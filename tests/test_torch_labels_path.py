@@ -10,6 +10,7 @@ behaviors of ace_tpu that the port keeps, and one ``TrainStepper.loss_fn``
 with labels and a data mask against ace_tpu's."""
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,16 @@ from tests.test_torch_conditional_options import (
 torch.set_num_threads(2)
 
 SIZES = {"nlat": 16, "nlon": 32, "embed": 32, "layers": 4}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_figures():
+    """The entries' figures left out, as on the card, which has no
+    matplotlib (both packages skip a figure they cannot draw, and no test
+    here reads one)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "matplotlib", None)
+        yield
 
 
 def _in_memory(monkeypatch):

@@ -25,15 +25,17 @@ the rollout's amplification puts their losses 1e-3 apart."""
 
 import json
 import os
+import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from ace_tpu.inference import evaluator as jax_evaluator
-from ace_tpu.stepper import train as jax_train
+from ace_tpu.stepper import stepper as jax_stepper
 from ace_tpu.train.train import main as jax_train_main
 from ace_tpu_torch.core.cli import prepare_config
 from ace_tpu_torch.core.config import from_dict
@@ -44,7 +46,10 @@ from ace_tpu_torch.stepper import train as port_train
 from ace_tpu_torch.stepper.checkpoint import load_msgpack
 from ace_tpu_torch.train.train import main as train_main
 from ace_tpu_torch.train.trainer import TrainConfig
-from ace_tpu_torch.utils.convert import flax_params_to_state_dict
+from ace_tpu_torch.utils.convert import (
+    flax_params_to_state_dict,
+    state_dict_to_flax_variables,
+)
 
 torch.set_num_threads(2)
 
@@ -120,7 +125,7 @@ def _eager_aggregators(mp):
 
 @pytest.fixture(scope="module")
 def ocean_runs(tmp_path_factory):
-    """One epoch of both training entries (the port from ace_tpu's initial
+    """One epoch of both training entries (ace_tpu from the port's initial
     weights), then both evaluator entries over ace_tpu's best
     checkpoint; ``ace_tpu``'s aggregators run eagerly
     (``_eager_aggregators``)."""
@@ -132,28 +137,33 @@ def ocean_runs(tmp_path_factory):
             torch.Generator().manual_seed(11), "cpu", splits=SPLITS,
             single=single)
     init = {}
-    jax_init = jax_train.TrainStepper.init
+    port_init = port_train.TrainStepper.init
 
-    def capture(self, rng):
-        params, opt_state = jax_init(self, rng)
-        init["params"] = flax_params_to_state_dict(
-            jax.tree_util.tree_map(np.asarray, params))
-        return params, opt_state
+    def capture(self, generator=None):
+        port_init(self, generator)
+        init["params"] = {k: v.detach().clone()
+                          for k, v in self.stepper.module.state_dict().items()}
 
-    def from_ace_tpu(self, generator=None):
-        self.stepper.load_state_dict(init["params"])
-        params = self.parameters()
-        self.optimization.init(params)
-        self.ema.init(params)
+    def from_port(self, rng):
+        # ace_tpu's weights made from the port's (no compile of flax's
+        # initializers)
+        self.params = jax.tree_util.tree_map(
+            jnp.asarray, state_dict_to_flax_variables(init["params"]))
+        return self.params
 
     out = {"init": init}
+    import matplotlib
+
     with pytest.MonkeyPatch.context() as mp:
         _eager_aggregators(mp)
-        mp.setattr(jax_train.TrainStepper, "init", capture)
-        mp.setattr(port_train.TrainStepper, "init", from_ace_tpu)
+        # the port's evaluator alone draws its figures (both packages skip
+        # a figure they cannot draw): drawing them all took a minute
+        mp.setitem(sys.modules, "matplotlib", None)
+        mp.setattr(port_train.TrainStepper, "init", capture)
+        mp.setattr(jax_stepper.Stepper, "init_params", from_port)
         for name, run, single in (
-                ("ace_tpu", jax_train_main, True),
-                ("port", lambda a: train_main(a, device="cpu"), False)):
+                ("port", lambda a: train_main(a, device="cpu"), False),
+                ("ace_tpu", jax_train_main, True)):
             config = chip_smoke._ocean_config(files[single], str(tmp / name),
                                               str(tmp), None, SIZES)
             if single:
@@ -177,7 +187,10 @@ def ocean_runs(tmp_path_factory):
             _single(config)
             path = chip_smoke._write_yaml(str(tmp / f"eval_{name}.yaml"),
                                           config)
-            out[f"eval_{name}"] = run([path])
+            with pytest.MonkeyPatch.context() as figures:
+                if name == "port":
+                    figures.setitem(sys.modules, "matplotlib", matplotlib)
+                out[f"eval_{name}"] = run([path])
     return tmp, files, out
 
 
@@ -262,6 +275,39 @@ def test_ocean_evaluator_matches_ace_tpu(ocean_runs):
            if not (np.isnan(logs[k]) if np.isnan(r)
                    else abs(logs[k] - r) <= tol(k, r))]
     assert not bad, bad[:5]
+
+
+def expected_figures(diagnostics_dir) -> set[str]:
+    """The files ``InferenceAggregator.flush_images`` draws from the
+    diagnostics that ``flush_diagnostics`` wrote to ``diagnostics_dir``:
+    a GIF for each video, a PNG for each map (2D, or 12 HEALPix faces),
+    none for the step means."""
+    from ace_tpu_torch.data.store import open_file_dataset
+
+    names = set()
+    for file in os.listdir(diagnostics_dir):
+        label = file.removesuffix("_diagnostics.nc")
+        if label in ("mean_step", "mean_norm"):
+            continue
+        ds = open_file_dataset(os.path.join(diagnostics_dir, file))
+        for key in ds.keys():
+            shape = np.shape(ds[key].read(()))
+            safe = f"{label}.{key}".replace("/", "_")
+            if key.startswith("video-"):
+                names.add(safe + ".gif")
+            elif len(shape) == 2 or (len(shape) == 3 and shape[0] == 12):
+                names.add(safe + ".png")
+    return names
+
+
+def test_the_port_draws_every_masked_ocean_figure(ocean_runs):
+    """The port's evaluator draws each map and video of its diagnostics
+    of the masked ocean fields (NaN on the dry cells), none failing."""
+    tmp, _, _ = ocean_runs
+    drawn = set(os.listdir(tmp / "eval_port" / "plots"))
+    want = expected_figures(tmp / "eval_port" / "diagnostics")
+    assert any(n.endswith(".gif") for n in want)
+    assert drawn == want, sorted(drawn ^ want)
 
 
 def test_merged_loader_equals_single_file_loader(ocean_runs):

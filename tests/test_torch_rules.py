@@ -102,6 +102,8 @@ def test_entry_device_pins_float32(tf32_on):
     "ace_tpu_torch.train.train", "ace_tpu_torch.inference.inference",
     "ace_tpu_torch.inference.evaluator", "ace_tpu_torch.coupled.train",
     "ace_tpu_torch.coupled.inference", "ace_tpu_torch.coupled.evaluator",
+    "ace_tpu_torch.downscaling.train", "ace_tpu_torch.downscaling.predict",
+    "ace_tpu_torch.downscaling.evaluator",
 ])
 def test_each_entry_pins_float32_where_it_picks_its_device(entry, tf32_on,
                                                            tmp_path):
@@ -115,3 +117,39 @@ def test_each_entry_pins_float32_where_it_picks_its_device(entry, tf32_on,
         main([str(tmp_path / "missing.yaml")], device="cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("target, args", [
+    ("ace_tpu_torch.downscaling.predict:run_downscaler", (None,)),
+    ("ace_tpu_torch.downscaling.evaluator:run_downscaling_evaluator",
+     (None,)),
+    ("ace_tpu_torch.downscaling.train:DownscalingTrainer", (None,)),
+])
+def test_each_run_function_needs_cuda_and_pins_float32(target, args,
+                                                       tf32_on,
+                                                       monkeypatch):
+    """The functions under the downscaling entries pick their device as the
+    entries do: CUDA unless the CPU is asked for, with TF32 off, before
+    they read their config (here none)."""
+    import importlib
+
+    module, name = target.split(":")
+    function = getattr(importlib.import_module(module), name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        function(*args)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("name", ["DiffusionModel", "DeterministicModel"])
+def test_downscaling_models_need_cuda_unless_cpu_is_asked(name,
+                                                          monkeypatch):
+    """A downscaling model, and so ``load_downscaling_model`` and
+    ``DenoisingMoEPredictor.load``, which build one, is on the CUDA device
+    unless the CPU is asked for."""
+    from ace_tpu_torch.downscaling import models
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(models, name)(None, None)

@@ -3,6 +3,8 @@ S-bf16 over ``configs/baselines/amip-c96-shield/train-ace2.yaml``, the
 ACE2-SHiELD AMIP recipe) at a small size on the CPU, where the kernels'
 plain versions run, as tests/test_torch_baselines.py runs paths E and F."""
 
+import sys
+
 import numpy as np
 import torch
 
@@ -24,6 +26,8 @@ def test_chip_smoke_path_s_runs_on_the_cpu(monkeypatch, capsys):
     present.pop("h5py")
     monkeypatch.setattr(chip_smoke, "inference_packages",
                         lambda: (present, ["h5py"]))
+    # no figures, as on the card
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     counters = [k1.dhconv_filter, k1.dhconv_filter_dx, k1.dhconv_filter_dw]
     out = chip_smoke.shield_paths(
         counters, "cpu", sizes=dict(nlat=NLAT, nlon=NLON, embed=16,

@@ -14,8 +14,10 @@ tests/test_torch_inference.py's ``_tol``, metrics within ``_metric_tol``."""
 
 import json
 import os
+import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,7 @@ import torch
 import chip_smoke
 from ace_tpu.inference import evaluator as jax_evaluator
 from ace_tpu.inference import inference as jax_inference
-from ace_tpu.stepper import train as jax_train
+from ace_tpu.stepper import stepper as jax_stepper
 from ace_tpu.train.train import main as jax_train_main
 from ace_tpu_torch.core.cli import prepare_config
 from ace_tpu_torch.core.config import from_dict
@@ -36,7 +38,7 @@ from ace_tpu_torch.stepper import train as port_train
 from ace_tpu_torch.stepper.stepper import StepperOverrideConfig
 from ace_tpu_torch.train.train import main as train_main
 from ace_tpu_torch.train.trainer import TrainConfig
-from ace_tpu_torch.utils.convert import flax_params_to_state_dict
+from ace_tpu_torch.utils.convert import state_dict_to_flax_variables
 from tests.test_torch_inference import _assert_files_close, _tol
 
 torch.set_num_threads(2)
@@ -93,10 +95,20 @@ def test_som_yamls_build_as_shipped(path, schema):
         assert config.stepper_override.multi_call is None
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_figures():
+    """The entries' figures left out (both packages skip a figure they
+    cannot draw, and no test here reads one): rendering them is most of
+    what an evaluator run costs at this size."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "matplotlib", None)
+        yield
+
+
 @pytest.fixture(scope="module")
 def som_runs(tmp_path_factory):
     """One epoch of both training entries on the SOM training YAML with
-    path M-R's cuts at ``SIZES`` (the port from ace_tpu's initial
+    path M-R's cuts at ``SIZES`` (ace_tpu from the port's initial
     weights), then both inference and evaluator entries on their YAMLs
     over ace_tpu's ``best_ckpt.msgpack``."""
     tmp = tmp_path_factory.mktemp("som")
@@ -105,26 +117,26 @@ def som_runs(tmp_path_factory):
         str(tmp), names, NLAT, NLON, torch.Generator().manual_seed(11),
         "cpu", splits=chip_smoke.M_SPLITS)
     init = {}
-    jax_init = jax_train.TrainStepper.init
+    port_init = port_train.TrainStepper.init
 
-    def capture(self, rng):
-        params, opt_state = jax_init(self, rng)
-        init["params"] = flax_params_to_state_dict(
-            jax.tree_util.tree_map(np.asarray, params))
-        return params, opt_state
+    def capture(self, generator=None):
+        port_init(self, generator)
+        init["params"] = {k: v.detach().clone()
+                          for k, v in self.stepper.module.state_dict().items()}
 
-    def from_ace_tpu(self, generator=None):
-        self.stepper.load_state_dict(init["params"])
-        params = self.parameters()
-        self.optimization.init(params)
-        self.ema.init(params)
+    def from_port(self, rng):
+        # ace_tpu's weights made from the port's (no compile of flax's
+        # initializers)
+        self.params = jax.tree_util.tree_map(
+            jnp.asarray, state_dict_to_flax_variables(init["params"]))
+        return self.params
 
     out = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_train.TrainStepper, "init", capture)
-        mp.setattr(port_train.TrainStepper, "init", from_ace_tpu)
-        for name, run in (("ace_tpu", jax_train_main),
-                          ("port", lambda a: train_main(a, device="cpu"))):
+        mp.setattr(port_train.TrainStepper, "init", capture)
+        mp.setattr(jax_stepper.Stepper, "init_params", from_port)
+        for name, run in (("port", lambda a: train_main(a, device="cpu")),
+                          ("ace_tpu", jax_train_main)):
             config = chip_smoke._som_config(paths, str(tmp / name), str(tmp),
                                             names, SIZES)
             run([chip_smoke._write_yaml(str(tmp / f"{name}.yaml"), config)])

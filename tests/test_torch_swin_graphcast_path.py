@@ -20,6 +20,7 @@
   kernels, LandNet's 4-D ``pos_embed`` untouched)."""
 
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -169,6 +170,16 @@ def _config(tmp, data_dir, out_dir, model):
                     "siconc": ["LSRCc", "LSNKc", "XPRTc"]}}}}}},
     }
     return config
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_figures():
+    """The entries' figures left out (both packages skip a figure they
+    cannot draw, and no test here reads one): rendering them is most of
+    what an evaluator run costs at this size."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "matplotlib", None)
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@ sizes of the networks at their builders' defaults. No JAX runs here."""
 
 import numpy as np
 import pytest
+import sys
 import torch
 
 import chip_smoke
@@ -24,6 +25,16 @@ SMALL_SWIN = {"embed_dim": 16, "num_heads": [2, 2, 2, 2],
               "noise_embed_dim": 8}
 SMALL_GRAPH = {"latent_dimension": 8, "meshes": 3, "M0": 1,
                "processor_steps": 1}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_figures():
+    """The entries' figures left out, as on the card, which has no
+    matplotlib (both packages skip a figure they cannot draw, and no test
+    here reads one)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "matplotlib", None)
+        yield
 
 
 @pytest.fixture
