@@ -10,8 +10,12 @@ and nothing waits for them. PyTorch's pinned-memory allocator does not hand
 a batch's buffer out again before its copy has run, and no buffer is
 reused by the loader itself. Shuffling is the JAX package's numpy order
 (``RandomState(seed + epoch)``), so both packages train on the same
-batches in the same order. Mesh placement (``sharding``) is refused: the
-port runs on one device.
+batches in the same order. Under a data-parallel placement (``sharding``,
+a ``parallel.distributed.BatchPlacement``) every rank draws the same
+global batches from the shared seed and reads only its own rows of each,
+as ``ace_tpu``'s processes do; the augmentation draws for the global
+batch and applies this rank's rows of the draw (``ace_tpu``'s processes
+each draw for their own rows).
 """
 
 import concurrent.futures
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from ace_tpu_torch.core.dataset_info import DatasetInfo
-from ace_tpu_torch.data.augmentation import AugmentationConfig
+from ace_tpu_torch.data.augmentation import AugmentationConfig, NullModifier
 from ace_tpu_torch.data.dataset import (
     ConcatDatasetConfig,
     MergeDatasetConfig,
@@ -34,10 +38,6 @@ from ace_tpu_torch.data.dataset import (
 )
 from ace_tpu_torch.data.requirements import DataRequirements
 from ace_tpu_torch.data.time import TimeCoord
-
-_NO_MESH = ('mesh placement is not ported yet (ROADMAP Queue 1, '
-            '"Multi-GPU")')
-
 
 @dataclasses.dataclass
 class BatchData:
@@ -67,14 +67,11 @@ class BatchData:
         return BatchData(data={k: pin(v) for k, v in self.data.items()},
                          time=self.time, labels=self.labels, data_mask=mask)
 
-    def to_device(self, device, sharding=None) -> "BatchData":
+    def to_device(self, device) -> "BatchData":
         """The batch on ``device``: each field goes through pinned host
         memory (its own, unless :meth:`pinned` already placed it there)
         with a non-blocking copy when the device is a GPU, so the copies
-        overlap work already queued there. A mesh ``sharding`` is
-        refused: the port has no mesh yet."""
-        if sharding is not None:
-            raise NotImplementedError(_NO_MESH)
+        overlap work already queued there."""
         device = torch.device(device)
 
         def put(v):
@@ -227,10 +224,29 @@ def _dataset_labels(dataset) -> list:
     return []
 
 
+def _modify(modifier, data: dict, shard) -> dict:
+    """``modifier`` (a batch modifier of ``data/augmentation.py``) applied
+    to a batch; under a placement (``shard``: the global batch's size and
+    this rank's rows of it) applied to the global batch, this rank's rows
+    in their places and zeros in the others', so that its per-row draws
+    are the global batch's and every rank's generator stays in step (the
+    copy costs the global batch's size, and only with a random
+    modifier)."""
+    if shard is None or isinstance(modifier, NullModifier):
+        return modifier(dict(data))
+    n, rows = shard
+    full = {}
+    for k, v in data.items():
+        full[k] = np.zeros((n, *v.shape[1:]), v.dtype)
+        full[k][rows] = v
+    return {k: v[rows] for k, v in modifier(full).items()}
+
+
 class DataLoader:
     """Threaded, prefetching batch loader with epoch-seeded shuffling
     (port of ace_tpu/data/loading.py:227): batches of ``dataset`` on
-    ``device``."""
+    ``device``; under a placement (``sharding``), this rank's rows of each
+    global batch of ``batch_size``."""
 
     def __init__(
         self,
@@ -246,9 +262,8 @@ class DataLoader:
         modifier=None,
         device="cpu",
     ):
-        if sharding is not None:
-            raise NotImplementedError(_NO_MESH)
         self.dataset = dataset
+        self.sharding = sharding
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
@@ -311,6 +326,14 @@ class DataLoader:
         batches = self._index_batches(start_batch)
         if not batches:
             return
+        # each batch: the samples this rank reads, and (under a placement)
+        # the global batch's size with this rank's rows of it
+        if self.sharding is not None:
+            shards = [(len(idx), self.sharding.local_rows(len(idx)))
+                      for idx in batches]
+            batches = [idx[rows] for idx, (_, rows) in zip(batches, shards)]
+        else:
+            shards = [None] * len(batches)
         pin = self.device.type == "cuda"
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -331,7 +354,7 @@ class DataLoader:
                 with concurrent.futures.ThreadPoolExecutor(
                     self.num_workers
                 ) as pool:
-                    for batch_idx in batches:
+                    for batch_idx, shard in zip(batches, shards):
                         if stop.is_set():
                             return
                         samples = list(
@@ -340,7 +363,8 @@ class DataLoader:
                         batch = _collate(samples)
                         if self.modifier is not None:
                             batch = BatchData(
-                                data=self.modifier(dict(batch.data)),
+                                data=_modify(self.modifier, batch.data,
+                                             shard),
                                 time=batch.time,
                                 labels=batch.labels,
                                 data_mask=batch.data_mask,
@@ -467,9 +491,13 @@ class DataLoaderConfig:
     def build(self, requirements: DataRequirements, train: bool = True,
               sharding=None, seed: int = 0, device="cpu") -> "GriddedData":
         """The loader of batches on ``device`` (the trainer passes its
-        own; a mesh ``sharding`` is refused)."""
-        if sharding is not None:
-            raise NotImplementedError(_NO_MESH)
+        own); under a placement (``sharding``), of this rank's rows of
+        each global batch of ``batch_size``."""
+        if sharding is not None and self.batch_size % sharding.n_data:
+            raise ValueError(
+                f"global batch {self.batch_size} not divisible by the data "
+                f"mesh axis ({sharding.n_data})"
+            )
         xr_dataset = self.dataset.build()
         if self.time_buffer > 0:
             buffered = DataRequirements(
@@ -494,6 +522,7 @@ class DataLoaderConfig:
             sample_with_replacement=self.sample_with_replacement,
             modifier=modifier,
             device=device,
+            sharding=sharding,
         )
         if len(loader) == 0:
             raise ValueError(

@@ -1,25 +1,34 @@
 """Device selection for the port.
 
-The port runs on the CUDA device by default. There is no silent CPU
-fallback: without CUDA, :func:`get_device` raises unless the caller asks
-for the CPU explicitly (the CPU tests do).
+The port runs on the CUDA device by default: under a process group
+(``parallel/distributed.py``) the process's own, ``cuda:{LOCAL_RANK}``.
+There is no silent CPU fallback: without CUDA, :func:`get_device` raises
+unless the caller asks for the CPU explicitly (the CPU tests do).
 """
 
 import numpy as np
 import torch
+
+from ace_tpu_torch.parallel import distributed
 
 
 def get_device(device: str | torch.device | None = None) -> torch.device:
     """The device entry points run on.
 
     Args:
-        device: ``None`` for the default CUDA device, or an explicit
-            device such as ``"cpu"`` or ``"cuda:1"``.
+        device: ``None`` for the default CUDA device (``cuda:{LOCAL_RANK}``
+            under a process group), or an explicit device such as
+            ``"cpu"`` or ``"cuda:1"``.
 
     Raises:
         RuntimeError: a CUDA device is wanted (the default) but CUDA is
-            not available.
+            not available, or the process group's ``LOCAL_RANK`` is not a
+            visible device.
     """
+    local = distributed.local_rank()
+    if device is None and local is not None:
+        distributed.check_visible_device(local)
+        return torch.device("cuda", local)
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -8,7 +8,10 @@ feeds every window's prediction and target to the inference aggregators,
 and writes their logs, diagnostics files and images (and the predictions,
 as the data writer asks) into ``experiment_dir``. It runs on the CUDA
 device unless ``--device`` (or ``device=``) asks for another; without
-CUDA it stops rather than fall back to the CPU. ``run_dataset_comparison``
+CUDA it stops rather than fall back to the CPU. With ``mesh:
+{data_parallel: N}`` over N processes the initial conditions are split
+over them, as in the inference entry, and only the first writes files.
+``run_dataset_comparison``
 runs the same aggregators over a prediction dataset and a target dataset,
 with no model.
 """
@@ -27,18 +30,22 @@ from ace_tpu_torch.core.timing import GlobalTimer
 from ace_tpu_torch.data.inference import InferenceDataLoaderConfig
 from ace_tpu_torch.data.time import TimeCoord
 from ace_tpu_torch.device import entry_device
-from ace_tpu_torch.inference.data_writer import DataWriterConfig
+from ace_tpu_torch.inference.data_writer import DataWriterConfig, NullDataWriter
+from ace_tpu_torch.inference.inference import place_initial_condition
 from ace_tpu_torch.inference.loop import run_inference
+from ace_tpu_torch.parallel import distributed as dist
+from ace_tpu_torch.parallel.distributed import BatchPlacement
+from ace_tpu_torch.parallel.mesh import MeshConfig
 from ace_tpu_torch.stepper.checkpoint import load_stepper
 from ace_tpu_torch.stepper.insolation import DerivedForcingsConfig
-from ace_tpu_torch.stepper.stepper import PrognosticState, StepperOverrideConfig
+from ace_tpu_torch.stepper.stepper import StepperOverrideConfig
 from ace_tpu_torch.train.trainer import LoggingConfig
 
 
 @dataclasses.dataclass
 class EvaluatorConfig:
-    """(port of ace_tpu/inference/evaluator.py:26). ``mesh`` must stay
-    None: the port runs on one device."""
+    """(port of ace_tpu/inference/evaluator.py:26). ``mesh`` splits the
+    initial conditions over the processes (data parallel only)."""
 
     experiment_dir: str
     checkpoint_path: str
@@ -58,14 +65,9 @@ class EvaluatorConfig:
     stepper_override: StepperOverrideConfig | None = None
     # members per initial condition, tiled member-major
     n_ensemble_per_ic: int = 1
-    mesh: dict | None = None
+    mesh: MeshConfig | None = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device evaluation is not ported yet (ROADMAP "
-                'Queue 1, "Multi-GPU")'
-            )
         self.data_writer.validate_time_coarsen(
             self.n_forward_steps, self.forward_steps_in_memory
         )
@@ -77,6 +79,8 @@ def run_evaluator_from_config(config: EvaluatorConfig, device=None) -> dict:
     aggregators' ``logs``."""
     device = entry_device(device)
     config.logging.configure(config.experiment_dir)
+    placement = (BatchPlacement(config.mesh.build(), device)
+                 if config.mesh is not None else None)
     stepper = load_stepper(config.checkpoint_path,
                            override=config.stepper_override, device=device)
     deriver = config.derived_forcings.build(stepper.dataset_info)
@@ -94,29 +98,29 @@ def run_evaluator_from_config(config: EvaluatorConfig, device=None) -> dict:
     if n_ens > 1:
         ic_data = {k: np.repeat(np.asarray(v), n_ens, axis=0)
                    for k, v in ic_data.items()}
-    ic = PrognosticState(data={
-        k: torch.as_tensor(np.asarray(v)).to(device)
-        for k, v in ic_data.items()
-    })
+    ic = place_initial_condition(ic_data, device, placement)
     info = data.dataset_info
     aggregator = config.aggregator.build(
         info, n_timesteps=config.n_forward_steps,
         normalizer=getattr(stepper.step, "normalizer", None),
         n_ensemble_per_ic=n_ens,
     )
-    writer = config.data_writer.build(config.experiment_dir, info)
+    root = dist.is_root()
+    writer = (config.data_writer.build(config.experiment_dir, info) if root
+              else NullDataWriter())
     # the targets: the model's outputs that the dataset holds
     target_names = [n for n in stepper.out_names if n in data.dataset.names]
     summary = run_inference(
         stepper, ic, data, writer=writer, aggregator=aggregator,
         target_names=target_names, forcing_deriver=deriver,
-        n_ensemble=n_ens,
+        n_ensemble=n_ens, placement=placement,
     )
     summary["logs"] = aggregator.get_logs()
     summary["histogram_host_seconds"] = aggregator.histogram_host_seconds
-    aggregator.flush_diagnostics(
-        os.path.join(config.experiment_dir, "diagnostics"))
-    aggregator.flush_images(os.path.join(config.experiment_dir, "plots"))
+    if root:
+        aggregator.flush_diagnostics(
+            os.path.join(config.experiment_dir, "diagnostics"))
+        aggregator.flush_images(os.path.join(config.experiment_dir, "plots"))
     writer.close()
     GlobalTimer.get_instance().log_durations()
     return summary
@@ -126,10 +130,14 @@ def main(argv=None, device=None):
     """The command line; ``device`` (when given) takes the place of
     ``--device``."""
     args = get_parser().parse_args(argv)
-    device = entry_device(device if device is not None else args.device)
+    device = device if device is not None else args.device
+    dist.initialize(device=device)
+    device = entry_device(device)
     data = prepare_config(args.yaml_config, args.override)
     config = from_dict(EvaluatorConfig, data)
-    prepare_directory(config.experiment_dir, data)
+    if dist.is_root():
+        prepare_directory(config.experiment_dir, data)
+    dist.barrier("prepare_directory")
     logging.info("Starting evaluator")
     return run_evaluator_from_config(config, device=device)
 

@@ -8,7 +8,10 @@ forcing from netCDF (or zarr) files, rolls out on the device in windows
 of ``forward_steps_in_memory`` steps, and writes the predictions,
 ``restart.nc`` and the aggregators' diagnostics into ``experiment_dir``.
 It runs on the CUDA device unless ``--device`` (or ``device=``) asks for
-another; without CUDA it stops rather than fall back to the CPU.
+another; without CUDA it stops rather than fall back to the CPU. With
+``mesh: {data_parallel: N}`` over N processes (launched as the training
+entry is) the initial conditions and ensemble members are split over
+the processes, and only the first writes files.
 """
 
 import copy
@@ -32,8 +35,15 @@ from ace_tpu_torch.data.inference import (
 )
 from ace_tpu_torch.data.time import TimeCoord
 from ace_tpu_torch.device import entry_device
-from ace_tpu_torch.inference.data_writer import DataWriterConfig, save_restart
+from ace_tpu_torch.inference.data_writer import (
+    DataWriterConfig,
+    NullDataWriter,
+    save_restart,
+)
 from ace_tpu_torch.inference.loop import run_inference
+from ace_tpu_torch.parallel import distributed as dist
+from ace_tpu_torch.parallel.distributed import BatchPlacement
+from ace_tpu_torch.parallel.mesh import MeshConfig
 from ace_tpu_torch.stepper.checkpoint import load_stepper
 from ace_tpu_torch.stepper.insolation import DerivedForcingsConfig
 from ace_tpu_torch.stepper.stepper import PrognosticState, StepperOverrideConfig
@@ -92,8 +102,8 @@ class InitialConditionConfig:
 
 @dataclasses.dataclass
 class InferenceConfig:
-    """(port of ace_tpu/inference/inference.py:87). ``mesh`` must stay
-    None: the port runs on one device."""
+    """(port of ace_tpu/inference/inference.py:87). ``mesh`` splits the
+    initial conditions over the processes (data parallel only)."""
 
     experiment_dir: str
     checkpoint_path: str
@@ -118,14 +128,9 @@ class InferenceConfig:
     # members per initial condition, tiled member-major; the noise
     # generator differentiates them
     n_ensemble_per_ic: int = 1
-    mesh: dict | None = None
+    mesh: MeshConfig | None = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device inference is not ported yet (ROADMAP "
-                'Queue 1, "Multi-GPU")'
-            )
         self.data_writer.validate_time_coarsen(
             self.n_forward_steps, self.forward_steps_in_memory
         )
@@ -150,7 +155,9 @@ def run_inference_from_config(config: InferenceConfig, device=None) -> dict:
     aggregators' ``logs``."""
     device = entry_device(device)
     config.logging.configure(config.experiment_dir)
-    return _run_inference_impl(config, device)
+    placement = (BatchPlacement(config.mesh.build(), device)
+                 if config.mesh is not None else None)
+    return _run_inference_impl(config, device, placement)
 
 
 def _forcing_data(config: InferenceConfig, stepper, forcing_names):
@@ -188,8 +195,21 @@ def _forcing_data(config: InferenceConfig, stepper, forcing_names):
     ), external_ic
 
 
-def _run_inference_impl(config: InferenceConfig, device: torch.device
-                        ) -> dict:
+def place_initial_condition(ic_data: dict, device, placement
+                            ) -> PrognosticState:
+    """The initial condition on ``device``: under a ``placement`` this
+    process's rows of it."""
+    if placement is not None:
+        return PrognosticState(data={
+            k: placement.put_global(v) for k, v in ic_data.items()})
+    return PrognosticState(data={
+        k: torch.as_tensor(np.asarray(v)).to(device)
+        for k, v in ic_data.items()
+    })
+
+
+def _run_inference_impl(config: InferenceConfig, device: torch.device,
+                        placement: BatchPlacement | None) -> dict:
     stepper = load_stepper(config.checkpoint_path,
                            override=config.stepper_override, device=device)
     deriver = config.derived_forcings.build(stepper.dataset_info)
@@ -209,36 +229,40 @@ def _run_inference_impl(config: InferenceConfig, device: torch.device
         # member-major: the members of one initial condition are contiguous
         ic_data = {k: np.repeat(np.asarray(v), n_ens, axis=0)
                    for k, v in ic_data.items()}
-    ic = PrognosticState(data={
-        k: torch.as_tensor(np.asarray(v)).to(device)
-        for k, v in ic_data.items()
-    })
+    ic = place_initial_condition(ic_data, device, placement)
     info = forcing_data.dataset_info
     aggregator = config.aggregator.build(
         info, n_timesteps=config.n_forward_steps,
         normalizer=getattr(stepper.step, "normalizer", None),
         n_ensemble_per_ic=n_ens,
     )
-    writer = config.data_writer.build(config.experiment_dir, info)
+    # only the root process writes; every process aggregates the
+    # gathered outputs
+    root = dist.is_root()
+    writer = (config.data_writer.build(config.experiment_dir, info) if root
+              else NullDataWriter())
     summary = run_inference(
         stepper, ic, forcing_data, writer=writer, aggregator=aggregator,
-        forcing_deriver=deriver, n_ensemble=n_ens,
+        forcing_deriver=deriver, n_ensemble=n_ens, placement=placement,
     )
     logs = aggregator.get_logs()
-    aggregator.flush_diagnostics(
-        os.path.join(config.experiment_dir, "diagnostics"))
-    aggregator.flush_images(os.path.join(config.experiment_dir, "plots"))
+    if root:
+        aggregator.flush_diagnostics(
+            os.path.join(config.experiment_dir, "diagnostics"))
+        aggregator.flush_images(os.path.join(config.experiment_dir, "plots"))
     final_state: PrognosticState = summary["final_state"]
+    final_np = (placement.fetch(final_state.data) if placement is not None
+                else {k: v.cpu().numpy() for k, v in final_state.data.items()})
     last_time = forcing_data.dataset.all_time[
         [s + config.n_forward_steps
          for s in forcing_data._starts for _ in range(n_ens)]
     ]
-    save_restart(
-        os.path.join(config.experiment_dir, "restart.nc"),
-        {k: v.cpu().numpy() for k, v in final_state.data.items()},
-        TimeCoord(last_time.values[:, None], last_time.calendar),
-        info,
-    )
+    if root:
+        save_restart(
+            os.path.join(config.experiment_dir, "restart.nc"), final_np,
+            TimeCoord(last_time.values[:, None], last_time.calendar),
+            info,
+        )
     writer.close()
     GlobalTimer.get_instance().log_durations()
     summary["logs"] = logs
@@ -274,6 +298,8 @@ def run_segmented_inference(config: InferenceConfig, segments: int,
             )
         logging.info(f"Running segment {segment}")
         summary = run_inference_from_config(seg_config, device=device)
+        # the next segment reads the restart file the root wrote
+        dist.barrier("segment")
     return summary
 
 
@@ -286,10 +312,14 @@ def main(argv=None, device=None):
         help="run in N chained segments via restart files",
     )
     args = parser.parse_args(argv)
-    device = entry_device(device if device is not None else args.device)
+    device = device if device is not None else args.device
+    dist.initialize(device=device)
+    device = entry_device(device)
     data = prepare_config(args.yaml_config, args.override)
     config = from_dict(InferenceConfig, data)
-    prepare_directory(config.experiment_dir, data)
+    if dist.is_root():
+        prepare_directory(config.experiment_dir, data)
+    dist.barrier("prepare_directory")
     logging.info("Starting inference")
     if args.segments is not None:
         return run_segmented_inference(config, args.segments, device=device)

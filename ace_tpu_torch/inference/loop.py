@@ -20,6 +20,14 @@ finishes each window before the next is read.
 The noise comes from one ``torch.Generator`` on the stepper's device,
 seeded 0, that runs on across windows (the JAX package splits a
 ``PRNGKey(0)`` per window: the two streams differ).
+
+Under a multi-process ``placement`` (a data-parallel mesh) each process
+rolls out its rows of the initial conditions (and ensemble members) with
+its rows of each forcing window (``put_global``) and its rows of the
+global batch's noise; each window's outputs are gathered into the global
+batch on every process, whose derived variables, writer and aggregator
+then see what one process would. Such a run takes the serial loop, as in
+the JAX package: every process reaches each gather in step.
 """
 
 import logging
@@ -68,6 +76,7 @@ def run_inference(
     n_ensemble: int = 1,
     pipeline: bool = True,
     target_names: list[str] | None = None,
+    placement=None,
 ) -> dict:
     """Roll out over streaming forcing windows.
 
@@ -77,8 +86,10 @@ def run_inference(
     loop, without a writer). With ``target_names``, the dataset's values
     of those variables at the predicted times (and their derived
     variables) reach the aggregator as its targets, copied to the device
-    as the forcing is. Returns ``total_steps``,
-    ``total_steps_per_second`` (the device finished) and ``final_state``.
+    as the forcing is. ``placement`` (a ``parallel.distributed.
+    BatchPlacement``): ``initial_condition`` holds this process's rows.
+    Returns ``total_steps``, ``total_steps_per_second`` (the device
+    finished) and ``final_state`` (this process's rows).
     """
     from ace_tpu_torch.inference.data_writer import NullDataWriter
 
@@ -94,7 +105,11 @@ def run_inference(
           else info.depth_coordinate)
     device = stepper.device
     state = stepper.get_initial_state(initial_condition)
-    generator = torch.Generator(device).manual_seed(0)
+    multiprocess = placement is not None and placement.multiprocess
+    if multiprocess:
+        pipeline = False
+    generator = (placement.generator(0) if placement is not None
+                 else torch.Generator(device).manual_seed(0))
     n_steps_done = 0
     t_start = _time.time()
 
@@ -144,6 +159,10 @@ def run_inference(
                     window_time.calendar,
                 )
             forcing = BatchData(forcing_np, window_time).to_device(device).data
+            # the rollout's rows of the forcing
+            local_forcing = ({k_: placement.put_global(v)
+                              for k_, v in forcing_np.items()}
+                             if multiprocess else forcing)
             target = None
             if target_windows is not None:
                 target_np = {k_: np.asarray(v)[:, 1:] for k_, v in
@@ -157,9 +176,11 @@ def run_inference(
             # the rollout length is explicit: a model without forcing
             # variables cannot infer it from an empty window
             outputs, state = stepper.predict(
-                state, forcing, generator=generator,
+                state, local_forcing, generator=generator,
                 n_forward=window_time.values.shape[1] - 1,
             )
+            if multiprocess:
+                outputs = placement.gather(outputs)
             outputs = derive(outputs, forcing)
             if target is not None:
                 target = derive(target, forcing)

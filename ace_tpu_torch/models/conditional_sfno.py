@@ -32,6 +32,7 @@ from ace_tpu_torch.models.layers import MLP, Linear, trunc_normal_init
 from ace_tpu_torch.models.sfno import _ACTIVATIONS, SpectralConvS2
 from ace_tpu_torch.ops.fused_block_tail import fused_block_tail
 from ace_tpu_torch.ops.sht import build_isht, build_sht
+from ace_tpu_torch.parallel.distributed import randn_rows
 
 
 class ChannelLayerNorm(nn.Module):
@@ -155,12 +156,13 @@ def isotropic_noise(isht, batch: int, channels: int,
     """White spherical-harmonic coefficients drawn with ``generator`` and
     synthesized to the grid by ``isht`` with unit pointwise variance:
     ``[batch, nlat, nlon, channels]`` float32 (the JAX models' isotropic
-    noise)."""
+    noise). Under data parallelism the coefficients are this rank's rows
+    of the global batch's draw (``parallel.distributed.draw_rows``)."""
     lmax, mmax = isht.lmax, isht.mmax
     device = isht.pct.device
     cshape = (batch, lmax, mmax, channels)
-    real = torch.randn(cshape, generator=generator, device=device)
-    imag = torch.randn(cshape, generator=generator, device=device)
+    real = randn_rows(cshape, generator, device)
+    imag = randn_rows(cshape, generator, device)
     imag[:, :, 0] = 0.0
     real[:, :, 1:] /= math.sqrt(2.0)
     imag[:, :, 1:] /= math.sqrt(2.0)
@@ -412,14 +414,15 @@ class NoiseConditionedSFNO(nn.Module):
 
     def make_noise(self, batch: int, generator: torch.Generator | None):
         """The noise field ``[batch, nlat, nlon, noise_embed_dim]``
-        float32, drawn with ``generator`` (zero without one)."""
+        float32, drawn with ``generator`` (zero without one); under data
+        parallelism, this rank's rows of the global batch's."""
         nlat, nlon = self.img_shape
         device = self.trans_down.fc.device
         shape = (batch, nlat, nlon, self.noise_embed_dim)
         if generator is None:
             return torch.zeros(shape, device=device)
         if self.noise_type == "gaussian":
-            return torch.randn(shape, generator=generator, device=device)
+            return randn_rows(shape, generator, device)
         return isotropic_noise(self.itrans_up, batch, self.noise_embed_dim,
                                generator)
 

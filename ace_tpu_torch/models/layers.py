@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ace_tpu_torch.parallel.distributed import rand_rows
+
 
 def exact_gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU as the JAX package computes it: the erf form for float32,
@@ -77,7 +79,7 @@ def _drop(x, rate, mask_shape, generator):
         raise ValueError("a random layer that is not deterministic needs a "
                          "generator")
     keep = 1.0 - rate
-    mask = torch.rand(mask_shape, generator=generator, device=x.device) < keep
+    mask = rand_rows(mask_shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -24,6 +24,7 @@ from ace_tpu_torch.models.layers import MLP, Linear, trunc_normal_init
 from ace_tpu_torch.models.sfno import _ACTIVATIONS
 from ace_tpu_torch.ops.distributed_disco import build_disco
 from ace_tpu_torch.ops.sht import build_isht
+from ace_tpu_torch.parallel.distributed import randn_rows
 
 
 def compute_cutoff_radius(nlat: int, kernel_shape, basis_type: str) -> float:
@@ -287,7 +288,7 @@ class LocalNet(nn.Module):
         if generator is None:
             return torch.zeros(shape, device=device)
         if self.noise_type == "gaussian":
-            return torch.randn(shape, generator=generator, device=device)
+            return randn_rows(shape, generator, device)
         return isotropic_noise(self.isht, batch, self.noise_embed_dim,
                                generator)
 

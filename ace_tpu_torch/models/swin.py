@@ -34,6 +34,7 @@ from ace_tpu_torch.models.conditional_sfno import ConditionalLayerNorm
 from ace_tpu_torch.models.layers import (DropPath, LayerNorm, Linear,
                                          exact_gelu)
 from ace_tpu_torch.models.samudra import Conv2d
+from ace_tpu_torch.parallel.distributed import randn_rows
 
 
 def _dense(n_in, n_out, bias=True, dtype=torch.float32, device=None,
@@ -544,7 +545,7 @@ class SwinTransformerNet(nn.Module):
         shape = (b, h, w, self.noise_embed_dim)
         if generator is None:
             return torch.zeros(shape, device=x.device)
-        return torch.randn(shape, generator=generator, device=x.device)
+        return randn_rows(shape, generator, x.device)
 
     def _boundary_pad(self, x):
         if self.padding_mode == "earth":

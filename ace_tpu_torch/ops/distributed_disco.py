@@ -1,5 +1,6 @@
 """The DISCO constructor (port of ace_tpu/ops/distributed_disco.py). The
-port has no spatial mesh yet (the entries refuse ``mesh:``), so
+port has no spatial mesh yet (the entries refuse ``mesh:`` with ``h * w >
+1``), so
 ``build_disco`` builds the single-device ``DiscoConvS2``; the all-to-all
 distributed convolution is not ported."""
 

@@ -84,16 +84,106 @@ def _unchunk(tree):
     return {k: _unchunk(v) for k, v in tree.items()}
 
 
+# an ndarray extension from this size on is read into its own buffer
+_DIRECT_READ_BYTES = 1 << 16
+
+
+class _Reader:
+    """A streaming msgpack decoder of what flax writes (maps, arrays,
+    strings, binaries, numbers, nil, booleans, extensions), giving what
+    ``msgpack.Unpacker(ext_hook=_ext_hook, raw=False)`` gives, except that
+    the data of a large ndarray extension is read from the file straight
+    into the array's own buffer: one copy, where the unpacker's buffer
+    and the extension's bytes take two more."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def take(self, n: int) -> bytes:
+        data = self.f.read(n)
+        if len(data) != n:
+            raise ValueError("the checkpoint ends inside an object")
+        return data
+
+    def uint(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big")
+
+    def read(self):
+        t = self.take(1)[0]
+        if t <= 0x7F:
+            return t
+        if t >= 0xE0:
+            return t - 0x100
+        if t <= 0x8F:
+            return self.map(t & 0x0F)
+        if t <= 0x9F:
+            return [self.read() for _ in range(t & 0x0F)]
+        if t <= 0xBF:
+            return self.take(t & 0x1F).decode()
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if t in simple:
+            return simple[t]
+        if t in (0xC4, 0xC5, 0xC6):
+            return self.take(self.uint(1 << (t - 0xC4)))
+        if t in (0xC7, 0xC8, 0xC9):
+            n = self.uint(1 << (t - 0xC7))
+            return self.ext(int.from_bytes(self.take(1), "big", signed=True),
+                            n)
+        if t in (0xCA, 0xCB):
+            return float(np.frombuffer(self.take(4 if t == 0xCA else 8),
+                                       ">f4" if t == 0xCA else ">f8")[0])
+        if 0xCC <= t <= 0xCF:
+            return self.uint(1 << (t - 0xCC))
+        if 0xD0 <= t <= 0xD3:
+            return int.from_bytes(self.take(1 << (t - 0xD0)), "big",
+                                  signed=True)
+        if 0xD4 <= t <= 0xD8:
+            code = int.from_bytes(self.take(1), "big", signed=True)
+            return self.ext(code, 1 << (t - 0xD4))
+        if t in (0xD9, 0xDA, 0xDB):
+            return self.take(self.uint(1 << (t - 0xD9))).decode()
+        if t in (0xDC, 0xDD):
+            n = self.uint(2 if t == 0xDC else 4)
+            return [self.read() for _ in range(n)]
+        if t in (0xDE, 0xDF):
+            return self.map(self.uint(2 if t == 0xDE else 4))
+        raise ValueError(f"msgpack type byte {t:#x} is not in a checkpoint")
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        return out
+
+    def ext(self, code: int, n: int):
+        if code != _EXT_NDARRAY or n < _DIRECT_READ_BYTES:
+            return _ext_hook(code, self.take(n))
+        start = self.f.tell()
+        if self.take(1) != b"\x93":
+            raise ValueError("not a flax ndarray extension")
+        shape, dtype_name = self.read(), self.read()
+        size = _BIN_LENGTH_BYTES[self.take(1)[0]]
+        nbytes = self.uint(size)
+        if self.f.tell() - start + nbytes != n:
+            raise ValueError("a flax ndarray extension of the wrong length")
+        dtype = np.dtype(np.uint16 if dtype_name == "bfloat16"
+                         else dtype_name)
+        out = np.empty(nbytes // dtype.itemsize, dtype)
+        if self.f.readinto(memoryview(out).cast("B")) != nbytes:
+            raise ValueError("the checkpoint ends inside an array")
+        out = out.reshape(shape)
+        if dtype_name == "bfloat16":
+            return torch.from_numpy(out).view(torch.bfloat16)
+        return out
+
+
 def load_msgpack(path: str) -> dict:
     """Decode a checkpoint written by ``ace_tpu.stepper.checkpoint`` (or by
-    :func:`save_msgpack`)."""
-    import msgpack
-
+    :func:`save_msgpack`), streamed: the file's bytes are not held beside
+    its arrays."""
     with open(path, "rb") as f:
-        # streamed: the file's bytes are not held beside its arrays
-        unpacker = msgpack.Unpacker(f, ext_hook=_ext_hook, raw=False,
-                                    max_buffer_size=0)
-        payload = unpacker.unpack()
+        payload = _Reader(f).read()
     return _unchunk(payload)
 
 

@@ -189,6 +189,10 @@ class TrainStepper:
         self._base: dict[str, torch.Tensor] | None = None
         # set by the trainer: resets a subset of weights after each update
         self.copy_weights = None
+        # set by the trainer under a data-parallel mesh: its
+        # ``BatchPlacement``, whose ``mean_`` averages the gradients over
+        # the ranks
+        self.placement = None
         self._length_sampler: TimeLengthProbabilities | None = None
         self._sampler_epoch: int | None = None
         # the tensors that hold the training weights while
@@ -411,9 +415,14 @@ class TrainStepper:
                    data_mask: TensorMapping | None = None) -> TensorDict:
         """Forward, backward, gradient clipping, optimizer update and EMA
         update (``labels`` and ``data_mask`` as :meth:`loss_fn` takes them).
-        Returns the loss metrics and ``grad_norm`` (the global norm
-        of the gradients before clipping), detached tensors on the device;
-        nothing here waits for the device."""
+        Under a data-parallel ``placement`` the gradients are averaged over
+        the ranks between the backward and the optimizer (once per call,
+        so once per micro-step under gradient accumulation, as
+        ``ace_tpu``'s psum in its compiled step), and every rank clips and
+        updates from the same gradients. Returns this rank's loss metrics
+        and ``grad_norm`` (the global norm of the averaged gradients before
+        clipping), detached tensors on the device; nothing here waits for
+        the device."""
         params = self.parameters()
         for p in params:
             p.grad = None
@@ -423,6 +432,8 @@ class TrainStepper:
         total.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        if self.placement is not None:
+            self.placement.mean_(grads)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = self.optimization.step(params, grads)
         del grads

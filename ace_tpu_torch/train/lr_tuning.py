@@ -38,7 +38,11 @@ def run_lr_tuning_trial(config: LRTuningConfig, train_stepper,
     ``train_batches`` and ``valid_batches`` are lists of batch dicts (the
     first batches of the epoch); the losses are ``train_stepper.loss_fn``'s
     at its full rollout length. Reads the validation losses on the host.
+    Under the train stepper's data-parallel ``placement`` the batches are
+    this rank's rows, and the gradients and losses are averaged over the
+    ranks, so that every rank takes the same decision.
     """
+    placement = train_stepper.placement
     params = train_stepper.parameters()
     with torch.no_grad():
         trial = [p.detach().clone() for p in params]
@@ -62,6 +66,8 @@ def run_lr_tuning_trial(config: LRTuningConfig, train_stepper,
             loss.backward()
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
+            if placement is not None:
+                placement.mean_(grads)
             optimization.step(params, grads)
         for p in params:
             p.grad = None
@@ -71,7 +77,12 @@ def run_lr_tuning_trial(config: LRTuningConfig, train_stepper,
         with torch.no_grad():
             for batch in valid_batches:
                 losses.append(train_stepper.loss_fn(batch, generator)[0])
-        return float(torch.stack(losses).mean()) if losses else 0.0
+        if not losses:
+            return 0.0
+        mean = torch.stack(losses).mean()
+        if placement is not None:
+            placement.mean_([mean])
+        return float(mean)
 
     candidate_lr = current_lr * config.lr_factor
     with train_stepper.weights_swapped(trial):

@@ -8,6 +8,12 @@ device unless ``--device`` (or ``device=``) asks for another, and writes
 ``metrics.jsonl`` and the checkpoints into ``experiment_dir``; run again
 on the same directory, it resumes from ``training_checkpoints/ckpt.msgpack``.
 Without CUDA it stops rather than fall back to the CPU.
+
+Over N processes (``torchrun --nproc-per-node N -m ace_tpu_torch.train
+<config.yaml>``, or the ``ACE_TPU_*`` variables of
+``parallel/distributed.py``) with ``mesh: {data_parallel: N}`` in the
+config, each process trains on ``cuda:{LOCAL_RANK}`` (gloo on the CPU
+with ``--device cpu``), and only the first writes files.
 """
 
 import logging
@@ -16,6 +22,7 @@ from ace_tpu_torch.core.cli import get_parser, prepare_config, prepare_directory
 from ace_tpu_torch.core.config import from_dict
 from ace_tpu_torch.core.timing import GlobalTimer
 from ace_tpu_torch.device import entry_device
+from ace_tpu_torch.parallel import distributed as dist
 from ace_tpu_torch.train.trainer import Trainer, TrainConfig
 
 
@@ -31,10 +38,15 @@ def main(argv=None, device=None) -> Trainer:
     """The command line; ``device`` (when given) takes the place of
     ``--device``. Returns the trainer."""
     args = get_parser().parse_args(argv)
-    device = entry_device(device if device is not None else args.device)
+    device = device if device is not None else args.device
+    # join the process group where the launch made one
+    dist.initialize(device=device)
+    device = entry_device(device)
     data = prepare_config(args.yaml_config, args.override)
     config = from_dict(TrainConfig, data)
-    prepare_directory(config.experiment_dir, data)
+    if dist.is_root():
+        prepare_directory(config.experiment_dir, data)
+    dist.barrier("prepare_directory")
     logging.info("Starting training")
     return run_train_from_config(config, device=device)
 

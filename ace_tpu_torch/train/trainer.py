@@ -13,6 +13,14 @@ arrive by non-blocking copies from pinned memory, and the per-batch
 metrics stay on the device until the epoch's batches are done (unless
 ``log_train_every_n_batches`` asks for a loss on the host, or
 ``checkpoint_every_n_batches`` for a mid-epoch checkpoint).
+
+Under ``mesh: {data_parallel: N}`` (``parallel/``) each of N processes
+trains on its rows of every global batch, the train step averages the
+gradients over them, and the epoch's metrics are the global batch's
+means (one all-reduce at the drain); validation gathers the rows for its
+one-step aggregator and inline inference runs with the placement. Only
+the root process writes: ``metrics.jsonl``, ``out.log`` and the
+checkpoints. Every process restores a resumed run.
 """
 
 import contextlib
@@ -34,6 +42,9 @@ from ace_tpu_torch.data.inference import InferenceDataLoaderConfig
 from ace_tpu_torch.data.loading import DataLoaderConfig, GriddedData
 from ace_tpu_torch.data.requirements import DataRequirements
 from ace_tpu_torch.device import entry_device
+from ace_tpu_torch.parallel import distributed as dist
+from ace_tpu_torch.parallel.distributed import BatchPlacement
+from ace_tpu_torch.parallel.mesh import MeshConfig
 from ace_tpu_torch.stepper.checkpoint import (
     read_train_checkpoint,
     save_train_checkpoint,
@@ -95,13 +106,14 @@ class LoggingConfig:
         handlers: list[logging.Handler] = []
         if self.log_to_screen:
             handlers.append(logging.StreamHandler())
-        if self.log_to_file:
+        if self.log_to_file and dist.is_root():
             os.makedirs(experiment_dir, exist_ok=True)
             handlers.append(
                 logging.FileHandler(os.path.join(experiment_dir, "out.log"))
             )
         logging.basicConfig(
-            level=logging.INFO,
+            # the root process logs INFO, the others warnings only
+            level=logging.INFO if dist.is_root() else logging.WARNING,
             format="%(asctime)s %(levelname)s %(message)s",
             handlers=handlers,
             force=True,
@@ -142,8 +154,8 @@ class CheckpointPaths:
 @dataclasses.dataclass
 class TrainConfig:
     """Top-level training config (port of ace_tpu/train/trainer.py:139,
-    the same fields). The port runs on one device: ``mesh`` must stay
-    None."""
+    the same fields). ``mesh`` (data parallel only) is required where the
+    launch has more than one process."""
 
     train_loader: DataLoaderConfig
     validation_loader: DataLoaderConfig
@@ -179,15 +191,10 @@ class TrainConfig:
     lr_tuning: LRTuningConfig = dataclasses.field(
         default_factory=LRTuningConfig
     )
-    mesh: dict | None = None
+    mesh: MeshConfig | None = None
     seed: int = 0
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device training is not ported yet (ROADMAP "
-                'Queue 1, "Multi-GPU")'
-            )
         if self.lr_tuning.enabled and self.optimization.has_lr_schedule:
             raise ValueError(
                 "lr_tuning and optimization.scheduler cannot both be "
@@ -209,8 +216,18 @@ class TrainConfig:
         return self.stepper_training.max_n_forward_steps
 
     def build_trainer(self, device=None) -> "Trainer":
-        """The trainer on ``device`` (CUDA by default)."""
+        """The trainer on ``device`` (CUDA by default), over ``mesh``'s
+        ranks where it is given."""
         device = entry_device(device)
+        if self.mesh is not None:
+            placement = BatchPlacement(self.mesh.build(), device)
+        elif dist.process_count() > 1:
+            raise ValueError(
+                "multi-process training requires an explicit `mesh` "
+                "config (data_parallel/h/w)"
+            )
+        else:
+            placement = None
         if isinstance(self.stepper, CheckpointStepperConfig):
             # resolved once, so that the data requirements and the
             # checkpoints see the whole config
@@ -225,10 +242,12 @@ class TrainConfig:
                 self.stepper.step.allow_missing_variables),
         )
         train_data = self.train_loader.build(
-            requirements, train=True, seed=self.seed, device=device
+            requirements, train=True, seed=self.seed, device=device,
+            sharding=placement,
         )
         valid_data = self.validation_loader.build(
-            requirements, train=False, seed=self.seed, device=device
+            requirements, train=False, seed=self.seed, device=device,
+            sharding=placement,
         )
         stepper = self.stepper.get_stepper(train_data.dataset_info,
                                            device=device)
@@ -240,17 +259,23 @@ class TrainConfig:
             max_epochs=self.max_epochs,
             steps_per_epoch=max(1, train_data.n_batches),
         )
-        return Trainer(self, train_stepper, train_data, valid_data)
+        train_stepper.placement = placement
+        return Trainer(self, train_stepper, train_data, valid_data,
+                       placement)
 
 
-def _mean_metrics(pending: list[dict[str, torch.Tensor]], count: int
+def _mean_metrics(pending: list[dict[str, torch.Tensor]], count: int,
+                  placement: BatchPlacement | None = None
                   ) -> dict[str, float]:
     """The per-key means over ``count`` batches of device-resident
-    metrics, brought to the host in one copy."""
+    metrics, brought to the host in one copy; under a ``placement``, of
+    the global batches (one all-reduce of every value)."""
     if not pending:
         return {}
     keys = [k for m in pending for k in m]
     values = torch.stack([m[k].float() for m in pending for k in m])
+    if placement is not None:
+        placement.mean_([values])
     totals: dict[str, float] = {}
     for k, v in zip(keys, values.cpu().double().numpy()):
         totals[k] = totals.get(k, 0.0) + float(v)
@@ -259,11 +284,13 @@ def _mean_metrics(pending: list[dict[str, torch.Tensor]], count: int
 
 class Trainer:
     def __init__(self, config: TrainConfig, train_stepper: TrainStepper,
-                 train_data: GriddedData, valid_data: GriddedData):
+                 train_data: GriddedData, valid_data: GriddedData,
+                 placement: BatchPlacement | None = None):
         self.config = config
         self.train_stepper = train_stepper
         self.train_data = train_data
         self.valid_data = valid_data
+        self.placement = placement
         self.paths = CheckpointPaths(config.experiment_dir)
         self.num_batches_seen = 0
         self._epoch_batches_seen = 0
@@ -271,11 +298,16 @@ class Trainer:
         self.start_epoch = 0
         self.best_validation_loss = float("inf")
         self.best_inference_error = float("inf")
-        self._disk_logger = DiskMetricLogger(
-            os.path.join(config.experiment_dir, "metrics.jsonl")
+        self._disk_logger = (
+            DiskMetricLogger(
+                os.path.join(config.experiment_dir, "metrics.jsonl"))
+            if dist.is_root() else None
         )
-        self.generator = torch.Generator(self.device).manual_seed(
-            config.seed)
+        # every rank holds the same generator state; under a placement its
+        # draws over a batch are this rank's rows of the global batch's
+        self.generator = (
+            placement.generator(config.seed) if placement is not None
+            else torch.Generator(self.device).manual_seed(config.seed))
         self._initialized = False
         self._old_handlers: dict = {}
         self._current_epoch = 0
@@ -341,7 +373,10 @@ class Trainer:
 
     def _save(self, path: str, extra: dict, full: bool = False):
         """The stepper (its current weights) with ``extra``; ``full`` adds
-        the optimizer state and the EMA's weights."""
+        the optimizer state and the EMA's weights. The root process
+        writes; the others hold the same state and write nothing."""
+        if not dist.is_root():
+            return
         ts = self.train_stepper
         save_train_checkpoint(
             path, self.stepper, self.config.stepper,
@@ -422,7 +457,8 @@ class Trainer:
                 train_metrics = self.train_one_epoch(epoch)
             diag_root = (
                 os.path.join(self.config.experiment_dir, "output")
-                if self.config.save_per_epoch_diagnostics else None
+                if self.config.save_per_epoch_diagnostics and dist.is_root()
+                else None
             )
             with timer.context("validation"):
                 valid_metrics = self.validate(
@@ -445,7 +481,8 @@ class Trainer:
                 "epoch": epoch,
                 "lr": self.train_stepper.optimization.learning_rate,
             }
-            self._disk_logger.log(all_metrics, step=self.num_batches_seen)
+            if self._disk_logger is not None:
+                self._disk_logger.log(all_metrics, step=self.num_batches_seen)
             WandB.get_instance().log(all_metrics, step=self.num_batches_seen)
             # a run resumed after its epoch's last batch trains none here
             train_loss = train_metrics.get("loss", float("nan"))
@@ -458,11 +495,12 @@ class Trainer:
                 err = inference_metrics.get("inference_error")
                 if err is not None and err < self.best_inference_error:
                     self.best_inference_error = err
-                    with self._validation_weights():
-                        save_train_checkpoint(
-                            self.paths.best_inference_checkpoint_path,
-                            self.stepper, self.config.stepper,
-                        )
+                    if dist.is_root():
+                        with self._validation_weights():
+                            save_train_checkpoint(
+                                self.paths.best_inference_checkpoint_path,
+                                self.stepper, self.config.stepper,
+                            )
 
     def _inline_inference(self, entries, epoch: int, diag_root
                           ) -> dict[str, float]:
@@ -548,7 +586,10 @@ class Trainer:
             count += 1
             pending.append(metrics)
             if count % self.config.log_train_every_n_batches == 0:
-                wandb.log({"train_batch/loss": float(metrics["loss"])},
+                loss = metrics["loss"].clone()
+                if self.placement is not None:
+                    self.placement.mean_([loss])
+                wandb.log({"train_batch/loss": float(loss)},
                           step=self.num_batches_seen)
             wandb.log_watched(self.num_batches_seen, None)
             if (self.config.checkpoint_every_n_batches > 0
@@ -558,7 +599,7 @@ class Trainer:
 
     def train_one_epoch(self, epoch: int) -> dict[str, float]:
         pending, count = self._train_batches(epoch)
-        metrics_out = _mean_metrics(pending, count)
+        metrics_out = _mean_metrics(pending, count, self.placement)
         n_eval = self.config.train_evaluation_batches
         if n_eval > 0:
             # an independent shuffle: the epoch seed offset, so that the
@@ -573,8 +614,10 @@ class Trainer:
                         batch.data, self.generator, labels=batch.labels,
                         data_mask=batch.data_mask)["loss"])
             if losses:
-                metrics_out["loss_independent_shuffle"] = float(
-                    torch.stack(losses).double().mean())
+                mean = torch.stack(losses).double().mean()
+                if self.placement is not None:
+                    self.placement.mean_([mean])
+                metrics_out["loss_independent_shuffle"] = float(mean)
             self.train_data.set_epoch(epoch)
         return metrics_out
 
@@ -582,7 +625,8 @@ class Trainer:
     def validate(self, diagnostics_dir: str | None = None
                  ) -> dict[str, float]:
         """The validation loss and one-step metrics, with the validation
-        weights."""
+        weights (under a placement, the global batches': the one-step
+        aggregator sees the ranks' rows gathered)."""
         from ace_tpu_torch.aggregator.one_step import OneStepAggregator
 
         stepper = self.stepper
@@ -612,8 +656,11 @@ class Trainer:
                 )
                 target = {k: batch.data[k][:, 1:2] for k in stepper.out_names
                           if k in batch.data}
+                if self.placement is not None:
+                    outputs = self.placement.gather(outputs)
+                    target = self.placement.gather(target)
                 one_step.record_batch(outputs, target)
-        result = _mean_metrics(pending, count)
+        result = _mean_metrics(pending, count, self.placement)
         result.update(one_step.get_logs())
         if diagnostics_dir is not None:
             one_step.flush_diagnostics(diagnostics_dir)
@@ -633,8 +680,14 @@ class Trainer:
             n_forward_steps=cfg.n_forward_steps,
             forward_steps_in_memory=cfg.forward_steps_in_memory,
         )
-        ic = PrognosticState(data=data.initial_condition(
-            stepper.prognostic_names).to_device(self.device).data)
+        ic_data = data.initial_condition(stepper.prognostic_names)
+        if self.placement is not None:
+            # this rank's initial conditions
+            ic = PrognosticState(data={
+                k: self.placement.put_global(v)
+                for k, v in ic_data.data.items()})
+        else:
+            ic = PrognosticState(data=ic_data.to_device(self.device).data)
         aggregator = cfg.aggregator.build(
             data.dataset_info, n_timesteps=cfg.n_forward_steps,
             normalizer=getattr(stepper.step, "normalizer", None),
@@ -643,7 +696,8 @@ class Trainer:
                         if n in data.dataset.names]
         with self._validation_weights():
             run_inference(stepper, ic, data, aggregator=aggregator,
-                          target_names=target_names)
+                          target_names=target_names,
+                          placement=self.placement)
         if diagnostics_dir is not None:
             aggregator.flush_diagnostics(diagnostics_dir)
         logs = {k: float(v) for k, v in aggregator.get_logs().items()}

@@ -69,8 +69,9 @@
      training and 5 validation times; batch 2; the builder's per-block
      recompute; one epoch; one inline-inference entry of 4 steps from 2
      initial conditions), through ``main``, then ``main`` again with
-     ``--override max_epochs=2``, which must resume at epoch 1 from
-     ``ckpt.msgpack``. It checks finite metrics, one metrics.jsonl line
+     ``--override max_epochs=2 save_checkpoint=false``, which must resume
+     at epoch 1 from ``ckpt.msgpack`` (and writes no checkpoint: the
+     first run's writes are timed, and path F reads its best). It checks finite metrics, one metrics.jsonl line
      per epoch, the four checkpoint files, the resumed state bit for bit
      (per-tensor checksums on the device), the launches of each phase (per
      train step as on path T, 16 K1 per validation batch, 8 K1 per
@@ -81,6 +82,31 @@
      ``best_ckpt.msgpack``, the free disk and host memory before the first
      write
      (and fails if they cannot hold the checkpoints) and the peak memory.
+   - path P, the training entry over a data-parallel mesh
+     (``mesh: {data_parallel: N}``, ``ace_tpu_torch/parallel/``): P-1, path
+     R's config and files with ``mesh: {data_parallel: 1}`` over an NCCL
+     group of one rank that ``initialize`` makes from the ``ACE_TPU_*``
+     variables this process sets, over path R's first epoch with
+     validation: its losses, weights, Adam moments and EMA bit-equal to
+     path R's first run's (read after R's entry returns), path R's
+     launches per epoch and per validation, one all-reduce per gradient
+     bucket a step and one per metric drain (``parallel/comm_stats.py``),
+     no sync in the batch loop; P-2, two processes (``RANK`` 0 and 1,
+     ``WORLD_SIZE`` 2, ``LOCAL_RANK`` 0 each) on the one card over gloo
+     (NCCL refuses two ranks on one device), the flagship recipe at full
+     width cut to 2 layers, 2 batches of 2 (one row a rank) and
+     validation, against this process at the same global batch, once with
+     the MSE loss of reference R and once with the recipe's ensemble loss:
+     the losses within ``flagship.TRAIN_LOSS_TOL``, the first step's noise
+     draws and network inputs bit-equal to the one process's rows, each
+     rank's launches the one process's, the root's files alone (gloo
+     carries CUDA tensors through the host: no sync gate); under MSE each
+     tensor's change within ``R_CHANGE_TOL``. The two ranks and the one
+     process (``data_parallel_one``, which also computes the weights'
+     and gradients' relative errors against rank 0's files) start before
+     path I and run beside paths I and E and the reference phases R and F
+     (little work on the card); they are waited for before path R. Each
+     prints its collectives and seconds.
    - path S, the ACE2-SHiELD AMIP recipe
      (``configs/baselines/amip-c96-shield/train-ace2.yaml``:
      SphericalFourierNeuralOperatorNet, embed 384, 8 layers, float32, 56
@@ -1914,21 +1940,25 @@ def _finite_metrics(path, n_epochs, label="path R",
 
 
 def train_entry_path(counters, device="cuda", sizes=None, path_t_rate=None,
-                     then=None):
+                     then=None, data_parallel=None):
     """Path R: ``python -m ace_tpu_torch.train``'s ``main`` on the shipped
     ``configs/ace2-era5-train.yaml`` with the cuts of ``_train_config``
     (at its full width unless ``sizes`` gives ``nlat``, ``nlon``,
     ``embed`` and ``layers``) over synthetic files: one epoch, then
-    ``--override max_epochs=2``, which must resume at epoch 1 from
-    ``ckpt.msgpack`` with its state bit for bit. Checks finite metrics,
+    ``--override max_epochs=2 save_checkpoint=false``, which must resume
+    at epoch 1 from ``ckpt.msgpack`` with its state bit for bit (and
+    writes no checkpoint). Checks finite metrics,
     one metrics.jsonl line per epoch, the four checkpoint files, the
     launches of each phase, and (on the card) that the batch loop never
     waits for the device; prints the rates, phases, checkpoint bytes and
     seconds and the peak memory. ``then(paths, best_checkpoint)`` runs
     after the gates, inside the context that holds the run's files (its
     stats files are named in the checkpoint's config), with every
-    checkpoint file but ``best_ckpt.msgpack`` deleted. Returns the
-    launches of both runs."""
+    checkpoint file but ``best_ckpt.msgpack`` deleted. Before it, path
+    P-1 (``data_parallel_one_rank``) runs over the same files against the
+    first run's epoch; ``data_parallel`` (a dict) receives its launches,
+    collectives and seconds. Returns the launches of both
+    runs."""
     import contextlib
     import tempfile
 
@@ -1975,7 +2005,9 @@ def train_entry_path(counters, device="cuda", sizes=None, path_t_rate=None,
                           + _tensor_bytes(ema.values()))
             room["free"] = _check_room(tmp, ckpt_bytes, weight_bytes, cuda)
 
-        for argv in ([path], [path, "--override", "max_epochs=2"]):
+        # the resume writes no checkpoint (path P's room in the run)
+        for argv in ([path], [path, "--override", "max_epochs=2",
+                              "save_checkpoint=false"]):
             GlobalTimer.reset()
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
@@ -2010,6 +2042,10 @@ def train_entry_path(counters, device="cuda", sizes=None, path_t_rate=None,
         _check_train_entry(runs, restored, records, read_back, files_found,
                            lines, rates, launches, counters, layers, cuda,
                            path_t_rate)
+        p1 = data_parallel_one_rank(counters, tmp, paths, sizes, device,
+                                    runs[0]["state"], lines[0], launches)
+        if data_parallel is not None:
+            data_parallel.update(p1)
         if then is not None:
             for name in files_found:
                 if name != "best_ckpt.msgpack":
@@ -2084,6 +2120,673 @@ def _check_train_entry(runs, restored, records, read_back, files_found,
               f"K1; per inference step {layers} K1)")
         if any(c != want[phase] for c in counts):
             raise AssertionError(f"path R: launches in {phase}")
+
+# path P: the training entry over a data-parallel mesh (``mesh:``). P-1 is
+# one NCCL rank at path R's full width over path R's first epoch; P-2 two
+# processes on the one card over gloo (NCCL refuses two ranks on one
+# device), the flagship recipe at full width cut to P2_LAYERS layers,
+# P2_BATCHES batches of 2 (one row a rank) and validation, against one
+# process at the same global batch: once with reference R's MSE loss
+# (whose weight changes are held) and once with the recipe's ensemble
+# loss; in both, the first step's noise draws and inputs (ensemble-tiled)
+# are held bit for bit, each rank's against its rows of the one process's
+P2_LAYERS = 2
+P2_SPLITS = (("train", 5, "2000-01-01T00:00"),
+             ("valid", 5, "2001-01-01T00:00"))
+P2_BATCHES = 2  # (5 - 1) windows of 2 times, 2 a batch
+# the files the root process writes in a P-2 run (and one process alone)
+P2_FILES = ["config.yaml", "metrics.jsonl", "out.log",
+            "training_checkpoints/best_ckpt.msgpack",
+            "training_checkpoints/ckpt.msgpack",
+            "training_checkpoints/ema_ckpt.msgpack"]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _process_group_env(env):
+    """A context with the launch variables ``env`` set in this process's
+    environment, and the process group shut down on its way out."""
+    import contextlib
+
+    from ace_tpu_torch.parallel import distributed
+
+    @contextlib.contextmanager
+    def context():
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            yield
+        finally:
+            distributed.shutdown()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    return context()
+
+
+def _gradient_buckets(train_stepper):
+    """The number of flat buckets the gradient mean reduces a step."""
+    from ace_tpu_torch.parallel import distributed
+
+    return len(list(distributed._buckets(train_stepper.parameters(),
+                                         distributed.BUCKET_BYTES)))
+
+
+def data_parallel_one_rank(counters, tmp, paths, sizes, device, r_state,
+                           r_metrics, r_launches):
+    """Path P-1: the training entry on path R's config and files with
+    ``mesh: {data_parallel: 1}`` over a real process group of one rank
+    (NCCL on the card, gloo on the CPU), made by ``initialize`` from the
+    ``ACE_TPU_*`` variables this process sets, for path R's first epoch
+    with validation and no checkpoint or inline inference. Its weights,
+    Adam moments and EMA after the epoch (``_state_checksums``) must equal
+    bit for bit path R's first run's (``r_state``: the sum over one rank
+    and the division by 1 are exact), and so must its metrics.jsonl line
+    (the epoch's train and validation losses, ``r_metrics``); its
+    launches per epoch and per validation path R's (``r_launches``); the
+    all-reduces ``parallel/comm_stats.py`` counts one per gradient bucket
+    a step and one per metric drain (the epoch's and validation's); and
+    (on the card) its batch loop never waits for the device. Path R is
+    not probed inside its run: its state is read after the entry
+    returns. Returns P-1's launches, collectives and seconds."""
+    import torch
+
+    from ace_tpu_torch.parallel import comm_stats
+    from ace_tpu_torch.train.train import main as train_main
+
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    out_dir = os.path.join(tmp, "p1")
+    config, layers = _train_config(paths, out_dir, sizes.get("embed"),
+                                   sizes.get("layers"), inference=False)
+    config["mesh"] = {"data_parallel": 1}
+    config["save_checkpoint"] = False
+    path = _write_yaml(os.path.join(tmp, "p1.yaml"), config)
+    env = {"ACE_TPU_COORDINATOR_ADDRESS": f"localhost:{_free_port()}",
+           "ACE_TPU_NUM_PROCESSES": "1", "ACE_TPU_PROCESS_ID": "0",
+           "LOCAL_RANK": "0"}
+    launches, rates = {}, []
+    with _process_group_env(env):
+        comm_stats.reset()
+        with _phase_probes(counters, launches, rates, cuda, None,
+                           phases=("_train_batches", "validate")):
+            trainer = train_main([path], device=None if cuda else "cpu")
+        stats = comm_stats.snapshot()
+        backend = torch.distributed.get_backend()
+    buckets = _gradient_buckets(trainer.train_stepper)
+    state = _state_checksums(trainer)
+    seconds = time.perf_counter() - t0
+    del trainer
+    gc.collect()
+    metrics = _finite_metrics(os.path.join(out_dir, "metrics.jsonl"), 1,
+                              "path P-1", ("train/loss", "val/loss"))[0]
+    differ = [k for k in r_state if state.get(k) != r_state[k]]
+    metrics_differ = [k for k in metrics if metrics[k] != r_metrics.get(k)]
+    batches = state["num_batches_seen"]
+    all_reduces = stats.get("all-reduce", {}).get("count", 0)
+    want_reduces = batches * buckets + 2
+    print(f"path P-1: the training entry over mesh {{data_parallel: 1}} on "
+          f"a {backend} group of one rank, path R's epoch ({batches} "
+          f"batches of {R_BATCH}, {layers} layers) and validation: "
+          f"{seconds:.1f} s; train and validation losses "
+          f"{metrics['train/loss']}, {metrics['val/loss']} (path R's "
+          f"{r_metrics['train/loss']}, {r_metrics['val/loss']}); weights, "
+          f"Adam moments and EMA after it: {len(r_state) - len(differ)} of "
+          f"{len(r_state)} checksums equal to path R's; collectives "
+          f"{comm_stats.format_comm_stats(stats)} ({all_reduces} "
+          f"all-reduces: want {batches} x {buckets} gradient buckets + 2 "
+          f"metric drains); train steps/s {rates[0]:.4f}")
+    if differ or metrics_differ:
+        raise AssertionError(f"path P-1: not bit-equal to path R's epoch: "
+                             f"{(differ + metrics_differ)[:5]}")
+    if all_reduces != want_reduces:
+        raise AssertionError(f"path P-1: {all_reduces} all-reduces, want "
+                             f"{want_reduces}")
+    if cuda and backend != "nccl":
+        raise AssertionError(f"path P-1: backend {backend}, want nccl")
+    want_launches = {phase: r_launches[phase][0]
+                     for phase in ("_train_batches", "validate")}
+    for phase, counts in launches.items():
+        print(f"path P-1: launches per {phase} call {counts} (want "
+              f"{want_launches[phase]}: path R's first run's)")
+        if any(c != want_launches[phase] for c in counts):
+            raise AssertionError(f"path P-1: launches in {phase}")
+    total = {c.__name__: sum(n[c.__name__] for calls in launches.values()
+                             for n in calls) for c in counters}
+    return {"launches": total, "comm": stats, "seconds": seconds}
+
+
+# P-2's two runs: reference R's MSE loss (one member), and the recipe's
+# own ensemble loss (None: the config's, n_ensemble 2)
+P2_LOSSES = (("mse", {"type": "MSE"}), ("ensemble", None))
+
+
+def _p2_files(data_dir, sizes):
+    """Path P-2's files, drawn into ``data_dir`` from path R's seed."""
+    import torch
+    import yaml
+
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    with open(TRAIN_CONFIG) as f:
+        step = yaml.safe_load(f)["stepper"]["step"]["config"]
+    names = sorted(set(step["in_names"]) | set(step["out_names"]))
+    os.makedirs(data_dir)
+    return _training_files(data_dir, names, sizes.get("nlat", 180),
+                           sizes.get("nlon", 360),
+                           torch.Generator(device).manual_seed(7), device,
+                           splits=P2_SPLITS)
+
+
+def _p2_config(paths, out_dir, sizes, mesh, loss, config_path=None):
+    """Path P-2's config: the flagship recipe with path R's cuts at
+    ``P2_LAYERS`` layers over ``paths``, validation, no inline inference,
+    ``loss`` (None: the recipe's); written to ``config_path`` (by default
+    ``out_dir`` + ".yaml"). Each rank writes its own file: two ranks
+    writing one file could each read the other's half-written copy."""
+    config, _ = _train_config(paths, out_dir, sizes.get("embed", 512),
+                              sizes.get("layers", P2_LAYERS),
+                              inference=False, loss=loss)
+    if mesh is not None:
+        config["mesh"] = mesh
+    return _write_yaml(config_path or out_dir + ".yaml", config)
+
+
+def _first_step_rows(records, n_blocks, grads):
+    """A context in which the first ``TrainStepper.train_step`` appends to
+    ``records``, in order, each random draw over a batch
+    (``distributed.draw_rows``: the model's noise) and each input of the
+    network (``NoiseConditionedSFNO.forward``'s ``x``: the batch with the
+    ensemble folded in): its kind, shape and the ``_checksum_sums`` of its
+    ``n_blocks`` row blocks, kept on the device (nothing here waits for
+    it); and puts into ``grads`` host copies of the gradients the
+    optimizer receives (averaged over the ranks), by name."""
+    import contextlib
+
+    from ace_tpu_torch.core.optimization import Optimization
+    from ace_tpu_torch.models.conditional_sfno import NoiseConditionedSFNO
+    from ace_tpu_torch.parallel import distributed
+    from ace_tpu_torch.stepper.train import TrainStepper
+
+    step, draw_rows, forward, update = (TrainStepper.train_step,
+                                        distributed.draw_rows,
+                                        NoiseConditionedSFNO.forward,
+                                        Optimization.step)
+    state = {"on": False, "calls": 0, "names": []}
+
+    def record(kind, t):
+        if state["on"]:
+            blocks = dict(enumerate(t.detach().chunk(n_blocks)))
+            records.append((kind, list(t.shape), _checksum_sums(blocks)))
+
+    def train_step(self, *args, **kwargs):
+        state["on"] = state["calls"] == 0
+        state["calls"] += 1
+        state["names"] = self.parameter_names()
+        try:
+            return step(self, *args, **kwargs)
+        finally:
+            state["on"] = False
+
+    def recorded_update(self, params, step_grads):
+        if state["on"]:
+            grads.update({k: g.detach().float().cpu()
+                          for k, g in zip(state["names"], step_grads)})
+        return update(self, params, step_grads)
+
+    def recorded_draw_rows(generator, batch, draw):
+        out = draw_rows(generator, batch, draw)
+        record("draw", out)
+        return out
+
+    def recorded_forward(self, x, *args, **kwargs):
+        record("input", x)
+        return forward(self, x, *args, **kwargs)
+
+    @contextlib.contextmanager
+    def context():
+        TrainStepper.train_step = train_step
+        distributed.draw_rows = recorded_draw_rows
+        NoiseConditionedSFNO.forward = recorded_forward
+        Optimization.step = recorded_update
+        try:
+            yield
+        finally:
+            TrainStepper.train_step = step
+            distributed.draw_rows = draw_rows
+            NoiseConditionedSFNO.forward = forward
+            Optimization.step = update
+
+    return context()
+
+
+def _host_rows(records):
+    """``_first_step_rows``'s records with their sums on the host."""
+    return [(kind, shape, sums.cpu().tolist())
+            for kind, shape, sums in records]
+
+
+def _p2_counters():
+    from ace_tpu_torch.ops import dhconv_filter as k1
+    from ace_tpu_torch.ops import fused_block_tail as k2
+    from ace_tpu_torch.ops import fused_sht as k3
+
+    return [k1.dhconv_filter, k1.dhconv_filter_dx, k1.dhconv_filter_dw,
+            k2.fused_block_tail, k3.fused_sht]
+
+
+def _p2_process(device):
+    """What each of path P-2's processes sets first: TF32 off on the
+    card, as in this script's own process."""
+    import torch
+
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _empty_checkpoints(experiment_dir):
+    """Cut each checkpoint file of ``experiment_dir`` to no bytes once it
+    has been read (the names stay, for the files' gate): P-2's processes
+    run beside the other paths, and the disk of the machine with the card
+    has no room for their checkpoints beside paths R's and F's."""
+    ckpt_dir = os.path.join(experiment_dir, "training_checkpoints")
+    for name in os.listdir(ckpt_dir):
+        os.truncate(os.path.join(ckpt_dir, name), 0)
+
+
+def _save_whole(obj, path):
+    """``torch.save`` to ``path`` through a temporary name: a reader that
+    waits for ``path`` never sees a part of it."""
+    import torch
+
+    torch.save(obj, path + ".part")
+    os.replace(path + ".part", path)
+
+
+def data_parallel_rank(tmp, device, sizes_json):
+    """One process of path P-2 (run as ``python3 -c "import chip_smoke;
+    chip_smoke.data_parallel_rank(...)"`` with ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` set): joins the
+    process group over gloo itself (two ranks on one card, which NCCL
+    refuses; the entry's own ``initialize`` then does nothing), draws its
+    own copy of the files into host memory (``h5py_in_memory``; its own
+    directory), then runs the training entry's ``main`` over the shared
+    experiment directory of each of ``P2_LOSSES`` under
+    ``_first_step_rows`` (rank 0 saves the first step's averaged
+    gradients, and the weights and EMA of the checkpoint it wrote, beside
+    the experiment directory, for ``data_parallel_one``, and then empties
+    the checkpoint files). Prints one JSON
+    line: its rank, and for each run its launches, collectives, batches
+    and rows; its seconds."""
+    import dataclasses
+
+    from ace_tpu_torch.parallel import comm_stats, distributed
+    from ace_tpu_torch.train.train import main as train_main
+
+    t0 = time.perf_counter()
+    rank = int(os.environ["RANK"])
+    _p2_process(device)
+    distributed.initialize(dataclasses.replace(
+        distributed.DistributedConfig.from_env(), backend="gloo"),
+        device=None if device == "cuda" else "cpu")
+    counters = _p2_counters()
+    sizes = json.loads(sizes_json)
+    runs = {}
+    with h5py_in_memory():
+        paths = _p2_files(os.path.join(tmp, f"data_rank{rank}"), sizes)
+        for label, loss in P2_LOSSES:
+            path = _p2_config(
+                paths, os.path.join(tmp, f"p2_{label}"), sizes,
+                {"data_parallel": 2}, loss,
+                config_path=os.path.join(tmp, f"p2_{label}_rank{rank}.yaml"))
+            comm_stats.reset()
+            rows, grads = [], {}
+            with _first_step_rows(rows, 1, grads):
+                trainer, launches = counted(counters, lambda: train_main(
+                    [path], device=None if device == "cuda" else "cpu"))
+            if rank == 0:
+                _save_whole(grads, os.path.join(tmp, f"grads_{label}.pt"))
+                _save_whole(_read_weights(os.path.join(
+                    tmp, f"p2_{label}", "training_checkpoints",
+                    "ckpt.msgpack")), os.path.join(tmp, f"two_{label}.pt"))
+                _empty_checkpoints(os.path.join(tmp, f"p2_{label}"))
+            del grads
+            runs[label] = {"launches": launches,
+                           "comm": comm_stats.snapshot(),
+                           "batches": trainer.num_batches_seen,
+                           "rows": _host_rows(rows)}
+            del trainer
+            gc.collect()
+    distributed.shutdown()
+    print(json.dumps({"rank": rank, "runs": runs,
+                      "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def _wait_for(path, timeout=900):
+    """Wait until ``path`` exists."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"no {path} after {timeout} s")
+        time.sleep(0.5)
+
+
+def data_parallel_one(tmp, device, sizes_json):
+    """Path P-2's one process (run as ``python3 -c "import chip_smoke;
+    chip_smoke.data_parallel_one(...)"`` with no launch variables): the
+    training entry's ``main`` on the same recipe at the same global batch
+    without ``mesh``, for each of ``P2_LOSSES``, over its own copy of the
+    files (``h5py_in_memory``) and its own experiment directory, under
+    ``_first_step_rows`` (the batch in the ranks' two row blocks), its
+    initial weights (and EMA) read as ``TrainStepper.init`` leaves them;
+    its checkpoint files emptied after each run. Then, once rank 0 has
+    left its files (``data_parallel_rank``; removed when read), each
+    weight's and EMA weight's change from the initial weights and each of
+    the first step's averaged gradients against the ranks', relative L2
+    (on ``device``). Prints one JSON line: for each run its launches,
+    rows and those errors; its seconds."""
+    import torch
+
+    from ace_tpu_torch.stepper.train import TrainStepper
+    from ace_tpu_torch.train.train import main as train_main
+
+    t0 = time.perf_counter()
+    _p2_process(device)
+    counters = _p2_counters()
+    sizes = json.loads(sizes_json)
+    original = TrainStepper.init
+    runs = {}
+    with h5py_in_memory():
+        paths = _p2_files(os.path.join(tmp, "data_one"), sizes)
+        for label, loss in P2_LOSSES:
+            init, rows, grads = {}, [], {}
+
+            def init_probe(self, generator=None, init=init):
+                original(self, generator)
+                for k, t in zip(self.parameter_names(), self.parameters()):
+                    init[f"param/{k}"] = init[f"ema/{k}"] = (
+                        t.detach().cpu().clone())
+
+            path = _p2_config(paths, os.path.join(tmp, f"one_{label}"),
+                              sizes, None, loss)
+            TrainStepper.init = init_probe
+            try:
+                with _first_step_rows(rows, 2, grads):
+                    trainer, launches = counted(
+                        counters, lambda: train_main([path], device=device))
+            finally:
+                TrainStepper.init = original
+            ts = trainer.train_stepper
+            names = ts.parameter_names()
+            runs[label] = {
+                "init": init, "launches": launches, "rows": _host_rows(rows),
+                "grads": grads,
+                "weights": {
+                    **{f"param/{k}": t.detach().cpu() for k, t in
+                       zip(names, ts.parameters())},
+                    **{f"ema/{k}": t.detach().cpu() for k, t in
+                       zip(names, ts.ema.ema_params)}}}
+            del trainer, ts
+            gc.collect()
+            _empty_checkpoints(os.path.join(tmp, f"one_{label}"))
+    seconds = time.perf_counter() - t0
+
+    def f64(t):
+        return t.to(device, torch.float64)
+
+    out = {}
+    for label, _ in P2_LOSSES:
+        run = runs.pop(label)
+        for name in (f"two_{label}.pt", f"grads_{label}.pt"):
+            _wait_for(os.path.join(tmp, name))
+        two = torch.load(os.path.join(tmp, f"two_{label}.pt"))
+        two_grads = torch.load(os.path.join(tmp, f"grads_{label}.pt"))
+        for name in (f"two_{label}.pt", f"grads_{label}.pt"):
+            os.remove(os.path.join(tmp, name))
+        change_errs = {}
+        for k, start in run["init"].items():
+            start = f64(start)
+            ref = f64(run["weights"][k]) - start
+            change_errs[k] = float((f64(two[k]) - start - ref).norm()
+                                   / ref.norm().clamp_min(1e-30))
+        grad_errs = {k: float((f64(two_grads[k]) - f64(g)).norm()
+                              / f64(g).norm().clamp_min(1e-30))
+                     for k, g in run["grads"].items()}
+        out[label] = {"launches": run["launches"], "rows": run["rows"],
+                      "change_errs": change_errs, "grad_errs": grad_errs}
+        del run, two, two_grads
+        gc.collect()
+    print(json.dumps({"one": out, "seconds": seconds}))
+    return 0
+
+
+def _read_weights(path):
+    """The weights and the EMA of a training checkpoint, by name."""
+    from ace_tpu_torch.stepper.checkpoint import read_train_checkpoint
+
+    out = read_train_checkpoint(path)
+    return {**{f"param/{k}": v for k, v in out["params"].items()},
+            **{f"ema/{k}": v for k, v in out["ema_state"].items()}}
+
+
+def _rows_differ(ranks, one):
+    """The first-step records where a rank's tensor is not bit for bit
+    its rows of the one process's (``one``: the one process's records in
+    two row blocks, ``ranks``: each rank's, whole)."""
+    differ = []
+    for k, rank in enumerate(ranks):
+        if len(rank) != len(one):
+            differ.append(f"rank {k}: {len(rank)} records, one process "
+                          f"{len(one)}")
+            continue
+        for i, ((kind, shape, sums), (one_kind, one_shape, one_sums)) in (
+                enumerate(zip(rank, one))):
+            if (kind != one_kind or [2 * shape[0], *shape[1:]] != one_shape
+                    or sums[0] != one_sums[k]):
+                differ.append(f"rank {k}: {kind} {i} {shape}")
+    return differ
+
+
+# path P-2's processes: the two ranks, then the one process
+P2_PROCESSES = ("rank0", "rank1", "one")
+
+
+def _p2_launch(device="cuda", sizes=None):
+    """Start path P-2's three processes over a new directory: the two
+    ranks (``data_parallel_rank``) and the one process
+    (``data_parallel_one``), each writing its output to ``<name>.log``
+    there (a file, not a pipe: nothing reads it while this process drives
+    other paths). Returns the directory, the processes and the launch's
+    clock."""
+    import torch
+
+    sizes = sizes or {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    kind = torch.device(device).type
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p2_")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("ACE_TPU_") and k not in (
+               "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+               "MASTER_PORT")}
+    group = dict(WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                 MASTER_PORT=str(_free_port()))
+    launch = {"tmp": tmp, "procs": [], "t0": time.perf_counter()}
+    for name in P2_PROCESSES:
+        fn, extra = (("data_parallel_one", {}) if name == "one" else
+                     ("data_parallel_rank", {**group, "RANK": name[-1]}))
+        code = ("import sys, chip_smoke; sys.exit(chip_smoke."
+                f"{fn}({tmp!r}, {kind!r}, {json.dumps(sizes)!r}))")
+        with open(os.path.join(tmp, f"{name}.log"), "w") as log:
+            launch["procs"].append(subprocess.Popen(
+                [sys.executable, "-c", code], cwd=here, env={**env, **extra},
+                stdout=log, stderr=subprocess.STDOUT, text=True))
+    return launch
+
+
+def _p2_join(launch, timeout=900):
+    """Wait for ``_p2_launch``'s processes (once); raise, with the output
+    of one that failed on standard error, if one did. Keeps the last JSON
+    line of each."""
+    if "outputs" in launch:
+        return
+    outputs = []
+    for name, p in zip(P2_PROCESSES, launch["procs"]):
+        p.wait(timeout=timeout)
+        with open(os.path.join(launch["tmp"], f"{name}.log")) as f:
+            out = f.read()
+        if p.returncode != 0:
+            print(out[-6000:], file=sys.stderr)
+            raise AssertionError(f"path P-2: {name} exited with "
+                                 f"{p.returncode}")
+        outputs.append(json.loads([line for line in out.splitlines()
+                                   if line.startswith("{")][-1]))
+    launch["outputs"] = outputs
+    launch["seconds"] = time.perf_counter() - launch["t0"]
+
+
+def _p2_stop(launch):
+    """Stop ``_p2_launch``'s processes that still run and remove its
+    directory."""
+    for p in launch["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    shutil.rmtree(launch["tmp"], ignore_errors=True)
+
+
+def data_parallel_two_ranks(counters, device="cuda", sizes=None,
+                            launch=None):
+    """Path P-2: two processes on the one card (``RANK`` 0 and 1,
+    ``WORLD_SIZE`` 2, ``LOCAL_RANK`` 0 each: two one-GPU nodes) over gloo
+    with CUDA tensors, each ``data_parallel_rank``, against one process
+    (``data_parallel_one``) on the same recipe at the same global batch
+    without ``mesh``, for each of ``P2_LOSSES``. ``launch``: the
+    processes of an earlier ``_p2_launch`` (by default they are started
+    here). In both runs the two ranks'
+    losses must agree with the one process's within
+    ``flagship.TRAIN_LOSS_TOL``, each rank's launches must be the one
+    process's, and the experiment directory must hold the files the one
+    process writes, written once (metrics.jsonl one line, out.log one
+    epoch start); and the first step's noise draws and network inputs
+    (the batch tiled over the ensemble members under the ensemble loss)
+    of each rank must equal bit for bit its rows of the one process's.
+    Under the MSE loss, each weight's and EMA weight's change from the
+    initial weights must agree within ``R_CHANGE_TOL`` (relative L2).
+    Under the ensemble loss the changes are printed, not held: Adam
+    moves a weight whose gradient is near zero by about the rate
+    whatever its size, so the rounding of a batch of one against a batch
+    of two flips such moves (the noise norms' weights). The first step's
+    averaged gradients (rank 0's) against the one process's are printed
+    for both losses. Gloo carries CUDA tensors through the host and only
+    for broadcast and all-reduce, so the run waits for the device and its
+    gathers go through the host group: it is not held to the no-sync
+    gate. Returns its launches (both ranks', both runs), collectives
+    (rank 0's, by run) and seconds."""
+    from ace_tpu_torch import flagship
+    from ace_tpu_torch.parallel.comm_stats import format_comm_stats
+
+    sizes = sizes or {}
+    own = launch is None
+    if own:
+        launch = _p2_launch(device, sizes)
+    tmp = launch["tmp"]
+    t0 = time.perf_counter()
+    try:
+        _p2_join(launch)
+        *ranks, one_out = launch["outputs"]
+        one = one_out["one"]
+        for label, _ in P2_LOSSES:
+            two_dir = os.path.join(tmp, f"p2_{label}")
+            one_dir = os.path.join(tmp, f"one_{label}")
+            one[label]["files"] = {
+                d: sorted(os.path.relpath(os.path.join(r, f), d)
+                          for r, _, fs in os.walk(d) for f in fs)
+                for d in (two_dir, one_dir)}
+            one[label]["lines"] = [
+                _finite_metrics(os.path.join(d, "metrics.jsonl"), 1,
+                                "path P-2", ("train/loss", "val/loss"))[0]
+                for d in (two_dir, one_dir)]
+            with open(os.path.join(two_dir, "out.log")) as f:
+                one[label]["starts"] = f.read().count("Epoch 0 starting")
+    finally:
+        if own:
+            _p2_stop(launch)
+    seconds = time.perf_counter() - t0
+    print(f"path P-2: 2 processes on one card over gloo, the flagship recipe "
+          f"at {sizes.get('embed', 512)} wide, {P2_LAYERS} layers, "
+          f"{P2_BATCHES} batches of 2 (one row a rank) and validation, with "
+          f"each of {[label for label, _ in P2_LOSSES]} losses, against one "
+          f"process: {seconds:.1f} s in this phase; the ranks "
+          f"{[round(r['seconds'], 1) for r in ranks]} s and the one process "
+          f"{one_out['seconds']:.1f} s, waited for "
+          f"{launch['seconds']:.1f} s after their launch"
+          + ("" if own else " (beside other paths)"))
+    for label, _ in P2_LOSSES:
+        run = one[label]
+        two_line, one_line = run["lines"]
+        loss_errs = {k: abs(two_line[k] - one_line[k]) / abs(one_line[k])
+                     for k in ("train/loss", "val/loss")}
+        change_errs, grad_errs = run["change_errs"], run["grad_errs"]
+        worst = max(change_errs, key=change_errs.get)
+        worst_grad = max(grad_errs, key=grad_errs.get)
+        rank_runs = [r["runs"][label] for r in ranks]
+        two_files = run["files"][os.path.join(tmp, f"p2_{label}")]
+        rows_differ = _rows_differ([r["rows"] for r in rank_runs],
+                                   run["rows"])
+        print(f"path P-2 ({label}): losses "
+              f"{[two_line[k] for k in loss_errs]} against one process's "
+              f"{[one_line[k] for k in loss_errs]} (relative errors "
+              f"{loss_errs}, tol {flagship.TRAIN_LOSS_TOL}); each tensor's "
+              f"change from the initial weights, relative L2: largest "
+              f"{change_errs[worst]:.3g} ({worst}"
+              + (f"; tol {R_CHANGE_TOL}" if label == "mse" else
+                 "; printed, not held") + f") over {len(change_errs)} "
+              f"tensors; the first step's averaged gradients, relative L2: "
+              f"largest {grad_errs[worst_grad]:.3g} ({worst_grad}; printed) "
+              f"over {len(grad_errs)} tensors; rank 0's collectives "
+              f"{format_comm_stats(rank_runs[0]['comm'])}; launches by rank "
+              f"{[r['launches'] for r in rank_runs]} (one process "
+              f"{run['launches']}); files {two_files}")
+        print(f"path P-2 ({label}): the first step's draws and inputs: "
+              f"{len(run['rows'])} tensors a rank, "
+              f"{2 * len(run['rows']) - len(rows_differ)} of "
+              f"{2 * len(run['rows'])} bit for bit the one process's rows "
+              f"({[(k, s) for k, s, _ in run['rows']]} in the one process)")
+        if rows_differ or not run["rows"]:
+            raise AssertionError(f"path P-2 ({label}): the ranks' draws or "
+                                 f"inputs differ: {rows_differ[:5]}")
+        if max(loss_errs.values()) > flagship.TRAIN_LOSS_TOL:
+            raise AssertionError(f"path P-2 ({label}): the losses disagree "
+                                 f"with one process's")
+        if label == "mse" and change_errs[worst] > R_CHANGE_TOL:
+            raise AssertionError(f"path P-2 ({label}): the weights' changes "
+                                 f"disagree with one process's ({worst})")
+        if any({k: r["launches"][k] for k in run["launches"]}
+               != run["launches"] for r in rank_runs):
+            raise AssertionError(f"path P-2 ({label}): a rank's launches "
+                                 f"differ from one process's")
+        files = list(run["files"].values())
+        if not (files[0] == files[1] == P2_FILES and run["starts"] == 1
+                and all(r["batches"] == P2_BATCHES for r in rank_runs)):
+            raise AssertionError(f"path P-2 ({label}): files {files}, "
+                                 f"{run['starts']} epoch starts in out.log")
+    launches = {c.__name__: sum(r["runs"][label]["launches"][c.__name__]
+                                for r in ranks for label, _ in P2_LOSSES)
+                for c in counters}
+    return {"launches": launches,
+            "comm": {label: ranks[0]["runs"][label]["comm"]
+                     for label, _ in P2_LOSSES},
+            "seconds": seconds}
 
 
 def reference_train_entry_phase(device="cuda", sizes=None):
@@ -4658,7 +5361,8 @@ def ocean_train_path(counters, device="cuda", sizes=None, then=None):
         probes = []
         runs, launches, rates, restored, records, n_params = (
             _epoch_then_resume(label, path, counters, device,
-                               lambda: [_ocean_probes(probes)]))
+                               lambda: [_ocean_probes(probes)],
+                               resume_writes=False))
         _check_ocean_probes(label, probes)
         ckpt_dir = os.path.join(out_dir, "training_checkpoints")
         files_found = sorted(os.listdir(ckpt_dir))
@@ -4692,10 +5396,14 @@ def ocean_train_path(counters, device="cuda", sizes=None, then=None):
     return total, rates
 
 
-def _epoch_then_resume(label, path, counters, device="cuda", extra=None):
+def _epoch_then_resume(label, path, counters, device="cuda", extra=None,
+                       resume_writes=True):
     """The training entry's ``main`` on the YAML ``path`` for its one
     epoch, then again with ``--override max_epochs=2``, which resumes from
-    ``ckpt.msgpack``; ``extra()`` gives more contexts for each run. Each
+    ``ckpt.msgpack`` (and with ``resume_writes`` False writes no
+    checkpoint, as path R's resume: the run's time limit; the best
+    checkpoint is then the first epoch's); ``extra()`` gives more contexts
+    for each run. Each
     run goes through ``_phase_probes`` (launches by phase, the batch
     loop's rate, no sync in it on the card, the state just after
     ``restore``) and ``_record_checkpoints``; prints each run's phases and
@@ -4712,7 +5420,10 @@ def _epoch_then_resume(label, path, counters, device="cuda", extra=None):
 
     cuda = torch.device(device).type == "cuda"
     launches, rates, restored, records, runs = {}, [], {}, [], []
-    for argv in ([path], [path, "--override", "max_epochs=2"]):
+    resume = [path, "--override", "max_epochs=2"]
+    if not resume_writes:
+        resume.append("save_checkpoint=false")
+    for argv in ([path], resume):
         GlobalTimer.reset()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
@@ -5482,9 +6193,9 @@ def _coupled_evaluator_config(paths, checkpoint_path, experiment_dir,
     return config
 
 
-def _tensor_checksums(tensors):
+def _checksum_sums(tensors):
     """Two int64 sums of each tensor's bits (one weighted by position),
-    computed on the tensors' device, by name."""
+    ``[n, 2]`` on the tensors' device (nothing waits for it)."""
     import torch
 
     sums = []
@@ -5494,9 +6205,14 @@ def _tensor_checksums(tensors):
         ).reshape(-1).to(torch.int64)
         weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
         sums.append(torch.stack([bits.sum(), (bits * weight).sum()]))
-    if not sums:
+    return torch.stack(sums)
+
+
+def _tensor_checksums(tensors):
+    """``_checksum_sums`` of each tensor, on the host, by name."""
+    if not tensors:
         return {}
-    values = torch.stack(sums).cpu().tolist()
+    values = _checksum_sums(tensors).cpu().tolist()
     return dict(zip(tensors, map(tuple, values)))
 
 
@@ -9223,8 +9939,21 @@ def downscaling_paths(counters, smi, device="cuda", sizes=None, module=None):
 
 
 def _entry_paths(counters, keep, none, smi, rate_t):
-    """Paths I, E (with phase E-agg), R and F (with reference phases R
-    and F): the launches of each."""
+    """Paths I, E (with phase E-agg), R, P-1 and F (with reference phases
+    R and F), and P-2: the launches of each. P-2's three processes start
+    first and run beside paths I and E and the reference phases; they
+    are waited for before path R."""
+    # path P-2's processes start here and share the card with paths I and
+    # E and the reference phases (little work on it: two layers, two
+    # steps each), which keeps the run within its time limit
+    launch = _p2_launch()
+    try:
+        return _entry_paths_beside(counters, keep, none, smi, rate_t, launch)
+    finally:
+        _p2_stop(launch)
+
+
+def _entry_paths_beside(counters, keep, none, smi, rate_t, launch):
     from ace_tpu_torch import flagship
 
     # path I: the inference entry, K1 in each block of each step
@@ -9251,6 +9980,8 @@ def _entry_paths(counters, keep, none, smi, rate_t):
     # recompute), 1b and 1c in each block's backward
     reference_train_entry_phase()
     reference_finetune_phase()
+    # path R's rates and peak memory are the card's alone
+    _p2_join(launch)
     print(smi)
     launches_f = {}
 
@@ -9258,10 +9989,16 @@ def _entry_paths(counters, keep, none, smi, rate_t):
         print(smi)
         launches_f.update(finetune_entry_path(counters, paths, best)[0])
 
+    p1 = {}
     launches_r, _, _, _ = train_entry_path(counters, path_t_rate=rate_t,
-                                           then=then)
+                                           then=then, data_parallel=p1)
+    gc.collect()
+
+    # path P-2: two processes over gloo on the one card against one
+    print(smi)
+    p2 = data_parallel_two_ranks(counters, launch=launch)
     return {"I": launches_i, "E": launches_e, "R": launches_r,
-            "F": launches_f}
+            "F": launches_f, "P-1": p1["launches"], "P-2": p2["launches"]}
 
 
 def main() -> int:
@@ -9426,7 +10163,7 @@ def main() -> int:
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     gc.collect()
-    lap("paths I, E, R, F")
+    lap("paths I, E, R, P, F")
     torch.cuda.empty_cache()
 
     # reference phase S and paths S-R, S-I, S-bf16: the ACE2-SHiELD AMIP

@@ -6,7 +6,7 @@ predictions, within ``tests/test_torch_inference.py``'s ``_tol``
 on equal inputs; here the two rollouts differ in their last float32 bits,
 so a value may cross a bin's edge: the counts must agree within 1% of
 their total); ``run_dataset_comparison`` of both packages; the CUDA rule
-and the mesh refusal."""
+and the refusal of a spatial mesh."""
 
 import os
 
@@ -173,8 +173,9 @@ def test_evaluator_needs_cuda_unless_cpu_is_asked(setup, tmp_path,  # noqa
 
 
 def test_evaluator_refuses_a_mesh(setup, tmp_path):  # noqa: F811
+    """A spatial mesh (h * w > 1) is refused, naming its queue item."""
     _, data, ckpt = setup
     path = _config(tmp_path / "c.yaml", tmp_path / "c", data, ckpt,
-                   mesh={"data": 2})
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+                   mesh={"h": 2, "w": 2})
+    with pytest.raises(NotImplementedError, match="item 5b"):
         evaluator.main([path], device="cpu")

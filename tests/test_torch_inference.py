@@ -402,7 +402,7 @@ def test_entry_needs_cuda_unless_cpu_is_asked(setup, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, match", [
-    ({"mesh": {"data": 2}}, "Multi-GPU"),
+    ({"mesh": {"h": 1, "w": 2}}, "item 5b"),
 ])
 def test_entry_refuses_what_is_not_ported(setup, tmp_path, extra, match):
     _, data, ckpt = setup

@@ -3,8 +3,12 @@
 padding, bilinear upsampling (both modes, odd shapes), the ConvNeXt
 block, the network through both registries (outputs within 1e-5 of their
 largest value), its longitude periodicity, the gradients against
-``jax.grad`` (1e-4 of each gradient's norm) and the convolution kernels'
-round trip through flax's ``[kh, kw, in, out]`` layout."""
+the port's own float64 gradients and ``jax.grad`` against the same (and,
+at a draw where XLA's float32 gradient keeps to float64, the port against
+``jax.grad`` within 1e-4 of each gradient's norm), and the convolution
+kernels' round trip through flax's ``[kh, kw, in, out]`` layout."""
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +25,7 @@ from ace_tpu_torch.core.config import from_dict
 from ace_tpu_torch.core.coordinates import LatLonCoordinates
 from ace_tpu_torch.core.dataset_info import DatasetInfo
 from ace_tpu_torch.models import samudra
+from ace_tpu_torch.models.layers import init_weights
 from ace_tpu_torch.models.registry import ModuleSelector
 from ace_tpu_torch.utils.convert import (
     flax_name,
@@ -41,6 +46,9 @@ FOUR_LEVELS = {"ch_width": [16, 20, 24, 32], "dilation": [1, 2, 4, 4],
                "n_layers": [1, 1, 1, 1]}
 OUT_TOL = 1e-5
 GRAD_TOL = 1e-4
+# the gradient test's limits against the float64 gradients
+GRAD_F64_TOL = 1e-5
+JAX_GRAD_TOL = 1e-2
 
 
 def _draw(shape, seed=0):
@@ -179,13 +187,14 @@ def test_samudra_is_periodic_in_longitude():
                                rtol=0, atol=1e-5 * float(out.abs().max()))
 
 
-def test_samudra_gradients_match_jax_grad():
-    """The gradient of a mean-square error of the outputs with respect
-    to every weight against ``jax.grad``, in flax's layout: within 1e-4
-    of each gradient's norm, but the wide convolutions' biases, whose
-    true gradient is zero (the instance norm after each removes it):
-    those within 1e-4 of the largest gradient's norm on both sides."""
-    jmodule, module, params, x = _modules()
+def _gradients(seed):
+    """The gradients of a mean-square error of the outputs with respect to
+    every weight, the weights drawn from their own generator (``seed``):
+    the port's in float32, the same module's in float64, and
+    ``jax.grad``'s in flax's layout, by name."""
+    jmodule, module, _, x = _build_modules(16, 32, 7, 5, {})
+    init_weights(module, torch.Generator().manual_seed(seed))
+    params = _flax_params(jmodule, module, x)
     target = _draw((2, 16, 32, 5), seed=2)
 
     def loss(p):
@@ -193,19 +202,64 @@ def test_samudra_gradients_match_jax_grad():
 
     jgrads = flax_params_to_state_dict(jax.tree_util.tree_map(
         np.asarray, jax.jit(jax.grad(loss))(params)))
-    module.zero_grad()
-    out = module(torch.from_numpy(x))
-    ((out - torch.from_numpy(target)) ** 2).mean().backward()
-    largest = max(np.linalg.norm(g) for g in jgrads.values())
-    for name, p in module.named_parameters():
-        ref = jgrads[name].double().numpy()
-        got = p.grad.double().numpy()
-        if name.endswith((".conv1.bias", ".conv2.bias")):
-            assert max(np.linalg.norm(ref), np.linalg.norm(got)) <= (
-                GRAD_TOL * largest), name
-        else:
-            assert np.linalg.norm(got - ref) <= GRAD_TOL * np.linalg.norm(
-                ref), name
+
+    def grads(m, dtype):
+        m.zero_grad()
+        out = m(torch.from_numpy(x).to(dtype))
+        ((out - torch.from_numpy(target).to(dtype)) ** 2).mean().backward()
+        return {n: p.grad.double().numpy() for n, p in m.named_parameters()}
+
+    got = grads(module, torch.float32)
+    exact = grads(copy.deepcopy(module).double(), torch.float64)
+    jax_grads = {n: g.double().numpy() for n, g in jgrads.items()}
+    return got, exact, jax_grads
+
+
+def _is_zero_bias(name):
+    return name.endswith((".conv1.bias", ".conv2.bias"))
+
+
+def test_samudra_gradients_match_jax_grad():
+    """The gradients at the weights of seed 7: the port's float32
+    gradients within 1e-5 of each gradient's norm of the same module's
+    float64 gradients (measured 7.1e-7 at most), and ``jax.grad``'s within
+    1e-2 of them (measured 5.95e-3 on ``up_2.conv1.kernel``, 1.1e-3 to
+    4.6e-3 on the other wide convolutions below the bottleneck, and 3-4e-6
+    at seeds 0-3: at this draw XLA's jitted float32 gradient, not the
+    port's, strays from the float64 one). The wide convolutions' biases,
+    whose true gradient is zero (the instance norm after each removes it),
+    are held within 1e-4 of the largest gradient's norm on both sides."""
+    got, exact, jgrads = _gradients(7)
+    largest = max(np.linalg.norm(g) for g in exact.values())
+    for name, ref in exact.items():
+        if _is_zero_bias(name):
+            assert max(np.linalg.norm(jgrads[name]), np.linalg.norm(got[name])
+                       ) <= GRAD_TOL * largest, name
+            continue
+        scale = np.linalg.norm(ref)
+        assert np.linalg.norm(got[name] - ref) <= GRAD_F64_TOL * scale, name
+        assert np.linalg.norm(jgrads[name] - ref) <= JAX_GRAD_TOL * scale, (
+            name)
+
+
+def test_samudra_gradients_match_jax_grad_directly_at_seed_0():
+    """The gradients at the weights of seed 0, where XLA's float32
+    gradient keeps to the float64 one: the port's within 1e-5 of each
+    gradient's norm of its float64 gradients, and within 1e-4 of
+    ``jax.grad``'s directly, as the test held before the float64
+    reference; the zero-gradient biases within 1e-4 of the largest
+    gradient's norm on both sides."""
+    got, exact, jgrads = _gradients(0)
+    largest = max(np.linalg.norm(g) for g in exact.values())
+    for name, ref in exact.items():
+        if _is_zero_bias(name):
+            assert max(np.linalg.norm(jgrads[name]), np.linalg.norm(got[name])
+                       ) <= GRAD_TOL * largest, name
+            continue
+        assert np.linalg.norm(got[name] - ref) <= (
+            GRAD_F64_TOL * np.linalg.norm(ref)), name
+        assert np.linalg.norm(got[name] - jgrads[name]) <= (
+            GRAD_TOL * np.linalg.norm(jgrads[name])), name
 
 
 def test_convolution_weights_round_trip_through_flax_layout():

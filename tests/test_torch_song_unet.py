@@ -10,8 +10,10 @@ weights are the port's (``init_weights``), converted with
 ``utils/convert.py`` and checked against ``jax.eval_shape`` of ``init``;
 the parameters that start near zero are redrawn so that they count.
 ``ace_tpu``'s side runs one jitted ``value_and_grad`` per network. Also:
-the converters both ways, the depthwise resampling's shapes, and the
-port's dropout keep rate."""
+the converters both ways, the depthwise resampling's shapes, the
+port's dropout keep rate, and SongUNetV2 and the DiffusionUNet in bf16
+(``compute_dtype: bfloat16``) against ``ace_tpu``'s bf16 and the port's
+float32."""
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ from ace_tpu.downscaling import song_unet as jax_song
 from ace_tpu.downscaling import swinir as jax_swinir
 from ace_tpu.downscaling import unet as jax_unet
 from ace_tpu_torch.downscaling import song_unet, swinir, unet
+from ace_tpu_torch.flagship import anomaly_error, gradient_error
 from ace_tpu_torch.models.layers import init_weights
 from ace_tpu_torch.utils.convert import (
     flax_params_to_state_dict,
@@ -218,3 +221,89 @@ def test_song_unet_dropout_keeps_its_rate_and_replays_under_checkpointing():
         grads.append([p.grad.clone() for p in module.parameters()])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+# the bf16 gates of the card-against-CPU references (PERF.md §2): each
+# output channel within 3e-2 of its spatial anomaly, each gradient within
+# 2e-2 of its norm (relative L2), here plus an allowance of the largest
+# gradient's norm for the gradients of rounding size. Against the port's
+# own float32 gradients 1e-3 of it (2.2e-4 needed); against ``ace_tpu``'s
+# bf16 gradients 2e-2 of it (1.5e-2 needed): XLA:CPU sums bias gradients
+# in bf16 (as ``XLA_BF16_SUMS`` of tests/test_torch_train.py), so that
+# ``head.bias`` is 5.0e-2 of its norm off the float32 gradient in
+# ``ace_tpu``, 3.4e-3 in the port
+BF16_OUT_TOL = 3e-2
+BF16_GRAD_TOL = 2e-2
+BF16_F32_ALLOWANCE = 1e-3
+BF16_NETS = {
+    "SongUNetV2": {"type": "unet_diffusion_song_v2", "config": {
+        "model_channels": 8, "channel_mult": [1, 2, 2], "num_blocks": 1,
+        "attn_resolutions": [8], "dropout": 0.0}},
+    "DiffusionUNet": {"type": "unet", "config": {
+        "base_channels": 8, "channel_mults": [1, 2], "num_res_blocks": 1,
+        "attn_levels": [1], "num_heads": 2}},
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_NETS))
+def test_bf16_networks_through_build_net_match_ace_tpu(name):
+    """``compute_dtype: bfloat16`` through each package's network builder
+    (the trainer's and the sampler's route) at 16x16, from the same
+    weights: the port's bf16 forward against ``ace_tpu``'s bf16 forward
+    and the port's float32 forward, and every parameter's gradient of
+    ``sum(out * w)`` against both sides' (``ace_tpu``'s bf16, the port's
+    float32), at the bf16 gates."""
+    from ace_tpu.core.config import from_dict as jax_from_dict
+    from ace_tpu.downscaling import models as jax_models
+    from ace_tpu_torch.core.config import from_dict
+    from ace_tpu_torch.downscaling import models
+
+    def selector(package_from_dict, package, dtype):
+        spec = BF16_NETS[name]
+        return package_from_dict(package.DiffusionModuleSelector, {
+            "type": spec["type"],
+            "config": {**spec["config"], "compute_dtype": dtype}})
+
+    module = models.build_net(selector(from_dict, models, "bfloat16"), 2, 3,
+                              (16, 16), device="cpu")
+    f32 = models.build_net(selector(from_dict, models, "float32"), 2, 3,
+                           (16, 16), device="cpu")
+    net = jax_models._build_net(selector(jax_from_dict, jax_models,
+                                        "bfloat16"), 2, 3, (16, 16))
+    x, cond, noise = _song_inputs()
+    params = _weights(module)
+    f32.load_state_dict(module.state_dict())
+    template = jax.eval_shape(net.init, jax.random.PRNGKey(0), x, cond,
+                              noise)
+    assert _shapes(template) == _shapes(params)
+    args = [torch.as_tensor(a) for a in (x, cond, noise)]
+    out = module(*args)
+    w = _draw(out.shape, 7)
+    (out.float() * torch.as_tensor(w)).sum().backward()
+
+    def loss(p):
+        y = net.apply(p, x, cond, noise).astype(jnp.float32)
+        return jnp.sum(y * w), y
+
+    (_, ref), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    ref = torch.from_numpy(np.array(ref))
+    exact = f32(*args).detach()
+    for label, a, b in (("ace_tpu", out.detach(), ref),
+                        ("port vs float32", out.detach(), exact),
+                        ("ace_tpu vs float32", ref, exact)):
+        err = anomaly_error(a, b, (1, 2))
+        assert err <= BF16_OUT_TOL, (label, err)
+    (f32(*args) * torch.as_tensor(w)).sum().backward()
+    exact = {k: p.grad for k, p in f32.named_parameters()}
+    got = {k: p.grad for k, p in module.named_parameters()}
+    want = flax_params_to_state_dict(jax.tree_util.tree_map(
+        np.asarray, grads))
+    largest = max(float(g.norm()) for g in exact.values())
+    for label, ref, allowance in (("float32", exact, BF16_F32_ALLOWANCE),
+                                  ("ace_tpu", want, BF16_GRAD_TOL)):
+        errs = gradient_error(got, {k: ref[k] for k in got})
+        excess = {k: errs[k] * float(ref[k].norm()) - (
+            BF16_GRAD_TOL * float(ref[k].norm()) + allowance * largest)
+            for k in errs}
+        worst = max(excess, key=excess.get)
+        assert excess[worst] <= 0, (label, worst, errs[worst])

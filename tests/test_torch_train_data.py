@@ -129,11 +129,17 @@ def test_loader_matches_ace_tpu(synthetic, options):
 
 
 def test_loader_refuses_a_mesh(synthetic):
+    """A data axis that does not divide the global batch is refused when
+    the loader is built, with ``ace_tpu``'s error."""
+    from ace_tpu_torch.parallel.distributed import BatchPlacement
+    from ace_tpu_torch.parallel.mesh import MeshConfig
+
     config = from_dict(DataLoaderConfig, {
-        "dataset": {"data_path": str(synthetic.data_dir)}})
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        "dataset": {"data_path": str(synthetic.data_dir)}, "batch_size": 3})
+    placement = BatchPlacement(MeshConfig().build(2, 0), "cpu")
+    with pytest.raises(ValueError, match="not divisible by the data mesh"):
         config.build(DataRequirements(names=NAMES, n_timesteps=2),
-                     sharding=object())
+                     sharding=placement)
 
 
 def _atmosphere(nz, rng, batch=2):
@@ -525,7 +531,7 @@ def test_checkpoint_writer_gives_the_bytes_of_packb(tmp_path):
 
 
 @pytest.mark.parametrize("extra, error, match", [
-    ({"mesh": {"data": 2}}, NotImplementedError, "Multi-GPU"),
+    ({"mesh": {"h": 2, "w": 1}}, NotImplementedError, "item 5b"),
     ({"logging": {"log_to_wandb": True}}, NotImplementedError,
      "Weights & Biases"),
 ])

@@ -256,7 +256,9 @@ def test_chip_smoke_path_r_runs_on_the_cpu(route, monkeypatch, capsys):
     """``chip_smoke.py``'s path R at a small size on the CPU: the shipped
     training config's variables and corrector at 16x32, embed 16, 2
     layers, through ``main`` on netCDF files (written with h5py or held in
-    host memory by the script's stand-in) and a resume; its gates hold."""
+    host memory by the script's stand-in) and a resume; its gates hold;
+    then path P-1 on a gloo process group of one rank, bit for bit as the
+    first run's epoch."""
     import chip_smoke
     from ace_tpu_torch.ops import dhconv_filter as k1
 
@@ -273,6 +275,7 @@ def test_chip_smoke_path_r_runs_on_the_cpu(route, monkeypatch, capsys):
     assert len(rates) == 2 and min(rates) > 0 and free > 0
     out = capsys.readouterr().out
     assert "checksums equal" in out and "write ckpt.msgpack" in out
+    assert "path P-1" in out and "on a gloo group of one rank" in out
     assert ("held in host memory" in out) == (route == "memory")
     assert sys.modules["h5py"].__name__ == "h5py"
 
